@@ -1,0 +1,626 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU and check it.
+
+Run from the root of a checkout: ``python3 chip_smoke.py``.  It needs one
+CUDA card, the CUDA toolkit (``nvcc``) and the checkout's ``src/``; without a
+card, or alone in a directory, it exits non-zero before printing a result.
+
+Phases (any failed check exits non-zero; nothing is caught and passed over):
+
+1. device check and kernel build, one ``nvcc`` per kernel, all started
+   together (``-Xptxas -v`` reports printed);
+2. each kernel against its plain PyTorch version on the card at the main
+   path's shapes: RMAT20 (``totem_rmat.RMAT_MEDIUM``, 2^20 vertices, 16
+   edges each), 2 partitions, HIGH, ``block_e=1024``, reverse edges, Q=8.
+   The fused superstep for all six message kinds: min kinds bit for bit,
+   sum kinds against a float64 evaluation of the plain version within the
+   kernel's own f32 error bound (below).  The bottom-up scan on the
+   engine's transposed rows in its three modes (BFS's early exit, CC's
+   min, SSSP's min_plus): bit for bit, counts included.  Two launches of
+   each bit-equal;
+3. the main path at that size through the user entry points, with the
+   engine's defaults (min algorithms direction optimized), fused backend
+   against the reference backend on the card: ``bfs_batched`` and
+   ``sssp_batched`` (Q=8 seeded sources), ``pagerank`` (20 iterations),
+   ``betweenness_centrality`` (one source), ``connected_components`` (on
+   the symmetrized graph).  Min algorithms bit for bit with equal steps,
+   both backends also against plain push (``direction_switch=False`` on
+   the reference backend, no kernel).  PageRank and BC against a float64
+   run of the reference backend, within a fixed relative error (2e-6 and
+   1e-6) with equal steps; the reference backend's own error is printed.
+   The fused kernel must launch in every fused run and the scan kernel on
+   the path.  Then the fused backend with and without the direction vote,
+   timed in turns, and BFS and SSSP forced to pull, against plain push;
+4. the numpy oracles at RMAT12 on the card, all five algorithms.
+
+Why sums are held to float64 and not to the plain f32 version: at RMAT20 a
+hub sums ~10^4-10^5 messages, and two f32 summation orders (the kernel's
+fixed order, the plain version's atomics) differ by up to ~1e-5 relative,
+beyond the 1e-6 the scale-10 tests use.  The kernel's sum is a fixed tree:
+at most ``block_e/128`` sequential adds in a thread, 5 warp-scan levels, 4
+adds across warps, one carry, and two adds per block a segment spans in the
+merge, plus two roundings of the message itself; so its error is at most
+``depth * 2^-24 * sum|messages|`` with that depth.
+
+The line before the last is the kernels' JSON record; the last line is
+``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SEED = 20
+Q = 8
+BLOCK_E = 1024
+PR_ITERS = 20
+HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
+F32_OPS_PER_S = 67e12        # H100 SXM, f32 outside the tensor cores
+UNIT_ROUNDOFF = 2.0 ** -24
+# fused vs float64, max relative error (measured 4.3e-7 and 2.1e-7)
+SUM_LIMITS = {"pagerank": 2e-6, "betweenness_centrality": 1e-6}
+KERNELS = {
+    "fused_superstep": ("src/repro_torch/kernels/csrc/fused_superstep.cu",
+                        "src/repro/kernels/fused_superstep.py:146"),
+    "bottomup_scan": ("src/repro_torch/kernels/csrc/bottomup.cu",
+                      "src/repro/kernels/bottomup.py:113"),
+}
+# bottom-up scan modes on the path: (program, semiring, early exit)
+SCAN_MODES = {"bfs": ("min", True), "cc": ("min", False),
+              "sssp": ("min_plus", False)}
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+class Checks:
+    """Collects failed checks; the run exits non-zero if any failed."""
+
+    def __init__(self):
+        self.failed = []
+
+    def __call__(self, ok: bool, what: str) -> None:
+        log(("PASS " if ok else "FAIL ") + what)
+        if not ok:
+            self.failed.append(what)
+
+
+def max_abs_err(a, b) -> float:
+    """max |a - b| over entries, equal infinities counting as 0."""
+    import torch
+    a, b = a.double(), b.double()
+    diff = torch.where(a == b, torch.zeros_like(a), (a - b).abs())
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def max_rel_err(x, ref) -> float:
+    """max |x - ref| / |ref| over entries (0/0 counting as 0)."""
+    import numpy as np
+    x, ref = np.asarray(x, np.float64), np.asarray(ref, np.float64)
+    diff = np.abs(x - ref)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        return float(np.max(np.where(diff == 0, 0.0, diff / np.abs(ref))))
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean time of ``fn`` from CUDA events over ``reps`` calls, warmed."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def kernel_inputs(kind, pg, blk, rng, device):
+    """Inputs of one kind at the main path's shapes: state made from the
+    seed with every branch of the message taken (frontier and not, +inf,
+    inactive, zero sigma); PageRank's inverse degrees from the graph."""
+    import numpy as np
+    import torch
+
+    shape = (Q, pg.num_parts, pg.v_max)
+    levels = rng.choice(np.array([0, 1, 2, 3, np.inf], np.float32), shape)
+    active = (rng.random(shape) < 0.3).astype(np.float32)
+    consts = []
+    if kind == "bfs":
+        cols = [levels]
+    elif kind == "sssp":
+        dist = rng.uniform(0, 64, shape).astype(np.float32)
+        dist[rng.random(shape) < 0.5] = np.inf
+        cols = [dist, active]
+    elif kind == "cc":
+        cols = [rng.integers(0, pg.num_vertices, shape).astype(np.float32),
+                active]
+    elif kind == "pagerank":
+        inv = np.where(pg.out_deg > 0, 1.0 / np.maximum(pg.out_deg, 1.0), 0)
+        rank = rng.uniform(0.5, 1.5, shape) / pg.num_vertices
+        cols = [rank.astype(np.float32),
+                np.broadcast_to(inv, shape).astype(np.float32)]
+    elif kind == "bc_fwd":
+        cols = [levels, rng.integers(1, 50, shape).astype(np.float32)]
+    else:
+        cols = [levels, rng.integers(0, 50, shape).astype(np.float32),
+                rng.random(shape, dtype=np.float32) * 8]
+        consts = [np.full(shape[:2], 4.0, np.float32)]
+    vstate = np.stack(cols, axis=2)                   # [Q, Pl, K, V]
+    scal = np.stack([np.full(shape[:2], 1.0, np.float32)] + consts, axis=2)
+
+    def put(x, dtype):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
+                               device=device)
+
+    return dict(vstate=put(vstate, torch.float32),
+                scal=put(scal, torch.float32),
+                src=put(blk.src, torch.int32),
+                local=put(blk.local, torch.int32),
+                mask=put(blk.mask, torch.int32),
+                weight=(put(blk.weight, torch.float32)
+                        if blk.weight is not None else None),
+                base=put(blk.base, torch.int32))
+
+
+def max_blocks_per_segment(blk) -> int:
+    """The most edge blocks one segment's edges fall in (a hub's span)."""
+    import numpy as np
+
+    ids = blk.base[:, :, None] + blk.local.reshape(blk.base.shape + (-1,))
+    most = 1
+    for first, last in zip(ids[:, :, 0], ids[:, :, -1]):
+        per_block = np.concatenate([first, last[last != first]])
+        most = max(most, int(np.bincount(per_block).max()))
+    return most
+
+
+def sum_depth(blk) -> int:
+    """Roundings on the longest path of the kernel's summation tree, plus
+    two for forming the message (see the module docstring)."""
+    return blk.block_e // 128 + 5 + 4 + 1 + 2 * max_blocks_per_segment(blk) + 2
+
+
+def bound_ms(kind, pg, blk) -> float:
+    """Least time for one launch: bytes moved (topology once, each gathered
+    state array once, the accumulator once) over the memory rate, or the
+    message and reduce operations over the f32 rate, whichever is larger."""
+    from repro_torch.kernels.fused_superstep import KINDS
+
+    spec = KINDS[kind]
+    pl, e_pad = blk.src.shape
+    topo = pl * e_pad * (12 + (4 if spec.use_weight else 0))
+    state = spec.num_gather * Q * pl * pg.v_max * 4
+    out = Q * pl * pg.seg_count * 4
+    ops = Q * pl * int(blk.mask.sum()) * 4
+    return 1e3 * max((topo + state + out) / HBM_BYTES_PER_S,
+                     ops / F32_OPS_PER_S)
+
+
+def _edge_message(kind, num_vertices):
+    """The port's EdgeMessage of each kernel kind."""
+    import importlib
+
+    def alg(name):   # the package re-exports functions named like modules
+        return importlib.import_module(f"repro_torch.algorithms.{name}")
+
+    return {
+        "bfs": lambda: alg("bfs").BFS_PROGRAM,
+        "sssp": lambda: alg("sssp").SSSP_PROGRAM,
+        "cc": lambda: alg("cc").CC_PROGRAM,
+        "pagerank": lambda: alg("pagerank").make_pagerank_program(
+            num_vertices),
+        "bc_fwd": lambda: alg("bc").FORWARD_PROGRAM,
+        "bc_bwd": lambda: alg("bc").BACKWARD_PROGRAM,
+    }[kind]().edge_msg
+
+
+def scan_inputs(mode, pg, tc, rng, device):
+    """Messages of one bottom-up mode over the engine's transposed rows,
+    made from the seed: BFS frontiers of a few densities (every live
+    message is step + 1, the uniform licence), CC labels and SSSP distances
+    with half the sources inactive; a skip mask of visited rows."""
+    import numpy as np
+    import torch
+
+    x_len = pg.num_parts * pg.v_max
+    if mode == "bfs":
+        dens = rng.choice(np.array([0.001, 0.05, 0.3, 0.6]), size=(Q, 1))
+        x = np.where(rng.random((Q, x_len)) < dens, 2.0, np.inf)
+    elif mode == "cc":
+        x = rng.integers(0, pg.num_vertices, (Q, x_len)).astype(np.float64)
+        x[rng.random((Q, x_len)) < 0.5] = np.inf
+    else:
+        x = rng.uniform(0, 64, (Q, x_len))
+        x[rng.random((Q, x_len)) < 0.5] = np.inf
+
+    def put(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=device)
+
+    return dict(row_ptr=put(tc.row_ptr, torch.int32),
+                col=put(tc.col, torch.int32),
+                val=(put(tc.val, torch.float32) if mode == "sssp" else None),
+                x=put(x, torch.float32),
+                skip=put(rng.random((Q, x_len)) < 0.4, torch.bool))
+
+
+def scan_bound_ms(x, scanned, semiring) -> float:
+    """Least time for one scan launch: row_ptr once, the col (and val)
+    slots this run's scans reach, each row's slots once for all queries, x
+    once, y and scanned written once; or a compare (and an add) per scanned
+    slot over the f32 rate, whichever is larger."""
+    q, x_len = x.shape
+    v = scanned.shape[1]
+    per_slot = 2 if semiring == "min_plus" else 1
+    slots = int(scanned.max(0).values.sum())
+    moved = 4 * (v + 1) + 4 * per_slot * slots + 4 * q * x_len + 8 * q * v
+    ops = per_slot * int(scanned.sum())
+    return 1e3 * max(moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        log("FAIL: torch.cuda.is_available() is False; this script needs a "
+            "CUDA card")
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    try:
+        import numpy as np
+
+        from repro_torch.algorithms import (bc_reference, betweenness_centrality,
+                                            bfs_batched, bfs_reference,
+                                            cc_reference, connected_components,
+                                            pagerank, pagerank_reference,
+                                            sssp_batched, sssp_reference,
+                                            symmetrize)
+        from repro_torch.configs.totem_rmat import RMAT_MEDIUM
+        from repro_torch.core import graph as G
+        from repro_torch.core import partition as PT
+        from repro_torch.core.bsp import BSPEngine
+        from repro_torch.kernels import _build
+        from repro_torch.kernels import bottomup as kbu
+        from repro_torch.kernels import fused_superstep as kfs
+        from repro_torch.kernels.ops import bottomup_scan_op
+        from repro_torch.kernels.ref import (bottomup_scan_ref,
+                                             fused_superstep_ref)
+    except ImportError as exc:
+        log(f"FAIL: the port is not beside this script ({exc}); run it from "
+            f"the root of a checkout")
+        return 2
+
+    check = Checks()
+    dev = torch.device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else (
+        f"nvidia-smi failed: {smi.stderr.strip()}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]}")
+    log(f"card: {card}")
+
+    # -- phase 1: build ------------------------------------------------------
+    t0 = time.perf_counter()
+    built = _build.build_all([kfs.SOURCE, kbu.SOURCE])
+    log(f"[build] {len(built)} kernels in {time.perf_counter() - t0:.1f} s")
+    for path, build_log in built.values():
+        log(f"[build] {path.name}")
+        log(build_log.strip() or "[build] (cached)")
+
+    # -- host setup ----------------------------------------------------------
+    t0 = time.perf_counter()
+    g = G.rmat(RMAT_MEDIUM.scale, RMAT_MEDIUM.edge_factor, seed=SEED)
+    t_gen = time.perf_counter() - t0
+    gw = g.with_uniform_weights(seed=SEED)
+    t0 = time.perf_counter()
+    pg = PT.partition(gw, 2, PT.HIGH, include_reverse=True)
+    t_part = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gs = symmetrize(g)
+    pgs = PT.partition(gs, 2, PT.HIGH)
+    t_cc = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    blks = {"fwd": PT.build_block_metadata(pg.fwd, block_e=BLOCK_E),
+            "rev": PT.build_block_metadata(pg.rev, block_e=BLOCK_E)}
+    t_blk = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tcs = {"fwd": PT.build_transposed_csc(pg.fwd, pg.v_max),
+           "cc": PT.build_transposed_csc(pgs.fwd, pgs.v_max)}
+    tc_graphs = {"fwd": pg, "cc": pgs}
+    t_csc = time.perf_counter() - t0
+    log(f"[host] {RMAT_MEDIUM.name}: V={g.num_vertices} E={g.num_edges}; "
+        f"generate {t_gen:.2f} s, partition fwd+rev {t_part:.2f} s, "
+        f"symmetrize+partition (CC) {t_cc:.2f} s, block metadata "
+        f"{t_blk:.2f} s, transposed rows (fwd + CC) {t_csc:.2f} s")
+    log(f"[host] P=2 HIGH: v_max={pg.v_max} e_max={pg.fwd.e_max} "
+        f"o_max={pg.fwd.o_max} seg={pg.seg_count} "
+        f"nb={blks['fwd'].num_blocks} span(fwd)={blks['fwd'].span_req} "
+        f"span(rev)={blks['rev'].span_req}")
+    for name, tc in tcs.items():
+        tpg = tc_graphs[name]
+        ell_gb = tpg.num_parts * tpg.v_max * tc.kmax * 4 / 1e9
+        log(f"[host] transposed rows ({name}): nnz={tc.nnz} kmax={tc.kmax}; "
+            f"the JAX package's ELL block [P, v_max, kmax] would hold "
+            f"{ell_gb:.1f} GB of int32 ids")
+
+    # -- phase 2: kernel vs plain at the main path's shapes -----------------
+    rng = np.random.default_rng(SEED)
+    kernel_rows = {}
+    worst_err = 0.0
+    for kind, spec in kfs.KINDS.items():
+        d = "rev" if kind == "bc_bwd" else "fwd"
+        blk = blks[d]
+        x = kernel_inputs(kind, pg, blk, rng, dev)
+        dst_ext = torch.as_tensor(getattr(pg, d).dst_ext, dtype=torch.int64,
+                                  device=dev)
+        msg = _edge_message(kind, pg.num_vertices)
+        weight = x["weight"] if spec.use_weight else None
+
+        def kernel():
+            return kfs.fused_superstep(
+                kind, x["vstate"], x["scal"], x["src"], x["local"], x["mask"],
+                weight, x["base"], num_segments=pg.seg_count, block_e=BLOCK_E)
+
+        def plain(m=msg, dtype=torch.float32):
+            return fused_superstep_ref(
+                m, x["vstate"].to(dtype), None if weight is None
+                else weight.to(dtype), x["scal"].to(dtype), x["src"],
+                x["mask"], dst_ext, num_segments=pg.seg_count,
+                combine=spec.combine)
+
+        got, again, want = kernel(), kernel(), plain()
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        worst_err = max(worst_err, err)
+        if spec.combine == "min":
+            check(torch.equal(got, want), f"[kernel] {kind}: bit-equal to "
+                  f"the plain version (max |err| {err})")
+        else:
+            exact = plain(dtype=torch.float64)
+            mag = plain(dataclasses.replace(
+                msg, fn=lambda *a, f=msg.fn: f(*a).abs()), torch.float64)
+            depth = sum_depth(blk)
+            slack = (got.double() - exact).abs() - (
+                1.01 * depth * UNIT_ROUNDOFF * mag)
+            plain_rel = max_rel_err(want.cpu(), exact.cpu())
+            kern_rel = max_rel_err(got.cpu(), exact.cpu())
+            check(bool((slack <= 0).all()),
+                  f"[kernel] {kind}: within its f32 bound ({depth} "
+                  f"roundings x 2^-24 x sum|msg|) of float64; max rel err "
+                  f"kernel {kern_rel:.3e}, plain f32 {plain_rel:.3e}; "
+                  f"kernel vs plain max |err| {err}")
+            del exact, mag, slack
+        check(torch.equal(got, again), f"[kernel] {kind}: two launches "
+              f"bit-equal")
+        ms = cuda_ms(kernel, 20)
+        plain_ms = cuda_ms(plain, 5)
+        bms = bound_ms(kind, pg, blk)
+        kernel_rows[kind] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms)
+        log(f"[kernel] {kind}: Q={Q} kernel {ms:.4f} ms, plain {plain_ms:.4f}"
+            f" ms, bound {bms:.4f} ms (bytes), {bms / ms:.1%} of bound")
+        del x, got, again, want
+    torch.cuda.empty_cache()
+
+    scan_rows = {}
+    scan_err = 0.0
+    for mode, (semiring, early) in SCAN_MODES.items():
+        which = "cc" if mode == "cc" else "fwd"
+        tc = tcs[which]
+        x = scan_inputs(mode, tc_graphs[which], tc, rng, dev)
+
+        def scan(skip=None):
+            return bottomup_scan_op(x["row_ptr"], x["col"], x["val"], x["x"],
+                                    semiring=semiring, early_exit=early,
+                                    skip=skip)
+
+        def plain():
+            return bottomup_scan_ref(x["row_ptr"], x["col"], x["val"],
+                                     x["x"], semiring=semiring,
+                                     early_exit=early)
+
+        (y, cnt), (y2, cnt2), (want_y, want_cnt) = scan(), scan(), plain()
+        y_s, cnt_s = scan(x["skip"])
+        torch.cuda.synchronize()
+        err = max_abs_err(y, want_y)
+        scan_err = max(scan_err, err)
+        check(torch.equal(y, want_y) and torch.equal(cnt, want_cnt),
+              f"[kernel] bottomup {mode} ({semiring}, early exit {early}): "
+              f"y and scanned bit-equal to the plain version (max |err| "
+              f"{err}, scanned {int(cnt.sum())} of {Q * tc.nnz} slots)")
+        check(torch.equal(y, y2) and torch.equal(cnt, cnt2)
+              and torch.equal(y_s, y) and torch.equal(
+                  cnt_s, torch.where(x["skip"] & early, 0, cnt)),
+              f"[kernel] bottomup {mode}: two launches bit-equal; skip "
+              f"zeroes only the counts")
+        ms = cuda_ms(scan, 20)
+        plain_ms = cuda_ms(plain, 5)
+        bms = scan_bound_ms(x["x"], cnt, semiring)
+        scan_rows[mode] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms)
+        log(f"[kernel] bottomup {mode}: Q={Q} kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {bms:.4f} ms (bytes), "
+            f"{bms / ms:.1%} of bound")
+        del x, y, y2, want_y, cnt, cnt2, want_cnt, y_s, cnt_s
+    torch.cuda.empty_cache()
+
+    # -- phase 3: the main path at RMAT20 ------------------------------------
+    sources = np.random.default_rng(SEED).choice(
+        g.num_vertices, size=Q, replace=False)
+    engines = {b: BSPEngine(pg, backend=b, block_e=BLOCK_E)
+               for b in ("reference", "fused")}
+    cc_engines = {b: BSPEngine(pgs, backend=b, block_e=BLOCK_E)
+                  for b in ("reference", "fused")}
+    runs = {
+        "bfs_batched": lambda e, _: bfs_batched(e, sources),
+        "sssp_batched": lambda e, _: sssp_batched(e, sources),
+        "pagerank": lambda e, _: (pagerank(e, PR_ITERS), None),
+        "betweenness_centrality": lambda e, _: betweenness_centrality(
+            e, int(sources[0])),
+        "connected_components": lambda _, c: connected_components(c),
+    }
+    counters = (kfs.fused_superstep, kbu.bottomup_scan)
+    outs = {}
+    for fn in counters:
+        fn.launches = 0
+    for name, run in runs.items():
+        outs[name] = {}
+        for backend in ("reference", "fused"):
+            before = [fn.launches for fn in counters]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res, steps = run(engines[backend], cc_engines[backend])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            used = [fn.launches - b for fn, b in zip(counters, before)]
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            outs[name][backend] = (np.asarray(res), np.asarray(steps))
+            eng = (cc_engines if name == "connected_components"
+                   else engines)[backend]
+            stats = eng.last_direction_stats
+            log(f"[main] {name} {backend}: {wall:.3f} s wall, steps "
+                f"{np.asarray(steps).tolist()}, launches fused_superstep "
+                f"{used[0]} bottomup_scan {used[1]}, peak {peak:.2f} GiB"
+                + ("" if stats is None else
+                   f", edges examined {stats['edges_examined'].tolist()}, "
+                   f"switches {stats['switches'].tolist()}"))
+            if backend == "fused":
+                check(used[0] > 0, f"[main] {name}: fused run launched the "
+                      f"fused kernel ({used[0]} times)")
+    launches = {fn.__name__: fn.launches for fn in counters}
+    log(f"[main] launches on the main path: {launches}")
+    check(launches["bottomup_scan"] > 0, "[main] the bottom-up scan kernel "
+          "launched on the main path")
+
+    # yardsticks: plain push (no kernel) for the min algorithms, float64 on
+    # the reference backend for the sums; the fused backend without the
+    # direction vote, timed beside the main path's runs
+    plain = BSPEngine(pg, direction_switch=False)
+    plain_cc = BSPEngine(pgs, direction_switch=False)
+    push = BSPEngine(pg, backend="fused", block_e=BLOCK_E,
+                     direction_switch=False)
+    push_cc = BSPEngine(pgs, backend="fused", block_e=BLOCK_E,
+                        direction_switch=False)
+    yardstick = {}
+    for name, run in runs.items():
+        (r_res, r_steps) = outs[name]["reference"]
+        (f_res, f_steps) = outs[name]["fused"]
+        check(bool(np.isfinite(f_res).any()) and f_res.shape == r_res.shape,
+              f"[main] {name}: output shape {f_res.shape}, finite values")
+        same_steps = np.array_equal(f_steps, r_steps)
+        if name in SUM_LIMITS:
+            exact = (pagerank(engines["reference"], PR_ITERS,
+                              dtype=torch.float64)
+                     if name == "pagerank" else betweenness_centrality(
+                         engines["reference"], int(sources[0]),
+                         dtype=torch.float64)[0])
+            ref_rel = max_rel_err(r_res, exact)
+            fus_rel = max_rel_err(f_res, exact)
+            check(fus_rel <= SUM_LIMITS[name] and same_steps,
+                  f"[main] {name}: fused max rel err vs float64 {fus_rel:.3e}"
+                  f" <= {SUM_LIMITS[name]:.0e} (reference backend's "
+                  f"{ref_rel:.3e}); fused vs reference max |diff| "
+                  f"{np.max(np.abs(f_res - r_res)):.3e}; equal steps")
+            continue
+        p_res, p_steps = (np.asarray(a) for a in run(plain, plain_cc))
+        yardstick[name] = (p_res, p_steps)
+        u_res, u_steps = (np.asarray(a) for a in run(push, push_cc))
+        check(np.array_equal(f_res, r_res) and same_steps
+              and np.array_equal(f_res, p_res)
+              and np.array_equal(f_steps, p_steps)
+              and np.array_equal(u_res, p_res)
+              and np.array_equal(u_steps, p_steps),
+              f"[main] {name}: fused == reference == plain push == fused "
+              f"push bit for bit, equal steps")
+
+    # the direction vote end to end: the fused backend with it (the
+    # default) and without, both warm, in turns (push, vote, vote, push)
+    for name in ("bfs_batched", "sssp_batched", "connected_components"):
+        sides = {"push": (push, push_cc),
+                 "vote": (engines["fused"], cc_engines["fused"])}
+        walls = {"push": [], "vote": []}
+        for side in ("push", "vote", "vote", "push"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[name](*sides[side])
+            torch.cuda.synchronize()
+            walls[side].append(time.perf_counter() - t0)
+        log(f"[dir] {name} fused, in turns: push only "
+            f"{walls['push'][0]:.4f} / {walls['push'][1]:.4f} s, with the "
+            f"vote {walls['vote'][0]:.4f} / {walls['vote'][1]:.4f} s")
+    del engines, cc_engines, plain_cc, push, push_cc
+    torch.cuda.empty_cache()
+
+    # BFS and SSSP forced to pull (early-exit and min_plus scans at RMAT20)
+    pull = BSPEngine(pg, backend="fused", block_e=BLOCK_E, direction="pull")
+    for name in ("bfs_batched", "sssp_batched"):
+        before = kbu.bottomup_scan.launches
+        res, steps = runs[name](pull, None)
+        used = kbu.bottomup_scan.launches - before
+        p_res, p_steps = yardstick[name]
+        check(used > 0 and np.array_equal(res, p_res)
+              and np.array_equal(steps, p_steps),
+              f"[pull] {name} forced to pull on the fused backend: bit-equal "
+              f"to plain push with equal steps ({used} scan launches, edges "
+              f"examined {pull.last_direction_stats['edges_examined']})")
+    del pull, plain
+    torch.cuda.empty_cache()
+
+    # -- phase 4: numpy oracles at RMAT12 on the card ------------------------
+    small = G.rmat(12, 16, seed=SEED)
+    sw = small.with_uniform_weights(seed=SEED)
+    ss = symmetrize(small)
+    eng = BSPEngine(PT.partition(sw, 2, PT.HIGH, include_reverse=True),
+                    fused=True, block_e=BLOCK_E)
+    cc_eng = BSPEngine(PT.partition(ss, 2, PT.HIGH), fused=True,
+                       block_e=BLOCK_E)
+    lv, _ = bfs_batched(eng, [0, 1])
+    check(np.array_equal(lv[1], bfs_reference(small, 1)),
+          "[oracle] rmat12 bfs == bfs_reference")
+    dist, _ = sssp_batched(eng, [0, 1])
+    check(np.allclose(dist[1], sssp_reference(sw, 1), rtol=1e-5),
+          "[oracle] rmat12 sssp within rtol=1e-5 of sssp_reference")
+    check(np.allclose(pagerank(eng, PR_ITERS),
+                      pagerank_reference(small, PR_ITERS),
+                      rtol=1e-4, atol=1e-7),
+          "[oracle] rmat12 pagerank within rtol=1e-4, atol=1e-7")
+    bc, _ = betweenness_centrality(eng, 0)
+    check(np.allclose(bc, bc_reference(small, 0), rtol=1e-3, atol=1e-3),
+          "[oracle] rmat12 bc within rtol=1e-3, atol=1e-3 of bc_reference")
+    labels, _ = connected_components(cc_eng)
+    check(np.array_equal(labels, cc_reference(ss)),
+          "[oracle] rmat12 cc == cc_reference")
+
+    if check.failed:
+        log(f"FAILED {len(check.failed)} check(s):")
+        for what in check.failed:
+            log("  " + what)
+        return 1
+    rows = {"fused_superstep": (kernel_rows["bfs"], worst_err),
+            "bottomup_scan": (scan_rows["cc"], scan_err)}
+    record = {"kernels": [dict(
+        name=name, route="cuda", source=KERNELS[name][0],
+        replaces=KERNELS[name][1], launches=launches[name],
+        max_abs_err=err, ms=row["ms"], plain_ms=row["plain_ms"],
+        bound_ms=row["bound_ms"], bound_by="bytes", library_ms=None)
+        for name, (row, err) in rows.items()]}
+    log(card)
+    log(json.dumps(record))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

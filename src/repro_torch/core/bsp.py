@@ -1,0 +1,630 @@
+"""The TOTEM BSP engine in PyTorch (paper §4), single device.
+
+Each BSP superstep is exactly the paper's cycle:
+
+  1. **compute** — every partition runs the algorithm's edge kernel on its
+     edges; messages to local destinations and to outbox slots are reduced
+     in one segment min/sum over the extended destination index (source-side
+     message reduction, §3.4, is implicit: local edges to the same remote
+     vertex share one outbox slot).
+  2. **communicate** — outboxes are exchanged with the symmetric inboxes of
+     the peer partitions (paper Fig. 6); on one device, a transpose.
+  3. **scatter** — inbox messages fold into the local accumulator.
+  4. **apply + vote** — per-vertex update; each query votes to finish.
+
+State is a dict of tensors whose leaves carry a leading query axis ``Q``:
+vertex leaves ``[Q, Pl, v_max]``, per-partition scalars ``[Q, Pl]``.  The
+graph topology is shared across the batch.  A converged query is frozen out
+of the apply step while the rest continue, so a batch reproduces each
+query's own trajectory, and per-query superstep counts are reported.
+
+Min-combine programs run **direction optimized** by default, as in the JAX
+package: each superstep every query votes for push (frontier vertices
+scatter along out-edges) or pull (every destination row scans its
+in-neighbours, ``kernels/bottomup.py``).  Both directions reduce the same
+values per destination under a min, so results are bit-equal either way;
+the vote only moves work.
+
+This is the port of ``repro.core.bsp``'s single-device engine with the
+``reference`` and ``fused`` backends.  Program callbacks take batched state
+directly (PyTorch has no ``vmap`` need here).  Python loops stand in for
+``lax.while_loop``/``fori_loop``; the converge loop reads the vote on the
+host once per superstep, and a direction-optimized superstep reads the
+direction votes.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.partition import (BlockMetadata, EdgeArrays,
+                                        PartitionedGraph, build_block_metadata,
+                                        build_transposed_csc)
+from repro_torch.core.perf_model import fit_shard_pull_thresholds
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.ops import bottomup_scan_op, fused_superstep_op
+from repro_torch.kernels.ref import MIN, SUM, segment_reduce_ref
+
+State = Dict[str, torch.Tensor]  # batched: leaves [Q, Pl, ...]
+
+REFERENCE = "reference"
+FUSED = "fused"
+BACKENDS = (REFERENCE, FUSED)
+
+__all__ = ["SUM", "MIN", "REFERENCE", "FUSED", "BACKENDS", "EdgeMessage",
+           "VertexProgram", "BSPEngine", "batch_state", "unbatch_state",
+           "num_queries", "gather_src"]
+
+
+def batch_state(state: State) -> State:
+    """Add a Q=1 query axis to every leaf (single-query compatibility)."""
+    return {k: torch.as_tensor(v)[None] for k, v in state.items()}
+
+
+def unbatch_state(state: State) -> State:
+    """Strip the query axis of a Q=1 batched state."""
+    return {k: v[0] for k, v in state.items()}
+
+
+def num_queries(state: State) -> int:
+    return int(next(iter(state.values())).shape[0])
+
+
+def _combine(combine: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return a + b if combine == SUM else torch.minimum(a, b)
+
+
+@dataclasses.dataclass(frozen=True)
+class EdgeMessage:
+    """Elementwise edge-message form of ``edge_fn``, which the fused backend
+    runs without materialising per-edge messages.
+
+    ``fn(vals, weight, step, consts) -> msgs``: ``vals`` maps each key in
+    ``gather`` to that state's value at the edge's *source*, ``weight`` is
+    the per-edge weight (present iff ``use_weight``), ``step`` the superstep
+    as float32, ``consts`` maps each key in ``consts`` to a per-partition
+    scalar.  Tensors broadcast (``[Q, Pl, E]`` values, ``[Q, Pl, 1]``
+    scalars); it must compute exactly what ``edge_fn`` computes per edge.
+    ``fn`` is the plain form (the CPU path and the kernel's yardstick);
+    ``kind`` names the same message's device form in the CUDA kernel
+    (``kernels/fused_superstep.py::KINDS``).  A fused engine on the card
+    raises for a message without a known ``kind``.
+
+    ``weight_op`` declares how the weight enters a min-combine message:
+    ``"add"`` (``fn(vals, w) == fn(vals, 0) + w``, the min_plus semiring)
+    lets the pull direction factor it out.  ``frontier_uniform`` declares
+    that every non-identity message of one superstep holds the same value
+    (BFS sends ``step + 1``): the first live parent a pull scan meets is
+    then the row minimum, and the scan stops there.
+    """
+
+    gather: Tuple[str, ...]
+    fn: Callable[..., torch.Tensor]
+    kind: Optional[str] = None
+    consts: Tuple[str, ...] = ()
+    use_weight: bool = False
+    weight_op: Optional[str] = None   # None | "add"
+    frontier_uniform: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class VertexProgram:
+    """An algorithm in TOTEM's callback form (paper Fig. 5), on batched state.
+
+    ``edge_fn(state, src, weight, step) -> msgs [Q, Pl, e_max]`` — the
+    per-edge part of ``alg_compute`` (inactive sources send the combine
+    identity).  ``apply_fn(state, acc, step) -> (new_state, finished [Q])``
+    — the per-vertex update on the reduced ``[Q, Pl, v_max]`` accumulator and
+    each query's vote to terminate.  ``edge_msg`` makes the program eligible
+    for the fused backend.
+    """
+
+    combine: str
+    edge_fn: Callable[[State, torch.Tensor, Optional[torch.Tensor], float],
+                      torch.Tensor]
+    apply_fn: Callable[[State, torch.Tensor, float],
+                       Tuple[State, torch.Tensor]]
+    max_steps: int = 1 << 30
+    use_reverse: bool = False
+    edge_msg: Optional[EdgeMessage] = None
+
+
+def gather_src(x: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """Per-edge source state: ``[Q, Pl, v_max]`` × ``[Pl, e_max]``."""
+    return torch.gather(x, 2, src.expand(x.shape[0], -1, -1))
+
+
+@dataclasses.dataclass(frozen=True)
+class _Dims:
+    num_parts: int       # global partition count P
+    v_max: int
+    e_max: int
+    o_max: int
+
+    @property
+    def seg(self) -> int:  # extended segment space per partition
+        return self.v_max + 1 + self.num_parts * self.o_max
+
+
+def _compute_reference(dims: _Dims, program: VertexProgram, edges: dict,
+                       state: State, step: int) -> torch.Tensor:
+    """Reference compute: gather → [Q, Pl, e_max] messages → scatter-reduce."""
+    msgs = program.edge_fn(state, edges["src"], edges.get("weight"),
+                           float(step))
+    return segment_reduce_ref(msgs, edges["dst_ext"], dims.seg,
+                              program.combine)
+
+
+def _compute_fused(dims: _Dims, program: VertexProgram, edges: dict,
+                   block_e: int, state: State, step: int) -> torch.Tensor:
+    """Fused compute: one kernel launch per superstep on the card, no
+    [Q, Pl, e_max] message array (kernels/fused_superstep.py)."""
+    spec = program.edge_msg
+    for k in spec.gather + spec.consts:
+        if state[k].is_floating_point() and state[k].dtype != torch.float32:
+            raise ValueError(
+                f"the fused backend computes in float32; state {k!r} is "
+                f"{state[k].dtype} (use backend='reference' for other "
+                f"precisions)")
+    vstate = torch.stack([state[k].float() for k in spec.gather], dim=2)
+    q, pl = vstate.shape[:2]
+    cols = [torch.full((q, pl), float(step), dtype=torch.float32,
+                       device=vstate.device)]
+    cols += [state[c].float() for c in spec.consts]
+    scal = torch.stack(cols, dim=2)                       # [Q, Pl, 1+consts]
+    weight = edges.get("weight_blk") if spec.use_weight else None
+    return fused_superstep_op(
+        spec, vstate, weight, scal, edges["blk_src"], edges["blk_local"],
+        edges["blk_mask"], edges["blk_base"], edges["dst_ext"],
+        num_segments=dims.seg, combine=program.combine, block_e=block_e)
+
+
+# ---------------------------------------------------------------------------
+# Direction-optimized traversal
+#
+# For min-combine programs a superstep runs top-down (push: every frontier
+# vertex scatters along its out-edges) or bottom-up (pull: every destination
+# row scans its in-neighbours, stopping at the first live parent when the
+# messages are uniform).  Both reduce the same values per destination under
+# a min, so the direction is a choice of work only.  The decision state
+# rides in the state dict as three [Q, P] leaves (direction, edges examined,
+# switches), which the converge loop freezes with the rest of a finished
+# query; ``execute`` adds them and strips them before the caller sees the
+# state.  Counters go to column 0, as on one shard of the JAX package.
+# ---------------------------------------------------------------------------
+
+_DOPT_KEYS = ("_dopt_dir", "_dopt_edges", "_dopt_switch")
+_DIR_PUSH = 0
+_DIR_PULL = 1
+_DIRECTIONS = {"auto": None, "push": _DIR_PUSH, "pull": _DIR_PULL}
+
+
+@dataclasses.dataclass(frozen=True)
+class _DoptCfg:
+    """A program's direction settings."""
+
+    semiring: str                 # "min" | "min_plus"
+    uniform: bool                 # EdgeMessage.frontier_uniform
+    forced: Optional[int] = None  # None = vote, else _DIR_PUSH/_DIR_PULL
+
+
+@dataclasses.dataclass(frozen=True)
+class _PullLayout:
+    """What the pull direction needs beside the push edges, built once per
+    engine: the transposed intra-partition rows, the vote's inputs, and the
+    edges of the boundary leg, which pushes in both directions."""
+
+    row_ptr: torch.Tensor          # [Pl * v_max + 1] int32
+    col: torch.Tensor              # [nnz] int32 flat source index
+    val: Optional[torch.Tensor]    # [nnz] f32 (min_plus) or None
+    vmask: torch.Tensor            # [Pl, v_max] bool real vertices
+    nreal: float                   # real vertices (>= 1)
+    deg: torch.Tensor              # [Pl, v_max] int64 out-degree
+    bnd: torch.Tensor              # [Pl, v_max] int64 boundary out-degree
+    threshold: float               # the vote's frontier density crossover
+    bnd_edges: Optional[dict]      # boundary-only push edges; None if none
+
+
+def _dopt_strip(state: State):
+    """Split the direction leaves out of the state before programs see it."""
+    if _DOPT_KEYS[0] not in state:
+        return state, None
+    user = {k: v for k, v in state.items() if k not in _DOPT_KEYS}
+    return user, {k: state[k] for k in _DOPT_KEYS}
+
+
+def _dopt_fold(dopt: dict, want: torch.Tensor, cnt: torch.Tensor) -> dict:
+    """Fold one superstep's directions ``want [Q]`` and examined edges
+    ``cnt [Q]`` into the carried leaves."""
+    prev = dopt["_dopt_dir"][:, 0]
+    switched = (prev >= 0) & (prev != want)
+    edges = dopt["_dopt_edges"].clone()
+    edges[:, 0] += cnt
+    switches = dopt["_dopt_switch"].clone()
+    switches[:, 0] += switched.to(switches.dtype)
+    return {"_dopt_dir": want[:, None].to(torch.int32).expand_as(
+                dopt["_dopt_dir"]).clone(),
+            "_dopt_edges": edges, "_dopt_switch": switches}
+
+
+def _dopt_want(forced: Optional[int], density: torch.Tensor,
+               unvisited: torch.Tensor, threshold: float) -> torch.Tensor:
+    """Per-query direction vote (``repro.core.bsp._dopt_want``).
+
+    Pull wins when the frontier is dense enough that row scans exit early
+    (density at or above the fitted ``threshold``) and outweighs the
+    unvisited mass, whose rows have no live parent and scan in full.
+    """
+    if forced is not None:
+        return torch.full(density.shape, forced, dtype=torch.int32,
+                          device=density.device)
+    pull = (density >= threshold) & (density > unvisited)
+    return torch.where(pull, _DIR_PULL, _DIR_PUSH).to(torch.int32)
+
+
+def _compute_pull(dims: _Dims, cfg: _DoptCfg, pull: _PullLayout,
+                  compute_push: Callable, state: State, xv: torch.Tensor,
+                  first: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pull compute: the boundary leg pushes (its messages ride the outbox
+    either way), the local region comes from the bottom-up scan.  Returns
+    the accumulator and each query's scanned slots."""
+    q, pl, v_max = xv.shape
+    if pull.bnd_edges is not None:
+        # intra edges masked out: outbox slots bit-equal to the full push's,
+        # the local region the identity
+        acc = compute_push(state, pull.bnd_edges)
+    else:
+        acc = torch.full((q, pl, dims.seg), math.inf, dtype=xv.dtype,
+                         device=xv.device)
+    # Under the uniform licence a visited row's value is final, so a
+    # sequential bottom-up pass skips it: it charges no scanned slots.
+    skip = (first != math.inf).reshape(q, pl * v_max) if cfg.uniform else None
+    val = pull.val if cfg.semiring == "min_plus" else None
+    y, scanned = bottomup_scan_op(
+        pull.row_ptr, pull.col, val, xv.reshape(q, pl * v_max),
+        semiring=cfg.semiring, early_exit=cfg.uniform, skip=skip)
+    acc[:, :, :v_max] = torch.minimum(acc[:, :, :v_max],
+                                      y.view(q, pl, v_max))
+    return acc, scanned.sum(1, dtype=torch.int64)
+
+
+def _compute_directed(dims: _Dims, program: VertexProgram, cfg: _DoptCfg,
+                      pull: _PullLayout, compute_push: Callable,
+                      state: State, step: int, dopt: dict
+                      ) -> Tuple[torch.Tensor, dict]:
+    """Vote per query, run push, pull or both (a mixed batch selects per
+    query), and fold the decisions into the direction leaves."""
+    spec = program.edge_msg
+    vvals = {k: state[k].float() for k in spec.gather}
+    vconsts = {c: state[c][:, :, None].float() for c in spec.consts}
+    w_ident = 0.0 if spec.use_weight else None   # weight_op "add"
+    # per-vertex messages: the push direction's per-edge messages are
+    # gathers of these values
+    xv = spec.fn(vvals, w_ident, float(step), vconsts).float()
+    act = (xv != math.inf) & pull.vmask
+    density = act.sum((1, 2)).float() / pull.nreal
+    first = vvals[spec.gather[0]]
+    unvisited = ((first == math.inf) & pull.vmask).sum((1, 2)).float() / (
+        pull.nreal)
+    want = _dopt_want(cfg.forced, density, unvisited, pull.threshold)
+    cnt_push = (act * pull.deg).sum((1, 2))
+    cnt_bnd = (act * pull.bnd).sum((1, 2))
+    picked = set(want.tolist())
+    if picked == {_DIR_PUSH}:
+        acc, cnt = compute_push(state), cnt_push
+    else:
+        acc, scanned = _compute_pull(dims, cfg, pull, compute_push, state, xv,
+                                     first)
+        cnt = scanned + cnt_bnd
+        if picked != {_DIR_PULL}:
+            sel = want == _DIR_PULL
+            acc = torch.where(sel[:, None, None], acc, compute_push(state))
+            cnt = torch.where(sel, cnt, cnt_push)
+    return acc, _dopt_fold(dopt, want, cnt)
+
+
+def _superstep(dims: _Dims, program: VertexProgram, edges: dict,
+               fused_block_e: Optional[int], state: State, step: int,
+               dopt_cfg: Optional[_DoptCfg] = None,
+               pull: Optional[_PullLayout] = None
+               ) -> Tuple[State, torch.Tensor]:
+    """One BSP superstep of the whole query batch over all partitions."""
+    combine = program.combine
+    state, dopt = _dopt_strip(state)
+
+    def compute_push(st, e=edges):
+        if fused_block_e is not None and program.edge_msg is not None:
+            return _compute_fused(dims, program, e, fused_block_e, st, step)
+        return _compute_reference(dims, program, e, st, step)
+
+    if dopt is not None:
+        acc, dopt = _compute_directed(dims, program, dopt_cfg, pull,
+                                      compute_push, state, step, dopt)
+    else:
+        acc = compute_push(state)
+    q, pl = acc.shape[:2]
+    v_max = dims.v_max
+    local_acc = acc[:, :, :v_max]
+    outbox = acc[:, :, v_max + 1:].reshape(q, pl, dims.num_parts, dims.o_max)
+
+    # -- communicate: outbox -> symmetric inbox (paper Fig. 6) --------------
+    inbox = outbox.transpose(1, 2)            # [Q, pl, P, o_max]
+
+    # -- scatter: one pass per peer; each local vertex has at most one slot
+    # per peer, so no segment receives two values in a pass and the sum
+    # order is fixed (the peer order) on every device.
+    racc = None
+    for r in range(dims.num_parts):
+        part = segment_reduce_ref(inbox[:, :, r], edges["inbox_dst"][:, r],
+                                  v_max + 1, combine)
+        racc = part if racc is None else _combine(combine, racc, part)
+    total = _combine(combine, local_acc, racc[:, :, :v_max])
+
+    # -- apply + vote (per query) -------------------------------------------
+    new_state, finished = program.apply_fn(state, total, float(step))
+    if dopt is not None:
+        new_state = dict(new_state, **dopt)
+    return new_state, finished
+
+
+def _edges_dict(ea: EdgeArrays, blk: Optional[BlockMetadata],
+                device: torch.device) -> dict:
+    def put(x, dtype):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
+                               device=device)
+
+    d = dict(src=put(ea.src, torch.int64), dst_ext=put(ea.dst_ext, torch.int64),
+             inbox_dst=put(ea.inbox_dst, torch.int64))
+    if ea.weight is not None:
+        d["weight"] = put(ea.weight, torch.float32)
+    if blk is not None:
+        d["blk_src"] = put(blk.src, torch.int32)
+        d["blk_local"] = put(blk.local, torch.int32)
+        d["blk_mask"] = put(blk.mask, torch.int32)
+        d["blk_base"] = put(blk.base, torch.int32)
+        if blk.weight is not None:
+            d["weight_blk"] = put(blk.weight, torch.float32)
+    return d
+
+
+def _run_batched_loop(step_fn: Callable, max_steps: int, state: State,
+                      q: int) -> Tuple[State, torch.Tensor]:
+    """Advance all Q queries together until every query votes finish.
+
+    A converged query is masked out of the apply step — its state freezes
+    bitwise — while unfinished queries continue.  Returns the final state
+    and per-query executed superstep counts ``steps [Q]``.
+    """
+    dev = next(iter(state.values())).device
+    fin = torch.zeros(q, dtype=torch.bool, device=dev)
+    steps_q = torch.zeros(q, dtype=torch.int32, device=dev)
+    step = 0
+    while step < max_steps and not bool(fin.all()):
+        new, vote = step_fn(state, step)
+        state = {k: torch.where(fin.view((-1,) + (1,) * (v.dim() - 1)),
+                                state[k], v) for k, v in new.items()}
+        steps_q += (~fin).to(torch.int32)
+        fin = fin | vote
+        step += 1
+    return state, steps_q
+
+
+def _not_in_slice(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet; ROADMAP.md Queue 1 item {item} brings it")
+
+
+class BSPEngine:
+    """Single-device engine: all P partitions stacked on axis 0.
+
+    ``backend="reference"`` — gather → [Q, Pl, e_max] messages → segment
+    reduce (the correctness oracle).  ``backend="fused"`` — the fused
+    superstep kernel for programs that carry an :class:`EdgeMessage`; a
+    program without one runs the reference compute.  ``fused=True`` is the
+    back-compat spelling.  The engine runs on ``cuda`` unless ``device``
+    names another device, and raises when no card is present.
+
+    Min-combine programs with an ``EdgeMessage`` (BFS, SSSP, CC) run
+    direction optimized on both backends: ``direction="auto"`` votes per
+    query and superstep with the perf model's fitted crossover
+    (``pull_threshold`` overrides it), ``"push"``/``"pull"`` force one
+    direction, and ``direction_switch=False`` runs plain push without the
+    vote.  Programs on the reverse edges, and state that is not float32,
+    run push only.  The transposed rows the pull direction scans are built
+    with the engine, like the fused block metadata.  ``execute`` records
+    per-query aggregates in ``last_direction_stats``: ``direction [Q, P]``
+    (the last superstep's; -1 if none ran), ``edges_examined [Q]`` and
+    ``switches [Q]``.
+
+    Not ported yet (each raises ``NotImplementedError``): ``backend=
+    "hybrid"``, ``tiered=`` and dynamic graphs.
+    """
+
+    def __init__(self, pg: PartitionedGraph, *, backend: Optional[str] = None,
+                 fused: bool = False, block_e: int = 1024,
+                 device: DeviceLike = None, direction: str = "auto",
+                 direction_switch: bool = True,
+                 pull_threshold: Optional[float] = None, tiered=None):
+        if backend is None:
+            backend = FUSED if fused else REFERENCE
+        if backend == "hybrid":
+            raise _not_in_slice("backend='hybrid'", "7")
+        if backend not in BACKENDS:
+            raise ValueError(f"unknown backend {backend!r}; pick one of "
+                             f"{BACKENDS}")
+        if direction not in _DIRECTIONS:
+            raise ValueError(f"direction must be one of {sorted(_DIRECTIONS)}"
+                             f", got {direction!r}")
+        if tiered is not None:
+            raise _not_in_slice("tiered=", "12")
+        if not isinstance(pg, PartitionedGraph):
+            raise _not_in_slice(
+                f"an engine over {type(pg).__name__} (dynamic graphs)", "11")
+        self.backend = backend
+        self.fused = backend == FUSED
+        self.device = resolve_device(device)
+        self.direction = direction
+        self._direction_switch = direction_switch
+        self._pull_threshold = pull_threshold
+        self._pull: Optional[_PullLayout] = None
+        self.last_direction_stats: Optional[dict] = None
+        self._block_e = block_e
+        self.pg = pg
+        self.dims = _Dims(pg.num_parts, pg.v_max, pg.fwd.e_max, pg.fwd.o_max)
+        fwd_blk = rev_blk = None
+        if self.fused:
+            fwd_blk = build_block_metadata(pg.fwd, block_e=block_e)
+            if pg.rev is not None:
+                rev_blk = build_block_metadata(pg.rev, block_e=block_e)
+        self._fwd = _edges_dict(pg.fwd, fwd_blk, self.device)
+        self._rev = (_edges_dict(pg.rev, rev_blk, self.device)
+                     if pg.rev is not None else None)
+        if direction_switch:
+            self._pull = self._build_pull_layout()
+
+    def edges_for(self, program: VertexProgram) -> dict:
+        if program.use_reverse:
+            if self._rev is None:
+                raise ValueError("program needs reverse edges; partition with "
+                                 "include_reverse=True")
+            return self._rev
+        return self._fwd
+
+    def dims_for(self, edges: dict) -> _Dims:
+        return _Dims(self.dims.num_parts, self.dims.v_max,
+                     edges["src"].shape[1], edges["inbox_dst"].shape[2])
+
+    # ------------------ direction-optimized traversal ----------------------
+
+    def _dopt_cfg_for(self, program: VertexProgram,
+                      state: State) -> Optional[_DoptCfg]:
+        """The program's direction settings, or None when it runs push
+        only: the switch is off, the combine is not a min, the program has
+        no EdgeMessage, runs on the reverse edges, weighs its messages other
+        than by adding, or its gathered state is not float32 (the pull
+        direction computes in float32)."""
+        spec = program.edge_msg
+        if (not self._direction_switch or program.combine != MIN
+                or spec is None or program.use_reverse):
+            return None
+        semiring = "min"
+        if spec.use_weight:
+            if spec.weight_op != "add" or self.pg.fwd.weight is None:
+                return None
+            semiring = "min_plus"
+        for k in spec.gather + spec.consts:
+            if state[k].is_floating_point() and state[k].dtype != (
+                    torch.float32):
+                return None
+        return _DoptCfg(semiring=semiring, uniform=spec.frontier_uniform,
+                        forced=_DIRECTIONS[self.direction])
+
+    def _build_pull_layout(self) -> _PullLayout:
+        """The transposed rows and the vote's inputs."""
+        pg, dev = self.pg, self.device
+        tc = build_transposed_csc(pg.fwd, pg.v_max)
+        vmask = np.asarray(pg.vertex_mask, dtype=bool)
+        nreal_p = np.maximum(vmask.sum(axis=1), 1).astype(np.float64)
+        if self._pull_threshold is not None:
+            thr = np.full(pg.num_parts, self._pull_threshold, np.float32)
+        else:
+            thr = fit_shard_pull_thresholds(
+                tc.deg_out.sum(axis=1) / nreal_p, [tc.kmax] * pg.num_parts,
+                backend=self.backend)
+        # One direction serves every partition, so the crossover is the
+        # edge-mass blend of the per-partition fits, in float32 as the JAX
+        # engine computes it.
+        emass = tc.deg_out.sum(axis=1).astype(np.float32)
+        threshold = (np.sum(thr.astype(np.float32) * emass, dtype=np.float32)
+                     / np.maximum(np.sum(emass, dtype=np.float32),
+                                  np.float32(1.0)))
+        bnd_edges = None
+        if bool((pg.fwd.edge_mask & (pg.fwd.dst_ext > pg.v_max)).any()):
+            fwd, v_max = self._fwd, pg.v_max
+            bnd_edges = dict(fwd, dst_ext=torch.where(
+                fwd["dst_ext"] < v_max, v_max, fwd["dst_ext"]))
+            if "blk_mask" in fwd:
+                ids = fwd["blk_base"].repeat_interleave(
+                    self._block_e, dim=1) + fwd["blk_local"]
+                bnd_edges["blk_mask"] = fwd["blk_mask"] * (ids > v_max).to(
+                    torch.int32)
+
+        def put(x, dtype):
+            return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
+                                   device=dev)
+
+        return _PullLayout(
+            row_ptr=put(tc.row_ptr, torch.int32),
+            col=put(tc.col, torch.int32),
+            val=put(tc.val, torch.float32) if tc.val is not None else None,
+            vmask=put(vmask, torch.bool),
+            nreal=float(max(int(vmask.sum()), 1)),
+            deg=put(tc.deg_out, torch.int64), bnd=put(tc.deg_bnd, torch.int64),
+            threshold=float(threshold), bnd_edges=bnd_edges)
+
+    def _step_fn(self, program: VertexProgram,
+                 dopt_cfg: Optional[_DoptCfg] = None) -> Callable:
+        edges = self.edges_for(program)
+        dims = self.dims_for(edges)
+        block_e = self._block_e if self.fused else None
+        pull = self._pull if dopt_cfg is not None else None
+
+        def step_fn(state, step):
+            return _superstep(dims, program, edges, block_e, state, step,
+                              dopt_cfg, pull)
+        return step_fn
+
+    def execute(self, program: VertexProgram, state: State, *,
+                num_steps: Optional[int] = None, chunk: Optional[int] = None,
+                incremental=None):
+        """Run ``program`` on a batched ``[Q, Pl, v_max]`` state dict.
+
+        - ``execute(program, state)`` — run to convergence; returns
+          ``(state, steps_q [Q])``.
+        - ``execute(program, state, num_steps=n)`` — exactly ``n``
+          supersteps (PageRank); returns the final state.
+
+        Leaves are moved to the engine's device.  Eligible min-combine
+        programs run direction optimized (see the class docstring).  The
+        chunked and incremental modes are not ported yet and raise.
+        """
+        if chunk is not None:
+            raise _not_in_slice("execute(chunk=)", "9")
+        if incremental is not None:
+            raise _not_in_slice("execute(incremental=)", "11")
+        self.last_direction_stats = None
+        state = {k: torch.as_tensor(v, device=self.device)
+                 for k, v in state.items()}
+        dopt_cfg = self._dopt_cfg_for(program, state)
+        if dopt_cfg is not None:
+            q, parts = num_queries(state), self.pg.num_parts
+            state = dict(
+                state,
+                _dopt_dir=torch.full((q, parts), -1, dtype=torch.int32,
+                                     device=self.device),
+                _dopt_edges=torch.zeros((q, parts), dtype=torch.int64,
+                                        device=self.device),
+                _dopt_switch=torch.zeros((q, parts), dtype=torch.int64,
+                                         device=self.device))
+        step_fn = self._step_fn(program, dopt_cfg)
+        if num_steps is not None:
+            for i in range(num_steps):
+                state, _ = step_fn(state, i)
+            return self._dopt_finish(state)
+        state, steps_q = _run_batched_loop(step_fn, program.max_steps, state,
+                                           num_queries(state))
+        return self._dopt_finish(state), steps_q
+
+    def _dopt_finish(self, state: State) -> State:
+        """Strip the direction leaves and record per-query aggregates."""
+        state, dopt = _dopt_strip(state)
+        if dopt is not None:
+            self.last_direction_stats = dict(
+                direction=dopt["_dopt_dir"].cpu().numpy(),
+                edges_examined=dopt["_dopt_edges"].sum(1).cpu().numpy(),
+                switches=dopt["_dopt_switch"].sum(1).cpu().numpy())
+        return state

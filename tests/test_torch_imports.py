@@ -1,0 +1,101 @@
+"""The port stands alone: no JAX, no ``repro``, and no quiet CPU fallback."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+SRC = ROOT / "src"
+
+_BLOCKED_IMPORT = r"""
+import importlib, pkgutil, sys
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+import repro_torch
+names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
+    repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+import runpy
+runpy.run_path(sys.argv[1], run_name="not_main")
+assert not any(m.split(".")[0] in ("jax", "jaxlib", "repro")
+               for m in sys.modules)
+print(len(names))
+"""
+
+
+def test_every_module_imports_without_jax_or_repro():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_IMPORT, str(ROOT / "chip_smoke.py")],
+        env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 15      # every module was imported
+
+
+def test_sources_name_neither_jax_nor_repro():
+    files = list((SRC / "repro_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py"]
+    for path in files:
+        for line in path.read_text().splitlines():
+            words = line.split()
+            if words[:1] in (["import"], ["from"]) and len(words) > 1:
+                top = words[1].split(".")[0]
+                assert top not in ("jax", "jaxlib", "repro"), (path, line)
+
+
+def test_engine_without_device_raises_when_no_card(monkeypatch):
+    from repro_torch.core import graph as TG
+    from repro_torch.core import partition as TPT
+    from repro_torch.core.bsp import BSPEngine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pg = TPT.partition(TG.rmat(5, 4, seed=1), 2, TPT.RAND)
+    for backend in ("reference", "fused"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            BSPEngine(pg, backend=backend)
+    assert BSPEngine(pg, device="cpu").device.type == "cpu"
+
+
+def test_unported_modes_raise_naming_the_roadmap_item():
+    from repro_torch.algorithms.bfs import BFS_PROGRAM
+    from repro_torch.core import graph as TG
+    from repro_torch.core import partition as TPT
+    from repro_torch.core.bsp import BSPEngine
+
+    pg = TPT.partition(TG.rmat(5, 4, seed=1), 2, TPT.RAND)
+    for kw, item in ((dict(backend="hybrid"), "7"), (dict(tiered=1), "12")):
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            BSPEngine(pg, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        BSPEngine(object(), device="cpu")
+    eng = BSPEngine(pg, device="cpu")
+    state = {"level": torch.zeros(1, 2, pg.v_max)}
+    with pytest.raises(NotImplementedError, match="item 9"):
+        eng.execute(BFS_PROGRAM, state, chunk=2)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        eng.execute(BFS_PROGRAM, state, incremental=True)
+
+
+def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
+    """Without a card the script fails before it prints any result; alone in
+    a directory (no package beside it) it fails too."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    for where in (ROOT, tmp_path):
+        script = where / "chip_smoke.py"
+        if where is tmp_path:
+            script.write_text((ROOT / "chip_smoke.py").read_text())
+        out = subprocess.run([sys.executable, str(script)], cwd=where,
+                             env=env, capture_output=True, text=True,
+                             timeout=120)
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout

@@ -1,0 +1,249 @@
+"""The CUDA kernels against their plain versions, on the card.
+
+This file imports neither JAX nor ``repro``, so it also runs where only the
+port is installed: ``python -m pytest -q -m gpu tests/test_torch_kernel_card.py``.
+Without a card its tests skip (the kernel has no CPU mode); the helpers
+below also feed ``test_torch_fused_superstep.py``'s CPU parity tests.
+
+Tolerances: the min kinds (bfs, sssp, cc) bit for bit, a min is order-free;
+the sum kinds (pagerank, bc_fwd, bc_bwd) ``rtol=1e-6, atol=1e-9``, the f32
+reassociation bound ``tests/test_fused_superstep.py`` uses between fused
+and reference.  Two launches on the same inputs are bit-equal (the kernel's
+sums take a fixed order).  The bottom-up scan bit for bit in every mode
+(a min is order-free, and its counts are integers).
+"""
+import importlib
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import graph as TG
+from repro_torch.core import partition as TPT
+from repro_torch.kernels import bottomup as kbu
+from repro_torch.kernels import fused_superstep as kfs
+from repro_torch.kernels import ops as tops
+
+KINDS = ["bfs", "sssp", "cc", "pagerank", "bc_fwd", "bc_bwd"]
+
+
+def port_program(kind, n):
+    """The port's program whose EdgeMessage has device kind ``kind``."""
+    def alg(name):   # the package re-exports functions named like modules
+        return importlib.import_module(f"repro_torch.algorithms.{name}")
+
+    return {
+        "bfs": lambda: alg("bfs").BFS_PROGRAM,
+        "sssp": lambda: alg("sssp").SSSP_PROGRAM,
+        "cc": lambda: alg("cc").CC_PROGRAM,
+        "pagerank": lambda: alg("pagerank").make_pagerank_program(n),
+        "bc_fwd": lambda: alg("bc").FORWARD_PROGRAM,
+        "bc_bwd": lambda: alg("bc").BACKWARD_PROGRAM,
+    }[kind]()
+
+
+def make_inputs(kind, q, pl, v_max, rng):
+    """(vstate [Q, Pl, K, v_max], scal [Q, Pl, S]) with values that exercise
+    every branch of the kind's message: frontier and non-frontier levels,
+    +inf, inactive sources, zero sigma."""
+    shape = (q, pl, v_max)
+    levels = rng.choice(np.array([0.0, 1.0, 2.0, 3.0, np.inf], np.float32),
+                        size=shape)
+    active = (rng.random(shape) < 0.5).astype(np.float32)
+    consts = []
+    if kind == "bfs":
+        cols = [levels]
+    elif kind == "sssp":
+        dist = rng.uniform(0, 50, shape).astype(np.float32)
+        dist[rng.random(shape) < 0.2] = np.inf
+        cols = [dist, active]
+    elif kind == "cc":
+        cols = [rng.integers(0, 10 * v_max, shape).astype(np.float32), active]
+    elif kind == "pagerank":
+        # Dyadic ranks and inverse degrees: every product and every partial
+        # sum is exact in f32, so any two summation orders agree.  With
+        # continuous values a hub of a few hundred edges differs by ~1e-6
+        # relative between orders: the reassociation the engine tests bound
+        # at the algorithm level.
+        cols = [rng.integers(0, 64, shape).astype(np.float32) * 2.0 ** -16,
+                2.0 ** -rng.integers(0, 5, shape).astype(np.float32)]
+    elif kind == "bc_fwd":
+        cols = [levels, rng.integers(1, 20, shape).astype(np.float32)]
+    else:
+        sigma = rng.integers(0, 20, shape).astype(np.float32)
+        cols = [levels, sigma, rng.random(shape, dtype=np.float32) * 4]
+        consts = [np.full((q, pl), 4.0, np.float32)]
+    vstate = np.stack(cols, axis=2)
+    scal = np.stack([np.full((q, pl), 1.0, np.float32)] + consts, axis=2)
+    return vstate, scal
+
+
+def port_op(tprog, vstate, scal, blk, dst_ext, seg, device="cpu"):
+    """The port's ``fused_superstep_op`` on numpy inputs."""
+    def put(x, dtype):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
+                               device=device)
+
+    spec = tprog.edge_msg
+    weight = put(blk.weight, torch.float32) if spec.use_weight else None
+    return tops.fused_superstep_op(
+        spec, put(vstate, torch.float32), weight, put(scal, torch.float32),
+        put(blk.src, torch.int32), put(blk.local, torch.int32),
+        put(blk.mask, torch.int32), put(blk.base, torch.int32),
+        put(dst_ext, torch.int64), num_segments=seg, combine=tprog.combine,
+        block_e=blk.block_e)
+
+
+# (semiring, early_exit, skip) cases of the bottom-up scan
+SCAN_MODES = [("min", False, False), ("min", True, False), ("min", True, True),
+              ("min_plus", False, False)]
+
+
+def scan_inputs(semiring, early_exit, q, rng, *, v=600, x_len=500):
+    """CSR rows for ``ops.bottomup_scan_op`` with empty rows, short rows,
+    and rows longer than one warp step (40, 130, 300 slots), plus
+    ``(x [Q, x_len], skip [Q, v])``.  With early exit every live message of
+    a query holds one value (the frontier-uniform licence); else the
+    messages vary and a fifth of them are +inf."""
+    lengths = rng.choice([0, 0, 1, 2, 3, 5, 8, 13], size=v)
+    lengths[[3, 50, 51, 400]] = [40, 130, 300, 33]
+    row_ptr = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32)
+    col = rng.integers(0, x_len, size=int(row_ptr[-1])).astype(np.int32)
+    val = (rng.uniform(0.5, 2.0, size=col.shape).astype(np.float32)
+           if semiring == "min_plus" else None)
+    if early_exit:
+        live = rng.random((q, x_len)) < rng.choice([0.02, 0.2, 0.6], (q, 1))
+        x = np.where(live, 3.0, np.inf).astype(np.float32)
+    else:
+        x = rng.uniform(0, 100, (q, x_len)).astype(np.float32)
+        x[rng.random((q, x_len)) < 0.2] = np.inf
+    skip = rng.random((q, v)) < 0.3
+    return row_ptr, col, val, x, skip
+
+
+def port_scan(row_ptr, col, val, x, skip, semiring, early_exit,
+              device="cpu"):
+    """The port's ``bottomup_scan_op`` on numpy inputs, as numpy."""
+    def put(a, dtype):
+        return (None if a is None else torch.as_tensor(
+            np.ascontiguousarray(a), dtype=dtype, device=device))
+
+    y, scanned = tops.bottomup_scan_op(
+        put(row_ptr, torch.int32), put(col, torch.int32),
+        put(val, torch.float32), put(x, torch.float32), semiring=semiring,
+        early_exit=early_exit, skip=put(skip, torch.bool))
+    return y.cpu().numpy(), scanned.cpu().numpy()
+
+
+def assert_parity(combine, got, want):
+    if combine == "min":
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-9)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("parts,strategy,block_e", [
+    (1, "rand", 128), (2, "high", 256), (3, "low", 1024)])
+@pytest.mark.parametrize("kind", KINDS)
+def test_kernel_matches_plain_on_card(cuda, kind, parts, strategy, block_e):
+    tg = TG.rmat(10, 8, seed=5).with_uniform_weights(seed=2)
+    tp = TPT.partition(tg, parts, strategy, include_reverse=True)
+    ea = tp.rev if kind == "bc_bwd" else tp.fwd
+    blk = TPT.build_block_metadata(ea, block_e=block_e)
+    tprog = port_program(kind, tp.num_vertices)
+    vstate, scal = make_inputs(kind, 3, parts, tp.v_max,
+                               np.random.default_rng(1))
+    seg = tp.seg_count
+    before = kfs.fused_superstep.launches
+    got = port_op(tprog, vstate, scal, blk, ea.dst_ext, seg, cuda)
+    again = port_op(tprog, vstate, scal, blk, ea.dst_ext, seg, cuda)
+    torch.cuda.synchronize()
+    assert kfs.fused_superstep.launches == before + 2
+    want = port_op(tprog, vstate, scal, blk, ea.dst_ext, seg).numpy()
+    assert_parity(tprog.combine, got.cpu().numpy(), want)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+def test_engine_fused_matches_reference_on_card(cuda):
+    from repro_torch.algorithms import (bfs_batched, connected_components,
+                                        pagerank, symmetrize)
+    from repro_torch.core.bsp import BSPEngine
+
+    g = TG.rmat(11, 8, seed=4)
+    pg = TPT.partition(g, 3, TPT.HIGH)
+    # plain push: one fused launch per superstep
+    ref = BSPEngine(pg, device=cuda, direction_switch=False)
+    fus = BSPEngine(pg, fused=True, block_e=256, device=cuda,
+                    direction_switch=False)
+    kfs.fused_superstep.launches = 0
+    lr, sr = bfs_batched(ref, [0, 9, 99])
+    lf, sf = bfs_batched(fus, [0, 9, 99])
+    assert kfs.fused_superstep.launches == int(sf.max())
+    np.testing.assert_array_equal(lr, lf)
+    np.testing.assert_array_equal(sr, sf)
+    np.testing.assert_allclose(pagerank(ref, 10), pagerank(fus, 10),
+                               rtol=1e-6, atol=1e-9)
+    pgs = TPT.partition(symmetrize(g), 3, TPT.LOW)
+    cr, _ = connected_components(BSPEngine(pgs, device=cuda))
+    cf, _ = connected_components(BSPEngine(pgs, fused=True, device=cuda))
+    np.testing.assert_array_equal(cr, cf)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("semiring,early_exit,skip", SCAN_MODES)
+@pytest.mark.parametrize("q", [1, 5])
+def test_bottomup_kernel_matches_plain_on_card(cuda, semiring, early_exit,
+                                               skip, q):
+    rng = np.random.default_rng(q)
+    row_ptr, col, val, x, skip_mask = scan_inputs(semiring, early_exit, q,
+                                                  rng)
+    skip_mask = skip_mask if skip else None
+    before = kbu.bottomup_scan.launches
+    got = port_scan(row_ptr, col, val, x, skip_mask, semiring, early_exit,
+                    cuda)
+    assert kbu.bottomup_scan.launches == before + 1
+    want = port_scan(row_ptr, col, val, x, skip_mask, semiring, early_exit)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("direction", ["auto", "pull"])
+def test_engine_directions_match_push_on_card(cuda, direction):
+    """Both backends, voting or forced to pull, against plain push on the
+    reference backend: bit for bit with equal steps; the scan kernel
+    launches in every pull superstep."""
+    from repro_torch.algorithms import (bfs_batched, connected_components,
+                                        sssp_batched, symmetrize)
+    from repro_torch.core.bsp import BSPEngine
+
+    g = TG.rmat(11, 8, seed=4).with_uniform_weights(seed=3)
+    pg = TPT.partition(g, 2, TPT.HIGH)
+    pgs = TPT.partition(symmetrize(g), 2, TPT.RAND)
+    push = BSPEngine(pg, device=cuda, direction_switch=False)
+    push_s = BSPEngine(pgs, device=cuda, direction_switch=False)
+    kbu.bottomup_scan.launches = 0
+    for backend in ("reference", "fused"):
+        eng = BSPEngine(pg, backend=backend, block_e=256, device=cuda,
+                        direction=direction)
+        eng_s = BSPEngine(pgs, backend=backend, block_e=256, device=cuda,
+                          direction=direction)
+        for run in (lambda e: bfs_batched(e, [0, 9, 99]),
+                    lambda e: sssp_batched(e, [0, 9])):
+            (a, sa), (b, sb) = run(push), run(eng)
+            np.testing.assert_array_equal(a, b)
+            np.testing.assert_array_equal(sa, sb)
+        (la, sa), (lb, sb) = (connected_components(push_s),
+                              connected_components(eng_s))
+        np.testing.assert_array_equal(la, lb)
+        assert sa == sb
+    assert kbu.bottomup_scan.launches > 0
