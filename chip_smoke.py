@@ -31,7 +31,18 @@ Phases (any failed check exits non-zero; nothing is caught and passed over):
    The fused kernel must launch in every fused run and the scan kernel on
    the path.  Then the fused backend with and without the direction vote,
    timed in turns, and BFS and SSSP forced to pull, against plain push;
-4. the numpy oracles at RMAT12 on the card, all five algorithms.
+   Then the hybrid backend (``backend="hybrid"``, the split the planner
+   picks) through the same entry points: BFS, SSSP and CC bit for bit with
+   equal steps against plain push, under the vote, without it
+   (``direction_switch=False``) and forced to pull; PageRank and BC against
+   the float64 runs within the same limits.  Its three kernels must launch;
+4. the numpy oracles at RMAT12 on the card, all five algorithms, on the
+   fused and the hybrid backends.
+
+Phase 2 also holds the hybrid kernels at the planner's RMAT20 split (|H|,
+Q=8): ``ell_spmv`` in its three semirings on the forward remainder (min and
+min_plus bit for bit, plus_times within its f32 bound of float64),
+``dense_spmv`` within its bound and ``dense_spmv_minplus`` bit for bit.
 
 Why sums are held to float64 and not to the plain f32 version: at RMAT20 a
 hub sums ~10^4-10^5 messages, and two f32 summation orders (the kernel's
@@ -42,12 +53,18 @@ adds across warps, one carry, and two adds per block a segment spans in the
 merge, plus two roundings of the message itself; so its error is at most
 ``depth * 2^-24 * sum|messages|`` with that depth.
 
+The hybrid kernels' sums are fixed trees too: ``ell_spmv`` adds at most
+128 products in a thread, then a warp (5 levels) and block (4 levels) tree
+and, for rows over 65,536 slots, the segments in order; ``dense_spmv`` a
+slice of 128, then a pairwise tree over the slices.
+
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import json
 import subprocess
 import sys
@@ -69,7 +86,16 @@ KERNELS = {
                         "src/repro/kernels/fused_superstep.py:146"),
     "bottomup_scan": ("src/repro_torch/kernels/csrc/bottomup.cu",
                       "src/repro/kernels/bottomup.py:113"),
+    "ell_spmv": ("src/repro_torch/kernels/csrc/ell_spmv.cu",
+                 "src/repro/kernels/ell_spmv.py:102"),
+    "dense_spmv": ("src/repro_torch/kernels/csrc/dense_spmv.cu",
+                   "src/repro/kernels/dense_spmv.py:63"),
+    "dense_spmv_minplus": ("src/repro_torch/kernels/csrc/dense_spmv.cu",
+                           "src/repro/kernels/dense_spmv.py:103"),
 }
+# hybrid sparse-stage semirings on the path: the program whose split feeds
+# each (semiring -> program name)
+ELL_MODES = {"min": "bfs", "min_plus": "sssp", "plus_times": "pagerank"}
 # bottom-up scan modes on the path: (program, semiring, early exit)
 SCAN_MODES = {"bfs": ("min", True), "cc": ("min", False),
               "sssp": ("min_plus", False)}
@@ -207,8 +233,6 @@ def bound_ms(kind, pg, blk) -> float:
 
 def _edge_message(kind, num_vertices):
     """The port's EdgeMessage of each kernel kind."""
-    import importlib
-
     def alg(name):   # the package re-exports functions named like modules
         return importlib.import_module(f"repro_torch.algorithms.{name}")
 
@@ -267,6 +291,61 @@ def scan_bound_ms(x, scanned, semiring) -> float:
     return 1e3 * max(moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S)
 
 
+def ell_inputs(semiring, n, rng, device):
+    """Per-source values of one sparse-stage semiring, made from the seed:
+    PageRank-like positive contributions (plus_times), BFS levels (min) and
+    SSSP distances (min_plus), half of them +inf."""
+    import numpy as np
+    import torch
+
+    if semiring == "plus_times":
+        x = rng.uniform(0.5, 1.5, (Q, n)) / n
+    elif semiring == "min":
+        x = rng.integers(0, 8, (Q, n)).astype(np.float64)
+        x[rng.random((Q, n)) < 0.5] = np.inf
+    else:
+        x = rng.uniform(0, 64, (Q, n))
+        x[rng.random((Q, n)) < 0.5] = np.inf
+    return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+def ell_sum_depth(kmax) -> int:
+    """Roundings on the longest path of ``ell_spmv``'s sum of a row of
+    ``kmax`` slots: a run of 128, the warp and block trees (5 + 4), the
+    65,536-slot segments in order, and the product."""
+    return 128 + 9 + -(-kmax // (512 * 128)) + 1
+
+
+def dense_sum_depth(k) -> int:
+    """Roundings of ``dense_spmv``'s sum over ``k``: a slice of 128, the
+    pairwise tree over the slices, and the product."""
+    import math
+    return 128 + math.ceil(math.log2(max(-(-k // 128), 1))) + 1
+
+
+def ell_bound_ms(semiring, v, nnz, q, x_len) -> float:
+    """Least time for one sparse-stage launch: row_ptr, col (and val) once,
+    x once, y written once; or the ⊗ and ⊕ of every slot and query over the
+    f32 rate, whichever is larger."""
+    moved = 4 * (v + 1) + 4 * nnz * (1 if semiring == "min" else 2) + (
+        4 * q * x_len + 4 * q * v)
+    ops = q * nnz * (1 if semiring == "min" else 2)
+    return 1e3 * max(moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S)
+
+
+def dense_bound_ms(m, k, n) -> float:
+    """Least time for one dense-stage launch: a, x and y once, or the
+    2 * M * K * N operations over the f32 rate, whichever is larger."""
+    moved = 4 * (k * n + m * k + m * n)
+    return 1e3 * max(moved / HBM_BYTES_PER_S, 2 * m * k * n / F32_OPS_PER_S)
+
+
+def within_f32_bound(got, exact, mag, depth) -> bool:
+    """|got - exact| <= depth * 2^-24 * sum|terms| everywhere."""
+    slack = (got.double() - exact).abs() - 1.01 * depth * UNIT_ROUNDOFF * mag
+    return bool((slack <= 0).all())
+
+
 def main() -> int:
     import torch
 
@@ -290,10 +369,20 @@ def main() -> int:
         from repro_torch.core.bsp import BSPEngine
         from repro_torch.kernels import _build
         from repro_torch.kernels import bottomup as kbu
+        from repro_torch.kernels import dense_spmv as kds
+        from repro_torch.kernels import ell_spmv as kell
         from repro_torch.kernels import fused_superstep as kfs
-        from repro_torch.kernels.ops import bottomup_scan_op
+        from repro_torch.kernels.ops import (bottomup_scan_op,
+                                             dense_spmv_minplus_op,
+                                             dense_spmv_op, ell_spmv_op)
         from repro_torch.kernels.ref import (bottomup_scan_ref,
+                                             dense_spmv_minplus_ref,
+                                             dense_spmv_ref, ell_spmv_ref,
                                              fused_superstep_ref)
+        # the package re-exports functions named like these modules
+        bfs_mod, sssp_mod, pr_mod = (importlib.import_module(
+            f"repro_torch.algorithms.{m}") for m in ("bfs", "sssp",
+                                                      "pagerank"))
     except ImportError as exc:
         log(f"FAIL: the port is not beside this script ({exc}); run it from "
             f"the root of a checkout")
@@ -312,7 +401,8 @@ def main() -> int:
 
     # -- phase 1: build ------------------------------------------------------
     t0 = time.perf_counter()
-    built = _build.build_all([kfs.SOURCE, kbu.SOURCE])
+    built = _build.build_all([kfs.SOURCE, kbu.SOURCE, kell.SOURCE,
+                              kds.SOURCE])
     log(f"[build] {len(built)} kernels in {time.perf_counter() - t0:.1f} s")
     for path, build_log in built.values():
         log(f"[build] {path.name}")
@@ -353,6 +443,29 @@ def main() -> int:
         log(f"[host] transposed rows ({name}): nnz={tc.nnz} kmax={tc.kmax}; "
             f"the JAX package's ELL block [P, v_max, kmax] would hold "
             f"{ell_gb:.1f} GB of int32 ids")
+
+    # the hybrid backend's plan and forward splits (the main path's engine)
+    t0 = time.perf_counter()
+    hyb = BSPEngine(pg, backend="hybrid")
+    t_plan = time.perf_counter() - t0
+    programs = {"bfs": bfs_mod.BFS_PROGRAM, "sssp": sssp_mod.SSSP_PROGRAM,
+                "pagerank": pr_mod.make_pagerank_program(g.num_vertices)}
+    t0 = time.perf_counter()
+    splits = {sr: hyb.hybrid_for(programs[name])
+              for sr, name in ELL_MODES.items()}
+    t_split = time.perf_counter() - t0
+    plan = hyb.hybrid_plan()
+    chosen = next(r for r in plan["table"] if r["k_dense"] == plan["k_dense"])
+    kmax = splits["min"][0].kmax
+    log(f"[host] hybrid plan {t_plan:.2f} s, forward splits (3 semirings) "
+        f"{t_split:.2f} s: k_dense={plan['k_dense']} mode={plan['mode']} "
+        f"skew={plan['skew']:.3f} e_dense={chosen['e_dense']} "
+        f"e_sparse={chosen['e_sparse']} density={chosen['density']:.4f} "
+        f"kmax={kmax}; the JAX package's ELL remainder [V, kmax] (col + "
+        f"val) would hold {g.num_vertices * kmax * 8 / 1e9:.1f} GB")
+    check(plan["k_dense"] > 0 and plan["mode"] == "hybrid",
+          f"[host] the planner splits RMAT20 in hybrid mode "
+          f"(k_dense={plan['k_dense']})")
 
     # -- phase 2: kernel vs plain at the main path's shapes -----------------
     rng = np.random.default_rng(SEED)
@@ -453,6 +566,111 @@ def main() -> int:
         del x, y, y2, want_y, cnt, cnt2, want_cnt, y_s, cnt_s
     torch.cuda.empty_cache()
 
+    # the hybrid kernels at the planner's split of RMAT20, Q=8
+    hyb_rows = {}
+    n = g.num_vertices
+    for semiring, (cfg, arrs) in splits.items():
+        x = ell_inputs(semiring, n, rng, dev)
+        rp, col, val = arrs["row_ptr"], arrs["col"], arrs["val"]
+
+        def ell(sr=semiring, x=x):
+            return ell_spmv_op(rp, col, val, x, semiring=sr)
+
+        def plain(sr=semiring, x=x):
+            return ell_spmv_ref(rp, col, val, x, sr)
+
+        got, again, want = ell(), ell(), plain()
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        if semiring == "plus_times":
+            exact = ell_spmv_ref(rp, col, val.double(), x.double(), semiring)
+            mag = ell_spmv_ref(rp, col, val.double().abs(),
+                               x.double().abs(), semiring)
+            depth = ell_sum_depth(cfg.kmax)
+            check(within_f32_bound(got, exact, mag, depth),
+                  f"[kernel] ell_spmv {semiring}: within its f32 bound "
+                  f"({depth} roundings x 2^-24 x sum|terms|) of float64; max "
+                  f"rel err kernel {max_rel_err(got.cpu(), exact.cpu()):.3e}"
+                  f", plain f32 {max_rel_err(want.cpu(), exact.cpu()):.3e}")
+            del mag
+        else:
+            check(torch.equal(got, want), f"[kernel] ell_spmv {semiring}: "
+                  f"bit-equal to the plain version (max |err| {err})")
+        check(torch.equal(got, again), f"[kernel] ell_spmv {semiring}: two "
+              f"launches bit-equal")
+        ms, plain_ms = cuda_ms(ell, 20), cuda_ms(plain, 5)
+        lib_ms = None
+        if semiring == "plus_times":
+            # A row may repeat a column (multi-edges), which the CSR
+            # invariant check rejects; the product adds repeats as the
+            # kernel does.
+            a = torch.sparse_csr_tensor(rp.long(), col.long(), val,
+                                        size=(n, n), check_invariants=False)
+            xt = x.t().contiguous()
+            lib_ms = cuda_ms(lambda: torch.sparse.mm(a, xt), 20)
+            lib_y = torch.sparse.mm(a, xt).t().cpu()
+            log(f"[kernel] ell_spmv plus_times: torch.sparse.mm max rel err "
+                f"vs float64 {max_rel_err(lib_y, exact.cpu()):.3e}")
+            del a, xt, exact
+        bms = ell_bound_ms(semiring, n, col.numel(), Q, n)
+        hyb_rows[f"ell_{semiring}"] = dict(ms=ms, plain_ms=plain_ms,
+                                           bound_ms=bms, library_ms=lib_ms,
+                                           err=err)
+        log(f"[kernel] ell_spmv {semiring}: Q={Q} nnz={col.numel()} kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms "
+            f"(bytes), {bms / ms:.1%} of bound"
+            + ("" if lib_ms is None else
+               f", torch.sparse.mm (CSR) {lib_ms:.4f} ms"))
+        del x, got, again, want
+
+    k = plan["k_dense"]
+    for name, semiring in (("dense_spmv", "plus_times"),
+                           ("dense_spmv_minplus", "min_plus")):
+        cfg, arrs = splits[semiring]
+        a = arrs["dense"]
+        x = ell_inputs(semiring, k, rng, dev)
+        op, ref = ((dense_spmv_op, dense_spmv_ref) if name == "dense_spmv"
+                   else (dense_spmv_minplus_op, dense_spmv_minplus_ref))
+
+        def kern(op=op, x=x, a=a):
+            return op(x, a)
+
+        def plain(ref=ref, x=x, a=a):
+            return ref(x, a)
+
+        got, again, want = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        if name == "dense_spmv":
+            exact = dense_spmv_ref(x.double(), a.double())
+            depth = dense_sum_depth(k)
+            check(within_f32_bound(got, exact, exact, depth),
+                  f"[kernel] dense_spmv: within its f32 bound ({depth} "
+                  f"roundings) of float64; max rel err kernel "
+                  f"{max_rel_err(got.cpu(), exact.cpu()):.3e}, plain f32 "
+                  f"{max_rel_err(want.cpu(), exact.cpu()):.3e}")
+            del exact
+        else:
+            check(torch.equal(got, want), "[kernel] dense_spmv_minplus: "
+                  f"bit-equal to the plain version (max |err| {err})")
+        check(torch.equal(got, again), f"[kernel] {name}: two launches "
+              f"bit-equal")
+        ms, plain_ms = cuda_ms(kern, 20), cuda_ms(plain, 5)
+        lib_ms = None
+        if name == "dense_spmv":
+            torch.backends.cuda.matmul.allow_tf32 = False
+            lib_ms = cuda_ms(lambda: torch.matmul(x, a), 20)
+        bms = dense_bound_ms(Q, k, k)
+        hyb_rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                              library_ms=lib_ms, err=err)
+        log(f"[kernel] {name}: Q={Q} K=N={k} kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {bms:.4f} ms (bytes), "
+            f"{bms / ms:.1%} of bound"
+            + ("" if lib_ms is None else
+               f", torch.matmul (f32, no TF32) {lib_ms:.4f} ms"))
+        del x, got, again, want
+    torch.cuda.empty_cache()
+
     # -- phase 3: the main path at RMAT20 ------------------------------------
     sources = np.random.default_rng(SEED).choice(
         g.num_vertices, size=Q, replace=False)
@@ -511,7 +729,7 @@ def main() -> int:
                      direction_switch=False)
     push_cc = BSPEngine(pgs, backend="fused", block_e=BLOCK_E,
                         direction_switch=False)
-    yardstick = {}
+    yardstick, exact_sums = {}, {}
     for name, run in runs.items():
         (r_res, r_steps) = outs[name]["reference"]
         (f_res, f_steps) = outs[name]["fused"]
@@ -524,6 +742,7 @@ def main() -> int:
                      if name == "pagerank" else betweenness_centrality(
                          engines["reference"], int(sources[0]),
                          dtype=torch.float64)[0])
+            exact_sums[name] = exact
             ref_rel = max_rel_err(r_res, exact)
             fus_rel = max_rel_err(f_res, exact)
             check(fus_rel <= SUM_LIMITS[name] and same_steps,
@@ -576,6 +795,74 @@ def main() -> int:
     del pull, plain
     torch.cuda.empty_cache()
 
+    # -- phase 3, hybrid backend: the same entry points at RMAT20 -----------
+    t0 = time.perf_counter()
+    hybrids = {"vote": (hyb, BSPEngine(pgs, backend="hybrid")),
+               "no switch": (BSPEngine(pg, backend="hybrid",
+                                       direction_switch=False),
+                             BSPEngine(pgs, backend="hybrid",
+                                       direction_switch=False)),
+               "pull": (BSPEngine(pg, backend="hybrid", direction="pull"),
+                        BSPEngine(pgs, backend="hybrid", direction="pull"))}
+    bc_mod = importlib.import_module("repro_torch.algorithms.bc")
+    cc_prog = importlib.import_module("repro_torch.algorithms.cc").CC_PROGRAM
+    for side, (eng, eng_cc) in hybrids.items():
+        for prog in (bfs_mod.BFS_PROGRAM, sssp_mod.SSSP_PROGRAM):
+            eng.hybrid_for(prog)
+        eng_cc.hybrid_for(cc_prog)
+    for prog in (bc_mod.FORWARD_PROGRAM, bc_mod.BACKWARD_PROGRAM):
+        hyb.hybrid_for(prog)
+    log(f"[host] hybrid engines and splits (vote, no switch, pull; CC "
+        f"graph too) {time.perf_counter() - t0:.2f} s; CC graph k_dense="
+        f"{hybrids['vote'][1].hybrid_plan()['k_dense']} kmax="
+        f"{hybrids['vote'][1].hybrid_for(cc_prog)[0].kmax}, reverse kmax="
+        f"{hyb.hybrid_for(bc_mod.BACKWARD_PROGRAM)[0].kmax}")
+    hyb_counters = (kell.ell_spmv, kds.dense_spmv, kds.dense_spmv_minplus,
+                    kbu.bottomup_scan, kfs.fused_superstep)
+    for fn in hyb_counters:
+        fn.launches = 0
+    hyb_runs = [(side, name) for side in hybrids
+                for name in ("bfs_batched", "sssp_batched",
+                             "connected_components")]
+    hyb_runs += [("vote", "pagerank"), ("vote", "betweenness_centrality")]
+    for side, name in hyb_runs:
+        before = [fn.launches for fn in hyb_counters]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, steps = runs[name](*hybrids[side])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        res, steps = np.asarray(res), np.asarray(steps)
+        used = [fn.launches - b for fn, b in zip(hyb_counters, before)]
+        eng = hybrids[side][1 if name == "connected_components" else 0]
+        stats = eng.last_direction_stats
+        log(f"[hybrid] {name} ({side}): {wall:.3f} s wall, steps "
+            f"{steps.tolist()}, launches ell_spmv {used[0]} dense_spmv "
+            f"{used[1]} dense_spmv_minplus {used[2]} bottomup_scan {used[3]}"
+            + ("" if stats is None else
+               f", edges examined {stats['edges_examined'].tolist()}, "
+               f"switches {stats['switches'].tolist()}"))
+        check(used[4] == 0, f"[hybrid] {name} ({side}): no fused launch")
+        if name in SUM_LIMITS:
+            r_steps = outs[name]["reference"][1]
+            rel = max_rel_err(res, exact_sums[name])
+            check(rel <= SUM_LIMITS[name] and np.array_equal(steps, r_steps),
+                  f"[hybrid] {name}: max rel err vs float64 {rel:.3e} <= "
+                  f"{SUM_LIMITS[name]:.0e}, equal steps")
+        else:
+            p_res, p_steps = yardstick[name]
+            check(np.array_equal(res, p_res)
+                  and np.array_equal(steps, p_steps),
+                  f"[hybrid] {name} ({side}): bit-equal to plain push, "
+                  f"equal steps")
+    hyb_launches = {fn.__name__: fn.launches for fn in hyb_counters[:4]}
+    log(f"[hybrid] launches on the hybrid path: {hyb_launches}")
+    for name in ("ell_spmv", "dense_spmv", "dense_spmv_minplus"):
+        check(hyb_launches[name] > 0, f"[hybrid] {name} launched on the "
+              f"hybrid path ({hyb_launches[name]} times)")
+    del hybrids, hyb, splits
+    torch.cuda.empty_cache()
+
     # -- phase 4: numpy oracles at RMAT12 on the card ------------------------
     small = G.rmat(12, 16, seed=SEED)
     sw = small.with_uniform_weights(seed=SEED)
@@ -600,6 +887,23 @@ def main() -> int:
     labels, _ = connected_components(cc_eng)
     check(np.array_equal(labels, cc_reference(ss)),
           "[oracle] rmat12 cc == cc_reference")
+    eng = BSPEngine(PT.partition(sw, 2, PT.HIGH), backend="hybrid")
+    cc_eng = BSPEngine(PT.partition(ss, 2, PT.HIGH), backend="hybrid")
+    lv, _ = bfs_batched(eng, [0, 1])
+    dist, _ = sssp_batched(eng, [0, 1])
+    bc, _ = betweenness_centrality(eng, 0)
+    labels, _ = connected_components(cc_eng)
+    check(np.array_equal(lv[1], bfs_reference(small, 1))
+          and np.allclose(dist[1], sssp_reference(sw, 1), rtol=1e-5)
+          and np.allclose(pagerank(eng, PR_ITERS),
+                          pagerank_reference(small, PR_ITERS),
+                          rtol=1e-4, atol=1e-7)
+          and np.allclose(bc, bc_reference(small, 0), rtol=1e-3, atol=1e-3)
+          and np.array_equal(labels, cc_reference(ss)),
+          f"[oracle] rmat12 on the hybrid backend (k_dense="
+          f"{eng.hybrid_plan()['k_dense']}, {eng.hybrid_plan()['mode']}): "
+          f"bfs, cc exact; sssp, pagerank, bc within the tolerances above "
+          f"(no include_reverse: the backend splits the reverse graph)")
 
     if check.failed:
         log(f"FAILED {len(check.failed)} check(s):")
@@ -607,12 +911,22 @@ def main() -> int:
             log("  " + what)
         return 1
     rows = {"fused_superstep": (kernel_rows["bfs"], worst_err),
-            "bottomup_scan": (scan_rows["cc"], scan_err)}
+            "bottomup_scan": (scan_rows["cc"], scan_err),
+            "ell_spmv": (hyb_rows["ell_plus_times"], max(
+                hyb_rows[f"ell_{sr}"]["err"] for sr in ELL_MODES)),
+            "dense_spmv": (hyb_rows["dense_spmv"],
+                           hyb_rows["dense_spmv"]["err"]),
+            "dense_spmv_minplus": (hyb_rows["dense_spmv_minplus"],
+                                   hyb_rows["dense_spmv_minplus"]["err"])}
+    launches.update(
+        (name, hyb_launches[name]) for name in ("ell_spmv", "dense_spmv",
+                                                "dense_spmv_minplus"))
     record = {"kernels": [dict(
         name=name, route="cuda", source=KERNELS[name][0],
         replaces=KERNELS[name][1], launches=launches[name],
         max_abs_err=err, ms=row["ms"], plain_ms=row["plain_ms"],
-        bound_ms=row["bound_ms"], bound_by="bytes", library_ms=None)
+        bound_ms=row["bound_ms"], bound_by="bytes",
+        library_ms=row.get("library_ms"))
         for name, (row, err) in rows.items()]}
     log(card)
     log(json.dumps(record))

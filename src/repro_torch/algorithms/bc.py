@@ -112,7 +112,7 @@ def betweenness_centrality_batched(engine: BSPEngine,
     (bc [Q, n], per-query total supersteps [Q]).
     """
     pg = engine.pg
-    if pg.rev is None:
+    if pg.rev is None and not engine.provides_reverse(BACKWARD_PROGRAM):
         raise ValueError("BC needs reverse edges "
                          "(partition with include_reverse=True)")
     q = len(np.asarray(sources).reshape(-1))

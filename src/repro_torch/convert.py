@@ -1,6 +1,7 @@
 """Carry the JAX package's data across to the port.
 
-Reads a JAX-side ``PartitionedGraph``, ``BlockMetadata`` or state dict —
+Reads a JAX-side ``PartitionedGraph``, ``BlockMetadata``, ``HybridGraph``
+or state dict —
 any object with the same attributes holding numpy arrays (or anything
 ``np.asarray`` takes) — without importing ``repro``, and returns the port's
 objects and tensors.  Tests use it to feed both packages the same graph,
@@ -14,6 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.graph import CSRGraph
+from repro_torch.core.hybrid import HybridGraph
 from repro_torch.core.partition import (BlockMetadata, EdgeArrays,
                                         PartitionedGraph, VertexAssignment)
 from repro_torch.device import DeviceLike, resolve_device
@@ -64,6 +66,28 @@ def block_metadata(blk) -> BlockMetadata:
         local=np.asarray(blk.local), src=np.asarray(blk.src),
         mask=np.asarray(blk.mask), weight=_opt(blk.weight),
         block_spans=np.asarray(blk.block_spans))
+
+
+def hybrid_graph(hg) -> HybridGraph:
+    """A JAX ``HybridGraph`` as the port's: the ELL remainder
+    ``[V, kmax]`` becomes CSR rows by dropping the sentinel slots
+    (``col == V``) row by row; the real slots keep their order."""
+    col = np.asarray(hg.ell_col)
+    val = np.asarray(hg.ell_val)
+    n = int(hg.num_vertices)
+    real = col != n
+    row_ptr = np.zeros(n + 1, dtype=np.int32)
+    np.cumsum(real.sum(axis=1), out=row_ptr[1:])
+    return HybridGraph(
+        num_vertices=n, num_edges=int(hg.num_edges),
+        k_dense=int(hg.k_dense), perm=np.asarray(hg.perm),
+        inv_perm=np.asarray(hg.inv_perm),
+        dense_block=np.asarray(hg.dense_block, dtype=np.float32),
+        ell_row_ptr=row_ptr, ell_col=col[real].astype(np.int32),
+        ell_val=val[real].astype(np.float32), kmax=int(col.shape[1]),
+        out_deg=np.asarray(hg.out_deg), dense_edges=int(hg.dense_edges),
+        sparse_edges=int(hg.sparse_edges), semiring=str(hg.semiring),
+        model_table=hg.model_table)
 
 
 def state(tree: Dict[str, object],

@@ -25,22 +25,31 @@ in-neighbours, ``kernels/bottomup.py``).  Both directions reduce the same
 values per destination under a min, so results are bit-equal either way;
 the vote only moves work.
 
+The ``hybrid`` backend runs a superstep as a whole-graph semiring SpMV
+through the degree split of ``core/hybrid.py`` (dense block of the top
+degree vertices + sparse remainder), with no outbox: one device has no
+partition boundary to cross.
+
 This is the port of ``repro.core.bsp``'s single-device engine with the
-``reference`` and ``fused`` backends.  Program callbacks take batched state
-directly (PyTorch has no ``vmap`` need here).  Python loops stand in for
-``lax.while_loop``/``fori_loop``; the converge loop reads the vote on the
-host once per superstep, and a direction-optimized superstep reads the
-direction votes.
+``reference``, ``fused`` and ``hybrid`` backends.  Program callbacks take
+batched state directly (PyTorch has no ``vmap`` need here).  Python loops
+stand in for ``lax.while_loop``/``fori_loop``; the converge loop reads the
+vote on the host once per superstep, and a direction-optimized superstep
+reads the direction votes.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.core import perf_model
+from repro_torch.core.hybrid import (MIN_PLUS, PLUS_TIMES, add_identity,
+                                     hybrid_spmv, hybrid_spmv_scan, splits_of)
 from repro_torch.core.partition import (BlockMetadata, EdgeArrays,
                                         PartitionedGraph, build_block_metadata,
                                         build_transposed_csc)
@@ -53,11 +62,12 @@ State = Dict[str, torch.Tensor]  # batched: leaves [Q, Pl, ...]
 
 REFERENCE = "reference"
 FUSED = "fused"
-BACKENDS = (REFERENCE, FUSED)
+HYBRID = "hybrid"
+BACKENDS = (REFERENCE, FUSED, HYBRID)
 
-__all__ = ["SUM", "MIN", "REFERENCE", "FUSED", "BACKENDS", "EdgeMessage",
-           "VertexProgram", "BSPEngine", "batch_state", "unbatch_state",
-           "num_queries", "gather_src"]
+__all__ = ["SUM", "MIN", "REFERENCE", "FUSED", "HYBRID", "BACKENDS",
+           "EdgeMessage", "VertexProgram", "BSPEngine", "batch_state",
+           "unbatch_state", "num_queries", "gather_src"]
 
 
 def batch_state(state: State) -> State:
@@ -94,12 +104,15 @@ class EdgeMessage:
     (``kernels/fused_superstep.py::KINDS``).  A fused engine on the card
     raises for a message without a known ``kind``.
 
-    ``weight_op`` declares how the weight enters a min-combine message:
-    ``"add"`` (``fn(vals, w) == fn(vals, 0) + w``, the min_plus semiring)
-    lets the pull direction factor it out.  ``frontier_uniform`` declares
-    that every non-identity message of one superstep holds the same value
-    (BFS sends ``step + 1``): the first live parent a pull scan meets is
-    then the row minimum, and the scan stops there.
+    ``weight_op`` declares how the weight enters the message:
+    ``fn(vals, w) == fn(vals, ident) ⊗ w`` with (⊗, ident) = ``("add", 0)``
+    for min combines (the min_plus semiring) or ``("mul", 1)`` for sum
+    combines (plus_times).  It lets the pull direction and the hybrid
+    backend factor the weight out of the per-source part.
+    ``frontier_uniform`` declares that every non-identity message of one
+    superstep holds the same value (BFS sends ``step + 1``): the first live
+    parent a pull scan meets is then the row minimum, and the scan stops
+    there.
     """
 
     gather: Tuple[str, ...]
@@ -107,7 +120,7 @@ class EdgeMessage:
     kind: Optional[str] = None
     consts: Tuple[str, ...] = ()
     use_weight: bool = False
-    weight_op: Optional[str] = None   # None | "add"
+    weight_op: Optional[str] = None   # None | "add" | "mul"
     frontier_uniform: bool = False
 
 
@@ -159,17 +172,22 @@ def _compute_reference(dims: _Dims, program: VertexProgram, edges: dict,
                               program.combine)
 
 
+def _require_f32(spec: EdgeMessage, state: State, backend: str) -> None:
+    """The kernel backends compute in float32; other float state raises."""
+    for k in spec.gather + spec.consts:
+        if state[k].is_floating_point() and state[k].dtype != torch.float32:
+            raise ValueError(
+                f"the {backend} backend computes in float32; state {k!r} is "
+                f"{state[k].dtype} (use backend='reference' for other "
+                f"precisions)")
+
+
 def _compute_fused(dims: _Dims, program: VertexProgram, edges: dict,
                    block_e: int, state: State, step: int) -> torch.Tensor:
     """Fused compute: one kernel launch per superstep on the card, no
     [Q, Pl, e_max] message array (kernels/fused_superstep.py)."""
     spec = program.edge_msg
-    for k in spec.gather + spec.consts:
-        if state[k].is_floating_point() and state[k].dtype != torch.float32:
-            raise ValueError(
-                f"the fused backend computes in float32; state {k!r} is "
-                f"{state[k].dtype} (use backend='reference' for other "
-                f"precisions)")
+    _require_f32(spec, state, FUSED)
     vstate = torch.stack([state[k].float() for k in spec.gather], dim=2)
     q, pl = vstate.shape[:2]
     cols = [torch.full((q, pl), float(step), dtype=torch.float32,
@@ -371,6 +389,100 @@ def _superstep(dims: _Dims, program: VertexProgram, edges: dict,
     return new_state, finished
 
 
+# ---------------------------------------------------------------------------
+# The hybrid degree-split backend (core/hybrid.py)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class _HybridCfg:
+    """Static geometry of one hybrid degree-split direction.  The tensors
+    travel in a separate ``arrs`` dict: ``dense``, ``row_ptr``/``col``/
+    ``val`` (the remainder rows), ``slot``/``hid`` and, when the direction
+    switch is on, ``push_src``/``push_dst`` (and ``push_w``)."""
+
+    semiring: str
+    k_dense: int
+    num_vertices: int
+    kmax: int                     # widest remainder row
+    pull_threshold: float
+    forced: Optional[int] = None  # None = vote, else _DIR_PUSH/_DIR_PULL
+    uniform: bool = False         # EdgeMessage.frontier_uniform
+    e_dense: int = 0              # a pull step's dense-stage charge, k^2
+
+
+def _superstep_hybrid(program: VertexProgram, cfg: _HybridCfg, arrs: dict,
+                      state: State, step: int) -> Tuple[State, torch.Tensor]:
+    """One BSP superstep through the degree-split two-engine backend.
+
+    The compute phase is a semiring SpMV over the whole graph in the
+    degree-ranked id space (``slot``/``hid`` translate from and to the
+    ``[Q, Pl, v_max]`` layout, the sink ``n`` serving padding slots).  For
+    min combines each query votes push (gather + segment min over the push
+    edges: cheap when few vertices send) or pull (the two-engine step, its
+    sparse stage through the bottom-up scan), as the JAX engine does.
+    """
+    spec = program.edge_msg
+    _require_f32(spec, state, HYBRID)
+    ident = add_identity(cfg.semiring)
+    state, dopt = _dopt_strip(state)
+    q = state[spec.gather[0]].shape[0]
+    n = cfg.num_vertices
+    vals = {k: state[k].float().reshape(q, -1)[:, arrs["slot"]]
+            for k in spec.gather}             # [Q, n] in hybrid id space
+    # Per-partition scalar consts are replicated across partitions; the
+    # whole-graph compute reads partition 0's copy, shaped [Q, 1].
+    consts = {c: state[c][:, :1].float() for c in spec.consts}
+    w_ident = None
+    if spec.use_weight:
+        w_ident = 0.0 if spec.weight_op == "add" else 1.0
+    x = spec.fn(vals, w_ident, float(step), consts).float()   # [Q, n]
+
+    if dopt is None:
+        y = hybrid_spmv(arrs["dense"], arrs["row_ptr"], arrs["col"],
+                        arrs["val"], x, semiring=cfg.semiring,
+                        k_dense=cfg.k_dense)
+    else:
+        first = vals[spec.gather[0]]
+        density = (x != ident).sum(1, dtype=torch.float32) / float(max(n, 1))
+        unvisited = (first == ident).sum(1, dtype=torch.float32) / float(
+            max(n, 1))
+        want = _dopt_want(cfg.forced, density, unvisited, cfg.pull_threshold)
+        picked = set(want.tolist())
+        if picked != {_DIR_PULL}:
+            msgs = x[:, arrs["push_src"]]                  # [Q, E]
+            if "push_w" in arrs:
+                msgs = msgs + arrs["push_w"]
+            y_push = segment_reduce_ref(msgs, arrs["push_dst"], n, MIN)
+            cnt_push = (msgs != ident).sum(1)
+            del msgs
+        if picked != {_DIR_PUSH}:
+            # Under the uniform licence a row already holding a value is
+            # final: a sequential bottom-up pass skips it.
+            skip = (first != ident) if cfg.uniform else None
+            y_pull, scanned = hybrid_spmv_scan(
+                arrs["dense"], arrs["row_ptr"], arrs["col"], arrs["val"], x,
+                semiring=cfg.semiring, k_dense=cfg.k_dense,
+                early_exit=cfg.uniform, skip=skip)
+            cnt_pull = scanned + cfg.e_dense
+        if picked == {_DIR_PUSH}:
+            y, cnt = y_push, cnt_push
+        elif picked == {_DIR_PULL}:
+            y, cnt = y_pull, cnt_pull
+        else:
+            sel = want == _DIR_PULL
+            y = torch.where(sel[:, None], y_pull, y_push)
+            cnt = torch.where(sel, cnt_pull, cnt_push)
+        dopt = _dopt_fold(dopt, want, cnt)
+
+    y_ext = torch.cat([y, torch.full((q, 1), ident, dtype=y.dtype,
+                                     device=y.device)], dim=1)
+    acc = y_ext[:, arrs["hid"]]               # back to [Q, Pl, v_max]
+    new_state, finished = program.apply_fn(state, acc, float(step))
+    if dopt is not None:
+        new_state = dict(new_state, **dopt)
+    return new_state, finished
+
+
 def _edges_dict(ea: EdgeArrays, blk: Optional[BlockMetadata],
                 device: torch.device) -> dict:
     def put(x, dtype):
@@ -440,19 +552,29 @@ class BSPEngine:
     (the last superstep's; -1 if none ran), ``edges_examined [Q]`` and
     ``switches [Q]``.
 
-    Not ported yet (each raises ``NotImplementedError``): ``backend=
-    "hybrid"``, ``tiered=`` and dynamic graphs.
+    ``backend="hybrid"`` runs each superstep as a whole-graph semiring SpMV
+    through the degree split (``core/hybrid.py``; needs ``pg.source``):
+    ``hybrid_k_dense=None`` lets the performance model pick |H|
+    (``hybrid_plan()`` reports the decision), an int fixes it.  Min
+    programs vote push or pull per query and superstep with the hybrid
+    crossover; the degree split of each direction and semiring is built at
+    a program's first run and kept on ``pg`` (``hybrid.splits_of``), so
+    engines over one graph share it.  Programs without an eligible
+    ``EdgeMessage`` run the reference compute; eligible ones take float32
+    state only, as on the fused backend.
+
+    Not ported yet (each raises ``NotImplementedError``): ``tiered=`` and
+    dynamic graphs.
     """
 
     def __init__(self, pg: PartitionedGraph, *, backend: Optional[str] = None,
                  fused: bool = False, block_e: int = 1024,
                  device: DeviceLike = None, direction: str = "auto",
                  direction_switch: bool = True,
-                 pull_threshold: Optional[float] = None, tiered=None):
+                 pull_threshold: Optional[float] = None,
+                 hybrid_k_dense: Optional[int] = None, tiered=None):
         if backend is None:
             backend = FUSED if fused else REFERENCE
-        if backend == "hybrid":
-            raise _not_in_slice("backend='hybrid'", "7")
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; pick one of "
                              f"{BACKENDS}")
@@ -483,7 +605,17 @@ class BSPEngine:
         self._fwd = _edges_dict(pg.fwd, fwd_blk, self.device)
         self._rev = (_edges_dict(pg.rev, rev_blk, self.device)
                      if pg.rev is not None else None)
-        if direction_switch:
+        self._hybrid_plan: Optional[dict] = None
+        self._hybrid_cache: dict = {}
+        self._hybrid_layouts: dict = {}
+        if backend == HYBRID:
+            if pg.source is None:
+                raise ValueError(
+                    "the hybrid backend needs PartitionedGraph.source; "
+                    "partition with core.partition.partition()")
+            self._splits = splits_of(pg)
+            self._hybrid_plan = self._splits.plan(hybrid_k_dense, block_e)
+        elif direction_switch:
             self._pull = self._build_pull_layout()
 
     def edges_for(self, program: VertexProgram) -> dict:
@@ -508,7 +640,7 @@ class BSPEngine:
         than by adding, or its gathered state is not float32 (the pull
         direction computes in float32)."""
         spec = program.edge_msg
-        if (not self._direction_switch or program.combine != MIN
+        if (self._pull is None or program.combine != MIN
                 or spec is None or program.use_reverse):
             return None
         semiring = "min"
@@ -525,7 +657,7 @@ class BSPEngine:
 
     def _build_pull_layout(self) -> _PullLayout:
         """The transposed rows and the vote's inputs."""
-        pg, dev = self.pg, self.device
+        pg = self.pg
         tc = build_transposed_csc(pg.fwd, pg.v_max)
         vmask = np.asarray(pg.vertex_mask, dtype=bool)
         nreal_p = np.maximum(vmask.sum(axis=1), 1).astype(np.float64)
@@ -553,10 +685,7 @@ class BSPEngine:
                 bnd_edges["blk_mask"] = fwd["blk_mask"] * (ids > v_max).to(
                     torch.int32)
 
-        def put(x, dtype):
-            return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
-                                   device=dev)
-
+        put = self._put
         return _PullLayout(
             row_ptr=put(tc.row_ptr, torch.int32),
             col=put(tc.col, torch.int32),
@@ -566,8 +695,125 @@ class BSPEngine:
             deg=put(tc.deg_out, torch.int64), bnd=put(tc.deg_bnd, torch.int64),
             threshold=float(threshold), bnd_edges=bnd_edges)
 
+    # ---------------------- hybrid backend ---------------------------------
+
+    def hybrid_plan(self) -> Optional[dict]:
+        """The perf-model split decision (k_dense, mode, ranked table), or
+        None when the engine is not the hybrid backend."""
+        return self._hybrid_plan
+
+    def _hybrid_semiring(self, program: VertexProgram) -> Optional[str]:
+        """Semiring the hybrid backend runs ``program`` under, or None when
+        it is ineligible (no EdgeMessage, or a weight that does not enter
+        the message as the combine's ⊗)."""
+        spec = program.edge_msg
+        if spec is None:
+            return None
+        if spec.use_weight:
+            if program.combine == MIN and spec.weight_op == "add":
+                return MIN_PLUS
+            if program.combine == SUM and spec.weight_op == "mul":
+                return PLUS_TIMES
+            return None
+        return PLUS_TIMES if program.combine == SUM else "min"
+
+    def _uses_hybrid(self, program: VertexProgram) -> bool:
+        return (self.backend == HYBRID
+                and self._hybrid_semiring(program) is not None)
+
+    def provides_reverse(self, program: VertexProgram) -> bool:
+        """True when the engine serves a ``use_reverse`` program without
+        ``pg.rev``: the hybrid backend degree-splits the reverse graph
+        itself."""
+        return self._uses_hybrid(program)
+
+    def _hybrid_key(self, program: VertexProgram):
+        # use_weight: a weighted and a weightless program can share a
+        # semiring but need different ⊗ values; frontier_uniform: it is
+        # baked into the static cfg (the scan's early-exit licence).
+        return (self._hybrid_semiring(program), program.use_reverse,
+                program.edge_msg.use_weight,
+                program.edge_msg.frontier_uniform)
+
+    def _put(self, x, dtype) -> torch.Tensor:
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
+                               device=self.device)
+
+    def _hybrid_layout(self, reverse: bool):
+        """One direction's split layout (``pg``'s ``SplitCache``) and its
+        semiring-free tensors, put once and shared by the programs of that
+        direction."""
+        hit = self._hybrid_layouts.get(reverse)
+        if hit is not None:
+            return hit
+        g = self._splits.graph(reverse)
+        layout = self._splits.layout(self._hybrid_plan["k_dense"], reverse)
+        asg = self.pg.assignment
+        slot = (asg.part_of[layout.perm].astype(np.int64) * self.pg.v_max
+                + asg.local_id[layout.perm])
+        hid = np.full((self.pg.num_parts, self.pg.v_max), g.num_vertices,
+                      dtype=np.int64)
+        for p, l2g in enumerate(asg.l2g):
+            hid[p, : len(l2g)] = layout.inv_perm[l2g]
+        shared = dict(row_ptr=self._put(layout.row_ptr, torch.int32),
+                      col=self._put(layout.src[layout.rest], torch.int32),
+                      slot=self._put(slot, torch.int64),
+                      hid=self._put(hid, torch.int64))
+        self._hybrid_layouts[reverse] = (g, layout, shared)
+        return g, layout, shared
+
+    def _build_hybrid(self, program: VertexProgram) -> Tuple[_HybridCfg,
+                                                             dict]:
+        """One direction and semiring's degree split: the static cfg and
+        the tensors ``_superstep_hybrid`` reads."""
+        semiring = self._hybrid_semiring(program)
+        g, layout, shared = self._hybrid_layout(program.use_reverse)
+        hg = self._splits.split(layout.k_dense, program.use_reverse, semiring,
+                                program.edge_msg.use_weight)
+        arrs = dict(shared, dense=self._put(hg.dense_block, torch.float32),
+                    val=self._put(hg.ell_val, torch.float32))
+        if program.combine == MIN and self._direction_switch:
+            arrs["push_src"] = self._put(layout.src, torch.int64)
+            arrs["push_dst"] = self._put(layout.dst, torch.int64)
+            if semiring == MIN_PLUS and g.weights is not None:
+                arrs["push_w"] = self._put(g.weights, torch.float32)
+        n = g.num_vertices
+        thr = self._pull_threshold
+        if thr is None:
+            thr = perf_model.fit_pull_threshold(g.num_edges / max(n, 1),
+                                                hg.kmax, backend=HYBRID)
+        cfg = _HybridCfg(semiring=semiring, k_dense=hg.k_dense,
+                         num_vertices=n, kmax=hg.kmax,
+                         pull_threshold=float(thr),
+                         forced=_DIRECTIONS[self.direction],
+                         uniform=program.edge_msg.frontier_uniform,
+                         e_dense=int(hg.k_dense) ** 2)
+        return cfg, arrs
+
+    def hybrid_for(self, program: VertexProgram) -> Tuple[_HybridCfg, dict]:
+        """The split ``program`` runs on: its static cfg and device tensors
+        (``_superstep_hybrid``), built at the first call and cached per
+        direction, semiring, weight use and frontier uniformity.  A run
+        calls it; calling it first moves the host work out of the run."""
+        key = self._hybrid_key(program)
+        if key not in self._hybrid_cache:
+            self._hybrid_cache[key] = self._build_hybrid(program)
+        return self._hybrid_cache[key]
+
+    def _direction_enabled(self, program: VertexProgram,
+                           state: State) -> bool:
+        """Does ``execute`` carry the direction leaves through ``program``?
+        On the hybrid backend every eligible min program votes (its push
+        edges come with the split); elsewhere see ``_dopt_cfg_for``."""
+        if self._uses_hybrid(program):
+            return self._direction_switch and program.combine == MIN
+        return self._dopt_cfg_for(program, state) is not None
+
     def _step_fn(self, program: VertexProgram,
                  dopt_cfg: Optional[_DoptCfg] = None) -> Callable:
+        if self._uses_hybrid(program):
+            cfg, arrs = self.hybrid_for(program)
+            return functools.partial(_superstep_hybrid, program, cfg, arrs)
         edges = self.edges_for(program)
         dims = self.dims_for(edges)
         block_e = self._block_e if self.fused else None
@@ -600,7 +846,7 @@ class BSPEngine:
         state = {k: torch.as_tensor(v, device=self.device)
                  for k, v in state.items()}
         dopt_cfg = self._dopt_cfg_for(program, state)
-        if dopt_cfg is not None:
+        if self._direction_enabled(program, state):
             q, parts = num_queries(state), self.pg.num_parts
             state = dict(
                 state,

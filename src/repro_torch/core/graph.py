@@ -46,6 +46,9 @@ class CSRGraph:
     def out_degrees(self) -> np.ndarray:
         return np.diff(self.row_ptr)
 
+    def in_degrees(self) -> np.ndarray:
+        return np.bincount(self.col, minlength=self.num_vertices)
+
     def edge_sources(self) -> np.ndarray:
         """Expand row_ptr into a per-edge source-vertex array."""
         return np.repeat(

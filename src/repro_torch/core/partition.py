@@ -27,7 +27,7 @@ port imports no JAX: the same seed gives array-equal layouts.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 
@@ -37,6 +37,10 @@ RAND = "rand"
 HIGH = "high"
 LOW = "low"
 STRATEGIES = (RAND, HIGH, LOW)
+
+# Bin edges for BlockMetadata.span_histogram / degree_skew (one shared tuple
+# so the skew signal can't drift from the histogram buckets).
+SPAN_HIST_BINS = (1, 129, 513, 1025, 2049, 4097, 1 << 30)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -103,6 +107,10 @@ class PartitionedGraph:
     # layout from it (the hybrid degree-split engine).  None for
     # PartitionedGraphs built before this field existed.
     source: Optional[CSRGraph] = None
+    # The hybrid backend's host work over this graph (core/hybrid.py::
+    # SplitCache), made by the first hybrid engine and shared by the rest.
+    hybrid_splits: Optional[object] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
 
     @property
     def seg_count(self) -> int:
@@ -316,7 +324,7 @@ class BlockMetadata:
     along each partition row; the kernel masks their messages to the
     combine identity.  The Hopper kernel reduces runs of equal ids and has
     no span bound: ``span``/``block_spans`` are kept for parity with the
-    JAX layout and as a statistic.
+    JAX layout and as the hybrid planner's degree-skew signal.
     """
 
     block_e: int
@@ -336,6 +344,27 @@ class BlockMetadata:
     @property
     def e_pad(self) -> int:
         return self.src.shape[1]
+
+    def span_histogram(self, bins: Sequence[int] = SPAN_HIST_BINS
+                       ) -> np.ndarray:
+        """Per-partition histogram of block spans ``[P, len(bins) - 1]``."""
+        edges = np.asarray(bins)
+        return np.stack([np.histogram(row, bins=edges)[0]
+                         for row in self.block_spans])
+
+    def degree_skew(self, min_span: int = 513) -> float:
+        """Fraction of span-histogram mass at spans >= ``min_span``.
+
+        The hybrid planner's skew signal: blocks whose destinations span a
+        wide segment range come from high-degree vertices concentrating many
+        distinct neighbours, the graphs where a top-K dense split pays.
+        ``min_span`` must be one of ``SPAN_HIST_BINS``.
+        """
+        if min_span not in SPAN_HIST_BINS:
+            raise ValueError(f"min_span must be a bin edge, got {min_span}")
+        hist = self.span_histogram(SPAN_HIST_BINS)
+        total = max(int(hist.sum()), 1)
+        return float(hist[:, SPAN_HIST_BINS.index(min_span):].sum()) / total
 
 
 def build_block_metadata(ea: EdgeArrays, *, block_e: int = 1024,

@@ -18,6 +18,8 @@ import tempfile
 from pathlib import Path
 from typing import Dict, Iterable, Tuple
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 
@@ -91,3 +93,15 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         _loaded[name] = lib
     return lib
+
+
+def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
+                 dev: torch.device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor on ``dev``: what
+    a kernel's C interface takes."""
+    if t.device != dev:
+        raise ValueError(f"{name} is on {t.device}, x on {dev}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

@@ -42,16 +42,6 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype,
-           dev: torch.device) -> None:
-    if t.device != dev:
-        raise ValueError(f"{name} is on {t.device}, x on {dev}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def bottomup_scan(row_ptr: torch.Tensor, col: torch.Tensor,
                   val: Optional[torch.Tensor], x: torch.Tensor, *,
                   semiring: str, early_exit: bool = False
@@ -72,13 +62,13 @@ def bottomup_scan(row_ptr: torch.Tensor, col: torch.Tensor,
         raise ValueError(f"x must be a CUDA tensor, got {dev}")
     if x.dim() != 2:
         raise ValueError(f"x must be [Q, x_len], got shape {tuple(x.shape)}")
-    _check("x", x, torch.float32, dev)
-    _check("row_ptr", row_ptr, torch.int32, dev)
-    _check("col", col, torch.int32, dev)
+    _build.check_tensor("x", x, torch.float32, dev)
+    _build.check_tensor("row_ptr", row_ptr, torch.int32, dev)
+    _build.check_tensor("col", col, torch.int32, dev)
     if (val is not None) != (semiring == "min_plus"):
         raise ValueError("val is needed for min_plus and only there")
     if val is not None:
-        _check("val", val, torch.float32, dev)
+        _build.check_tensor("val", val, torch.float32, dev)
         if val.shape != col.shape:
             raise ValueError(f"val {tuple(val.shape)} and col "
                              f"{tuple(col.shape)} differ")

@@ -8,11 +8,19 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
+from repro_torch.core.graph import CSRGraph
 from repro_torch.kernels.bottomup import bottomup_scan
+from repro_torch.kernels.dense_spmv import dense_spmv, dense_spmv_minplus
+from repro_torch.kernels.ell_spmv import ell_spmv
 from repro_torch.kernels.fused_superstep import KINDS, fused_superstep
-from repro_torch.kernels.ref import bottomup_scan_ref, fused_superstep_ref
+from repro_torch.kernels.ref import (SEMIRINGS, bottomup_scan_ref,
+                                     dense_spmv_minplus_ref, dense_spmv_ref,
+                                     ell_spmv_ref, fused_superstep_ref)
+
+_COMBINE_ALIAS = {"sum": "plus_times", "min": "min_plus"}
 
 
 def fused_superstep_op(msg, vstate: torch.Tensor,
@@ -100,3 +108,76 @@ def bottomup_scan_op(row_ptr: torch.Tensor, col: torch.Tensor,
     if skip is not None and early_exit:
         scanned = torch.where(skip, torch.zeros_like(scanned), scanned)
     return y, scanned
+
+
+def ell_spmv_op(row_ptr: torch.Tensor, col: torch.Tensor,
+                val: Optional[torch.Tensor], x: torch.Tensor, *,
+                semiring: str) -> torch.Tensor:
+    """Semiring SpMV over CSR rows: ``y [Q, V]`` with
+    ``y[q, v] = ⊕_{slots s of row v} x[q, col[s]] ⊗ val[s]``.
+
+    ``row_ptr [V + 1]``/``col [nnz]`` int32 (``csr_to_ell_rows``), ``val``
+    f32 ``[nnz]`` (``min`` ignores it), ``x [Q, x_len]`` f32.  An empty row
+    gives the ⊕-identity.  The JAX contract's ELL block, its sink column in
+    ``x``, ``block_v`` and ``interpret`` are TPU layout; CSR rows need none
+    of them.
+    """
+    if semiring not in SEMIRINGS:
+        raise ValueError(f"unknown semiring {semiring!r}")
+    if x.device.type == "cpu":
+        return ell_spmv_ref(row_ptr, col, val, x, semiring)
+    return ell_spmv(row_ptr, col, val, x.contiguous(), semiring=semiring)
+
+
+def dense_spmv_op(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """``y = x @ a`` for ``x [M, K]``, ``a [K, N]`` in f32.  The JAX
+    wrapper's tile padding and ``interpret`` have no counterpart."""
+    if x.device.type == "cpu":
+        return dense_spmv_ref(x, a)
+    return dense_spmv(x.contiguous(), a.contiguous())
+
+
+def dense_spmv_minplus_op(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """``y[m, n] = min_k x[m, k] + a[k, n]``; non-edges of ``a`` hold
+    +inf."""
+    if x.device.type == "cpu":
+        return dense_spmv_minplus_ref(x, a)
+    return dense_spmv_minplus(x.contiguous(), a.contiguous())
+
+
+def csr_to_ell_rows(g: CSRGraph, combine: Optional[str] = None,
+                    semiring: Optional[str] = None, transpose: bool = True
+                    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, int]:
+    """The rows and edge values of ``repro/kernels/ops.py::csr_to_ell``
+    as CSR: ``(row_ptr [V + 1] int32, col [E] int32, val [E] f32, kmax)``.
+
+    ``transpose=True`` packs in-edges per vertex (pull form).  Padding row
+    ``v`` to ``kmax`` slots with the sentinel ``V`` and the semiring's
+    ⊗-identity gives the JAX ELL block back.  Value policies:
+
+    - legacy ``combine=``: ``"sum"`` -> 1.0 per edge (multiplicity counts,
+      weights ignored), ``"min"`` -> weights (1.0 unweighted);
+    - ``semiring=``: ``plus_times`` -> weight (1 unweighted), ``min_plus``
+      -> weight (0 unweighted), ``min`` -> 0.
+    """
+    if semiring is not None:
+        if semiring not in SEMIRINGS:
+            raise ValueError(f"unknown semiring {semiring!r}")
+        sr, legacy = semiring, False
+    else:
+        sr, legacy = _COMBINE_ALIAS[combine or "sum"], True
+    gg = g.reverse() if transpose else g
+    deg = gg.out_degrees()
+    kmax = max(int(deg.max()) if len(deg) else 1, 1)
+    if gg.num_edges >= 2 ** 31:
+        raise ValueError(f"{gg.num_edges} edges overflow int32 rows")
+    if sr == "plus_times" and legacy:
+        val = np.ones(gg.num_edges, dtype=np.float32)
+    elif sr == "min" and not legacy:
+        val = np.zeros(gg.num_edges, dtype=np.float32)
+    elif gg.weights is not None:
+        val = np.asarray(gg.weights, dtype=np.float32)
+    else:
+        unweighted = 1.0 if sr == "plus_times" or legacy else 0.0
+        val = np.full(gg.num_edges, unweighted, dtype=np.float32)
+    return (gg.row_ptr.astype(np.int32), gg.col.astype(np.int32), val, kmax)

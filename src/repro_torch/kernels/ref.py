@@ -91,3 +91,51 @@ def bottomup_scan_ref(row_ptr: torch.Tensor, col: torch.Tensor,
     first = kreal.expand(q, v).clone().scatter_reduce_(
         1, rows.expand(q, -1), first, "amin", include_self=True)
     return y, torch.minimum(first + 1, kreal).to(torch.int32)
+
+
+# The hybrid backend's semirings, one per TOTEM reduction class (paper
+# §3.4): name -> (⊕ combine, ⊕-identity, ⊗-identity).
+SEMIRINGS = {"plus_times": (SUM, 0.0, 1.0), "min_plus": (MIN, math.inf, 0.0),
+             "min": (MIN, math.inf, 0.0)}
+
+
+def ell_spmv_ref(row_ptr: torch.Tensor, col: torch.Tensor,
+                 val: Optional[torch.Tensor], x: torch.Tensor,
+                 semiring: str) -> torch.Tensor:
+    """``y[q, v] = ⊕_{slots s of row v} x[q, col[s]] ⊗ val[s]`` over CSR
+    rows, as gather, ⊗, and a scatter-reduce into a tensor that starts at
+    the ⊕-identity (``include_self=True``): an empty row gives 0 or +inf,
+    as the JAX kernel's sink slot does.  ``min`` ignores ``val``.
+    Returns ``[Q, V]`` in ``x``'s dtype."""
+    combine, ident, _ = SEMIRINGS[semiring]
+    q = x.shape[0]
+    v = row_ptr.shape[0] - 1
+    kreal = row_ptr[1:].long() - row_ptr[:-1].long()
+    rows = torch.repeat_interleave(torch.arange(v, device=x.device), kreal)
+    g = x[:, col.long()]                                  # [Q, nnz]
+    if semiring == "plus_times":
+        g = g * val
+    elif semiring == "min_plus":
+        g = g + val
+    out = torch.full((q, v), ident, dtype=x.dtype, device=x.device)
+    return out.scatter_reduce_(1, rows.expand(q, -1), g, _REDUCE[combine],
+                               include_self=True)
+
+
+def dense_spmv_ref(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """``y = x @ a`` as a broadcast multiply and a sum over K: ``x [M, K]``,
+    ``a [K, N]`` -> ``[M, N]``."""
+    return (x[:, :, None] * a[None]).sum(1)
+
+
+def dense_spmv_minplus_ref(x: torch.Tensor, a: torch.Tensor, *,
+                           chunk: int = 256) -> torch.Tensor:
+    """``y[m, n] = min_k x[m, k] + a[k, n]``: broadcast add and ``amin``
+    over K in chunks, so the ``[M, K, N]`` candidates are never whole.
+    An empty K gives +inf."""
+    m, k = x.shape
+    y = torch.full((m, a.shape[1]), math.inf, dtype=x.dtype, device=x.device)
+    for k0 in range(0, k, chunk):
+        cand = x[:, k0:k0 + chunk, None] + a[None, k0:k0 + chunk]
+        y = torch.minimum(y, cand.amin(1))
+    return y

@@ -24,6 +24,8 @@ def _assert_same(a, b, path="root"):
         np.testing.assert_array_equal(a, b, err_msg=path)
     elif dataclasses.is_dataclass(a):
         for f in dataclasses.fields(b):
+            if not f.compare:   # a cache, not part of the value
+                continue
             _assert_same(getattr(a, f.name), getattr(b, f.name),
                          f"{path}.{f.name}")
     elif isinstance(a, (list, tuple)):

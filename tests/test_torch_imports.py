@@ -60,7 +60,7 @@ def test_engine_without_device_raises_when_no_card(monkeypatch):
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     pg = TPT.partition(TG.rmat(5, 4, seed=1), 2, TPT.RAND)
-    for backend in ("reference", "fused"):
+    for backend in ("reference", "fused", "hybrid"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             BSPEngine(pg, backend=backend)
     assert BSPEngine(pg, device="cpu").device.type == "cpu"
@@ -73,17 +73,17 @@ def test_unported_modes_raise_naming_the_roadmap_item():
     from repro_torch.core.bsp import BSPEngine
 
     pg = TPT.partition(TG.rmat(5, 4, seed=1), 2, TPT.RAND)
-    for kw, item in ((dict(backend="hybrid"), "7"), (dict(tiered=1), "12")):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            BSPEngine(pg, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        BSPEngine(object(), device="cpu")
-    eng = BSPEngine(pg, device="cpu")
-    state = {"level": torch.zeros(1, 2, pg.v_max)}
-    with pytest.raises(NotImplementedError, match="item 9"):
-        eng.execute(BFS_PROGRAM, state, chunk=2)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        eng.execute(BFS_PROGRAM, state, incremental=True)
+    for backend in ("reference", "hybrid"):
+        with pytest.raises(NotImplementedError, match="item 12"):
+            BSPEngine(pg, device="cpu", backend=backend, tiered=1)
+        with pytest.raises(NotImplementedError, match="item 11"):
+            BSPEngine(object(), device="cpu", backend=backend)
+        eng = BSPEngine(pg, device="cpu", backend=backend)
+        state = {"level": torch.zeros(1, 2, pg.v_max)}
+        with pytest.raises(NotImplementedError, match="item 9"):
+            eng.execute(BFS_PROGRAM, state, chunk=2)
+        with pytest.raises(NotImplementedError, match="item 11"):
+            eng.execute(BFS_PROGRAM, state, incremental=True)
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):

@@ -35,8 +35,8 @@ jpr = importlib.import_module("repro.algorithms.pagerank")
 jsssp = importlib.import_module("repro.algorithms.sssp")
 
 __all__ = ["JG", "JPT", "JEngine", "JA", "jbc", "jbfs", "jcc", "jpr",
-           "jsssp", "jops", "jax_engine", "engine_case", "GRID",
-           "BACKENDS"]
+           "jsssp", "jops", "jax_engine", "engine_case",
+           "assert_same_planner_table", "GRID", "BACKENDS"]
 
 # The grid of tests/test_core_engine.py: graph kind x parts x strategy.
 GRID = [(kind, parts, strategy) for kind in ("rmat", "uniform")
@@ -51,6 +51,17 @@ def jax_engine(pg, **kw):
     kernel's interpret runs.  ``test_torch_direction.py`` holds the port's
     direction mode against the JAX package's."""
     return JEngine(pg, direction_switch=False, **kw)
+
+
+def assert_same_planner_table(got, want):
+    """The port's degree-split planner records are the JAX package's
+    without the terms of its sharded engine (``boundary_slots``,
+    ``t_comm``), which are 0 on one device."""
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert w["boundary_slots"] == 0.0 and w["t_comm"] == 0.0
+        assert g == {key: w[key] for key in w
+                     if key not in ("boundary_slots", "t_comm")}
 
 
 def engine_case(kind, parts, strategy, *, scale=8, weighted=False,

@@ -10,8 +10,15 @@ the sum kinds (pagerank, bc_fwd, bc_bwd) ``rtol=1e-6, atol=1e-9``, the f32
 reassociation bound ``tests/test_fused_superstep.py`` uses between fused
 and reference.  Two launches on the same inputs are bit-equal (the kernel's
 sums take a fixed order).  The bottom-up scan bit for bit in every mode
-(a min is order-free, and its counts are integers).
+(a min is order-free, and its counts are integers).  The hybrid kernels:
+``ell_spmv`` (min, min_plus) and ``dense_spmv_minplus`` bit for bit;
+``ell_spmv`` (plus_times) and ``dense_spmv`` within their own f32 rounding
+bound of a float64 evaluation (``depth * 2^-24 * sum|terms|``, the depth
+from the kernel's fixed summation tree), since the plain version sums with
+atomics in no fixed order; two launches bit-equal.
 """
+import math
+
 import importlib
 
 import numpy as np
@@ -21,8 +28,11 @@ import torch
 from repro_torch.core import graph as TG
 from repro_torch.core import partition as TPT
 from repro_torch.kernels import bottomup as kbu
+from repro_torch.kernels import dense_spmv as kds
+from repro_torch.kernels import ell_spmv as kell
 from repro_torch.kernels import fused_superstep as kfs
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
 
 KINDS = ["bfs", "sssp", "cc", "pagerank", "bc_fwd", "bc_bwd"]
 
@@ -247,3 +257,118 @@ def test_engine_directions_match_push_on_card(cuda, direction):
         np.testing.assert_array_equal(la, lb)
         assert sa == sb
     assert kbu.bottomup_scan.launches > 0
+
+
+def ell_sum_depth(kmax):
+    """Roundings on the longest path of ``ell_spmv``'s sum of a row of up
+    to ``kmax`` slots: a run of 128, the warp and block trees (5 + 4), the
+    segments in order, and the product (``csrc/ell_spmv.cu``)."""
+    return 128 + 9 + math.ceil(kmax / (512 * 128)) + 1
+
+
+def dense_sum_depth(k):
+    """Roundings of ``dense_spmv``'s sum over ``k``: a slice of 128, the
+    pairwise tree over the slices and the product (``csrc/dense_spmv.cu``)."""
+    return 128 + math.ceil(math.log2(max(math.ceil(k / 128), 1))) + 1
+
+
+def within_f32_bound(got, exact, mag, depth):
+    """|got - exact| <= depth * 2^-24 * sum|terms| everywhere."""
+    slack = (got.double() - exact).abs() - 1.01 * depth * 2.0 ** -24 * mag
+    return bool((slack <= 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("semiring", ["plus_times", "min_plus", "min"])
+@pytest.mark.parametrize("q", [1, 3, 9])
+def test_ell_kernel_matches_plain_on_card(cuda, semiring, q):
+    """Rows of every length class: empty, a thread's (<= 32), a warp's
+    (<= 4096), a block's, and a hub of more than one 65,536-slot segment."""
+    rng = np.random.default_rng(q)
+    lengths = rng.choice([0, 0, 1, 5, 32, 33, 200], size=3000)
+    lengths[[3, 50, 51, 400, 2999]] = [4096, 4097, 9000, 70000, 140000]
+    row_ptr = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32)
+    x_len = 5000
+    col = rng.integers(0, x_len, size=int(row_ptr[-1])).astype(np.int32)
+    val = rng.uniform(0.5, 2.0, size=col.shape).astype(np.float32)
+    x = rng.uniform(0, 1, (q, x_len)).astype(np.float32)
+    if semiring != "plus_times":
+        x[rng.random((q, x_len)) < 0.2] = np.inf
+    args = [torch.as_tensor(a, device=cuda) for a in (row_ptr, col, val, x)]
+    before = kell.ell_spmv.launches
+    got = tops.ell_spmv_op(*args, semiring=semiring)
+    again = tops.ell_spmv_op(*args, semiring=semiring)
+    torch.cuda.synchronize()
+    assert kell.ell_spmv.launches == before + 2
+    assert torch.equal(got, again)
+    if semiring == "plus_times":
+        rp, c, v, xx = args
+        exact = tref.ell_spmv_ref(rp, c, v.double(), xx.double(), semiring)
+        mag = tref.ell_spmv_ref(rp, c, v.double().abs(),
+                                xx.double().abs(), semiring)
+        assert within_f32_bound(got, exact, mag,
+                                ell_sum_depth(int(lengths.max())))
+    else:
+        assert torch.equal(got, tref.ell_spmv_ref(*args, semiring))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(1, 100, 100), (3, 300, 257),
+                                   (8, 2816, 2816), (11, 129, 513)])
+def test_dense_kernels_match_plain_on_card(cuda, m, k, n):
+    rng = np.random.default_rng(k)
+    x = torch.as_tensor(rng.uniform(0, 1, (m, k)).astype(np.float32),
+                        device=cuda)
+    a = rng.uniform(0, 2, (k, n)).astype(np.float32)
+    a[rng.random((k, n)) < 0.7] = 0.0
+    a = torch.as_tensor(a, device=cuda)
+    before = (kds.dense_spmv.launches, kds.dense_spmv_minplus.launches)
+    got, again = tops.dense_spmv_op(x, a), tops.dense_spmv_op(x, a)
+    exact = tref.dense_spmv_ref(x.double(), a.double())
+    assert within_f32_bound(got, exact, exact, dense_sum_depth(k))
+    assert torch.equal(got, again)
+    a_inf = torch.where(a == 0, torch.inf, a)
+    x_inf = torch.where(x < 0.2, torch.inf, x)
+    got = tops.dense_spmv_minplus_op(x_inf, a_inf)
+    assert torch.equal(got, tref.dense_spmv_minplus_ref(x_inf, a_inf))
+    torch.cuda.synchronize()
+    assert (kds.dense_spmv.launches, kds.dense_spmv_minplus.launches) == (
+        before[0] + 2, before[1] + 1)
+
+
+@pytest.mark.gpu
+def test_engine_hybrid_matches_reference_on_card(cuda):
+    """The hybrid backend (|H| = 256, so both stages run; vote on, forced
+    pull, no vote) against plain push on the reference backend: min
+    algorithms bit for bit with equal steps, PageRank within ``rtol=1e-6``;
+    the three hybrid kernels launch."""
+    from repro_torch.algorithms import (bfs_batched, connected_components,
+                                        pagerank, sssp_batched, symmetrize)
+    from repro_torch.core.bsp import BSPEngine
+
+    g = TG.rmat(11, 8, seed=4).with_uniform_weights(seed=3)
+    pg = TPT.partition(g, 2, TPT.HIGH)
+    pgs = TPT.partition(symmetrize(g), 2, TPT.RAND)
+    ref = BSPEngine(pg, device=cuda, direction_switch=False)
+    counters = (kell.ell_spmv, kds.dense_spmv, kds.dense_spmv_minplus)
+    for fn in counters:
+        fn.launches = 0
+    for kw in (dict(), dict(direction="pull"), dict(direction_switch=False)):
+        hyb = BSPEngine(pg, backend="hybrid", device=cuda,
+                        hybrid_k_dense=256, **kw)
+        assert hyb.hybrid_plan()["mode"] == "hybrid"
+        for run in (lambda e: bfs_batched(e, [0, 9, 99]),
+                    lambda e: sssp_batched(e, [0, 9])):
+            (a, sa), (b, sb) = run(ref), run(hyb)
+            np.testing.assert_array_equal(a, b)
+            np.testing.assert_array_equal(sa, sb)
+        (la, sa), (lb, sb) = (
+            connected_components(BSPEngine(pgs, device=cuda)),
+            connected_components(BSPEngine(pgs, backend="hybrid",
+                                           device=cuda, hybrid_k_dense=256,
+                                           **kw)))
+        np.testing.assert_array_equal(la, lb)
+        assert sa == sb
+    np.testing.assert_allclose(pagerank(ref, 10), pagerank(hyb, 10),
+                               rtol=1e-6, atol=1e-9)
+    assert all(fn.launches > 0 for fn in counters)
