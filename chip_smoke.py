@@ -36,7 +36,24 @@ Phases (any failed check exits non-zero; nothing is caught and passed over):
    equal steps against plain push, under the vote, without it
    (``direction_switch=False``) and forced to pull; PageRank and BC against
    the float64 runs within the same limits.  Its three kernels must launch;
-4. the numpy oracles at RMAT12 on the card, all five algorithms, on the
+4. the sharded engine (``DistributedBSPEngine``) as a world of one on the
+   same card, holding both partitions of the same graphs (``[shard]``
+   lines): the outbox kernel against its plain version on the sharded
+   hybrid's real boundary arrays in every mode on the path (min for BFS
+   and CC, min_plus for SSSP, plus_times for PageRank and BC forward and
+   backward; min results bit for bit, sums within the kernel's f32 bound
+   of float64, two launches bit-equal, timed beside its bound, its plain
+   version and, for plus_times, ``torch.sparse.mm``); the sharded hybrid
+   backend through the same entry points, under the vote and without it,
+   bit for bit with equal steps against the single-device hybrid runs
+   (BFS, SSSP, CC) and within the fixed limits of the float64 runs
+   (PageRank, BC), with the per-shard plan, each call's wall and each
+   kernel's launches printed (the outbox kernel must launch); and the
+   sharded reference and fused backends on BFS, bit for bit with
+   ``BSPEngine``.  One card is enough: NCCL refuses two ranks on one
+   card, so the wire between ranks is tested by the gloo tests on the CPU
+   and by ``launch/hybrid_selftest.py --device cuda`` on several cards;
+5. the numpy oracles at RMAT12 on the card, all five algorithms, on the
    fused and the hybrid backends.
 
 Phase 2 also holds the hybrid kernels at the planner's RMAT20 split (|H|,
@@ -56,7 +73,9 @@ merge, plus two roundings of the message itself; so its error is at most
 The hybrid kernels' sums are fixed trees too: ``ell_spmv`` adds at most
 128 products in a thread, then a warp (5 levels) and block (4 levels) tree
 and, for rows over 65,536 slots, the segments in order; ``dense_spmv`` a
-slice of 128, then a pairwise tree over the slices.
+slice of 128, then a pairwise tree over the slices.  ``outbox_reduce``
+takes the fused kernel's tree (``block_e/128`` adds in a thread, the warp
+scan and fold, a carry, two adds per block a slot spans) plus the message.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -92,7 +111,17 @@ KERNELS = {
                    "src/repro/kernels/dense_spmv.py:63"),
     "dense_spmv_minplus": ("src/repro_torch/kernels/csrc/dense_spmv.cu",
                            "src/repro/kernels/dense_spmv.py:103"),
+    "outbox_reduce": ("src/repro_torch/kernels/csrc/outbox_reduce.cu",
+                      "src/repro/kernels/outbox_reduce.py:128"),
 }
+# the outbox kernel's modes on the sharded path: program -> (graph, reverse
+# edges, combine, weight_op, semiring of its messages)
+OUTBOX_MODES = {"bfs": ("pg", False, "min", None, "min"),
+                "cc": ("pgs", False, "min", None, "min"),
+                "sssp": ("pg", False, "min", "add", "min_plus"),
+                "pagerank": ("pg", False, "sum", None, "plus_times"),
+                "bc_fwd": ("pg", False, "sum", None, "plus_times"),
+                "bc_bwd": ("pg", True, "sum", None, "plus_times")}
 # hybrid sparse-stage semirings on the path: the program whose split feeds
 # each (semiring -> program name)
 ELL_MODES = {"min": "bfs", "min_plus": "sssp", "plus_times": "pagerank"}
@@ -340,6 +369,28 @@ def dense_bound_ms(m, k, n) -> float:
     return 1e3 * max(moved / HBM_BYTES_PER_S, 2 * m * k * n / F32_OPS_PER_S)
 
 
+def outbox_sum_depth(flat, block_e) -> int:
+    """Roundings on the longest path of ``outbox_reduce``'s sum: a thread's
+    run, the warp scan (5) and fold (4), a carry, two per block a slot's
+    run touches in the merge, and the message's product."""
+    import numpy as np
+
+    nb = -(-len(flat) // block_e)
+    first = flat[::block_e]
+    last = flat[np.minimum(np.arange(1, nb + 1) * block_e, len(flat)) - 1]
+    spans = np.bincount(np.concatenate([first, last[last != first]])).max()
+    return block_e // 128 + 5 + 4 + 1 + 2 * int(spans) + 1
+
+
+def outbox_bound_ms(e, weighted, q, x_len, num_slots) -> float:
+    """Least time for one outbox launch: src and flat (and the weight)
+    once, x once, the outboxes written once; or the ⊗ and ⊕ of every edge
+    and query over the f32 rate, whichever is larger."""
+    moved = 4 * e * (3 if weighted else 2) + 4 * q * (x_len + num_slots)
+    ops = q * e * (2 if weighted else 1)
+    return 1e3 * max(moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S)
+
+
 def within_f32_bound(got, exact, mag, depth) -> bool:
     """|got - exact| <= depth * 2^-24 * sum|terms| everywhere."""
     slack = (got.double() - exact).abs() - 1.01 * depth * UNIT_ROUNDOFF * mag
@@ -366,19 +417,23 @@ def main() -> int:
         from repro_torch.configs.totem_rmat import RMAT_MEDIUM
         from repro_torch.core import graph as G
         from repro_torch.core import partition as PT
-        from repro_torch.core.bsp import BSPEngine
+        from repro_torch.core.bsp import BSPEngine, DistributedBSPEngine
+        from repro_torch.core.hybrid import splits_of
         from repro_torch.kernels import _build
         from repro_torch.kernels import bottomup as kbu
         from repro_torch.kernels import dense_spmv as kds
         from repro_torch.kernels import ell_spmv as kell
         from repro_torch.kernels import fused_superstep as kfs
+        from repro_torch.kernels import outbox_reduce as kob
         from repro_torch.kernels.ops import (bottomup_scan_op,
                                              dense_spmv_minplus_op,
-                                             dense_spmv_op, ell_spmv_op)
+                                             dense_spmv_op, ell_spmv_op,
+                                             outbox_reduce_op)
         from repro_torch.kernels.ref import (bottomup_scan_ref,
                                              dense_spmv_minplus_ref,
                                              dense_spmv_ref, ell_spmv_ref,
-                                             fused_superstep_ref)
+                                             fused_superstep_ref,
+                                             outbox_reduce_ref)
         # the package re-exports functions named like these modules
         bfs_mod, sssp_mod, pr_mod = (importlib.import_module(
             f"repro_torch.algorithms.{m}") for m in ("bfs", "sssp",
@@ -402,7 +457,7 @@ def main() -> int:
     # -- phase 1: build ------------------------------------------------------
     t0 = time.perf_counter()
     built = _build.build_all([kfs.SOURCE, kbu.SOURCE, kell.SOURCE,
-                              kds.SOURCE])
+                              kds.SOURCE, kob.SOURCE])
     log(f"[build] {len(built)} kernels in {time.perf_counter() - t0:.1f} s")
     for path, build_log in built.values():
         log(f"[build] {path.name}")
@@ -825,6 +880,7 @@ def main() -> int:
                 for name in ("bfs_batched", "sssp_batched",
                              "connected_components")]
     hyb_runs += [("vote", "pagerank"), ("vote", "betweenness_centrality")]
+    hyb_out = {}
     for side, name in hyb_runs:
         before = [fn.launches for fn in hyb_counters]
         torch.cuda.synchronize()
@@ -833,6 +889,7 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         res, steps = np.asarray(res), np.asarray(steps)
+        hyb_out[side, name] = (res, steps)
         used = [fn.launches - b for fn, b in zip(hyb_counters, before)]
         eng = hybrids[side][1 if name == "connected_components" else 0]
         stats = eng.last_direction_stats
@@ -863,7 +920,207 @@ def main() -> int:
     del hybrids, hyb, splits
     torch.cuda.empty_cache()
 
-    # -- phase 4: numpy oracles at RMAT12 on the card ------------------------
+    # -- phase 4: the sharded engine, a world of one ------------------------
+    graphs = {"pg": pg, "pgs": pgs}
+    t0 = time.perf_counter()
+    shards = {"vote": (DistributedBSPEngine(pg, backend="hybrid"),
+                       DistributedBSPEngine(pgs, backend="hybrid")),
+              "no switch": (DistributedBSPEngine(pg, backend="hybrid",
+                                                 direction_switch=False),
+                            DistributedBSPEngine(pgs, backend="hybrid",
+                                                 direction_switch=False))}
+    t_plan = time.perf_counter() - t0
+    progs = {"bfs": bfs_mod.BFS_PROGRAM, "sssp": sssp_mod.SSSP_PROGRAM,
+             "pagerank": programs["pagerank"], "cc": cc_prog,
+             "bc_fwd": bc_mod.FORWARD_PROGRAM,
+             "bc_bwd": bc_mod.BACKWARD_PROGRAM}
+    t0 = time.perf_counter()
+    for side, (eng, eng_cc) in shards.items():
+        for name in ("bfs", "sssp", "pagerank", "bc_fwd", "bc_bwd"):
+            eng.hybrid_for(progs[name])
+        eng_cc.hybrid_for(cc_prog)
+    t_split = time.perf_counter() - t0
+    splan = shards["vote"][0].hybrid_plan()
+    for label, eng in (("main", shards["vote"][0]), ("CC", shards["vote"][1])):
+        for rec in eng.hybrid_plan()["per_shard"]:
+            log(f"[shard] plan ({label} graph), shard {rec['shard']}: "
+                f"|H|={rec['k_dense']} mode={rec['mode']} e_dense="
+                f"{rec['e_dense']} e_sparse={rec['e_sparse']} "
+                f"boundary_slots={rec['boundary_slots']:.0f} t_comm="
+                f"{rec['t_comm']:.3e} s")
+    log(f"[host] shard plans {t_plan:.2f} s, per-shard splits (vote and no "
+        f"switch; forward min/min_plus/plus_times, reverse plus_times, CC "
+        f"min) {t_split:.2f} s")
+
+    # the outbox kernel on the sharded hybrid's boundary arrays
+    shard_rows = {}
+    shard_err = 0.0
+    for name, (gname, rev, combine, wop, semiring) in OUTBOX_MODES.items():
+        prog = progs[name]
+        cache = splits_of(graphs[gname])
+        ks = [r["k_dense"] for r in (shards["vote"][1] if gname == "pgs"
+                                     else shards["vote"][0]
+                                     ).hybrid_plan()["per_shard"]]
+        shd = cache.shard_split(1, ks, rev, semiring,
+                                prog.edge_msg.use_weight,
+                                prog.combine == "min")
+        b_src, b_flat, b_w = shd.boundary(0)
+        src = torch.as_tensor(b_src, device=dev)
+        flat = torch.as_tensor(b_flat, device=dev)
+        w = (torch.as_tensor(b_w, device=dev) if wop is not None else None)
+        x = ell_inputs(semiring, shd.n_max, rng, dev)
+        kw = dict(num_slots=shd.num_slots, combine=combine, weight_op=wop)
+
+        def kern(x=x, src=src, flat=flat, w=w, kw=kw):
+            return outbox_reduce_op(x, src, flat, w, **kw)
+
+        def plain(x=x, src=src, flat=flat, w=w, kw=kw):
+            return outbox_reduce_ref(x, src, flat, w, **kw)
+
+        got, again, want = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        shard_err = max(shard_err, err)
+        if combine == "min":
+            check(torch.equal(got, want), f"[shard] outbox_reduce {name} "
+                  f"({combine}, weight {wop}): bit-equal to the plain version"
+                  f" (max |err| {err})")
+        else:
+            exact = outbox_reduce_ref(x.double(), src, flat, None, **kw)
+            depth = outbox_sum_depth(b_flat, kob.BLOCK_E)
+            check(within_f32_bound(got, exact, exact, depth),
+                  f"[shard] outbox_reduce {name}: within its f32 bound "
+                  f"({depth} roundings) of float64; max rel err kernel "
+                  f"{max_rel_err(got.cpu(), exact.cpu()):.3e}, plain f32 "
+                  f"{max_rel_err(want.cpu(), exact.cpu()):.3e}")
+        check(torch.equal(got, again), f"[shard] outbox_reduce {name}: two "
+              f"launches bit-equal")
+        if combine == "min":
+            # the vote's work count of the boundary leg: the engine weighs
+            # each live vertex by its boundary out-degree instead of
+            # gathering x over the edges
+            b_deg = torch.as_tensor(np.bincount(b_src, minlength=shd.n_max),
+                                    device=dev)
+
+            def by_edge(x=x, src=src):
+                return (x[:, src] != np.inf).sum(1)
+
+            def by_vertex(x=x, b_deg=b_deg):
+                return torch.where(x != np.inf, b_deg, 0).sum(1)
+
+            check(torch.equal(by_edge(), by_vertex()),
+                  f"[shard] {name}: the vote's boundary count by vertex "
+                  f"equals the per-edge count ({by_vertex().tolist()}); "
+                  f"{cuda_ms(by_vertex, 20):.4f} ms per superstep, per-edge "
+                  f"gather {cuda_ms(by_edge, 20):.4f} ms")
+            del b_deg
+        ms, plain_ms = cuda_ms(kern, 20), cuda_ms(plain, 5)
+        lib_ms = None
+        if combine == "sum":
+            # the same function as one library call: a CSR matrix
+            # [num_slots, n_max] (rows = slots) times x^T; unchecked, since
+            # a slot may repeat a source (RMAT multi-edges)
+            crow = torch.searchsorted(flat.long(), torch.arange(
+                shd.num_slots + 1, device=dev))
+            a = torch.sparse_csr_tensor(
+                crow, src.long(), torch.ones(len(b_src), device=dev),
+                size=(shd.num_slots, shd.n_max), check_invariants=False)
+            xt = x.t().contiguous()
+            lib_ms = cuda_ms(lambda: torch.sparse.mm(a, xt), 20)
+            lib_y = torch.sparse.mm(a, xt).t().cpu()
+            log(f"[shard] outbox_reduce {name}: torch.sparse.mm max rel err"
+                f" vs float64 {max_rel_err(lib_y, exact.cpu()):.3e}")
+            del a, xt, exact
+        bms = outbox_bound_ms(len(b_src), wop is not None, Q, shd.n_max,
+                              shd.num_slots)
+        shard_rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                                library_ms=lib_ms)
+        log(f"[shard] outbox_reduce {name}: Q={Q} edges={len(b_src)} slots="
+            f"{shd.num_slots} used={len(np.unique(b_flat))} kernel {ms:.4f}"
+            f" ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms (bytes), "
+            f"{bms / ms:.1%} of bound"
+            + ("" if lib_ms is None else
+               f", torch.sparse.mm (CSR) {lib_ms:.4f} ms"))
+        del x, got, again, want, src, flat, w
+    torch.cuda.empty_cache()
+
+    # the sharded hybrid through the entry points
+    shard_counters = (kob.outbox_reduce, kell.ell_spmv, kds.dense_spmv,
+                      kds.dense_spmv_minplus, kbu.bottomup_scan,
+                      kfs.fused_superstep)
+    for fn in shard_counters:
+        fn.launches = 0
+    shard_runs = [(side, name) for side in shards
+                  for name in ("bfs_batched", "sssp_batched",
+                               "connected_components")]
+    shard_runs += [("vote", "pagerank"), ("vote", "betweenness_centrality")]
+    shard_out = {}
+    for side, name in shard_runs:
+        before = [fn.launches for fn in shard_counters]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, steps = runs[name](*shards[side])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        res, steps = np.asarray(res), np.asarray(steps)
+        shard_out[side, name] = res
+        used = [fn.launches - b for fn, b in zip(shard_counters, before)]
+        eng = shards[side][1 if name == "connected_components" else 0]
+        stats = eng.last_direction_stats
+        log(f"[shard] {name} ({side}): {wall:.3f} s wall, steps "
+            f"{steps.tolist()}, launches outbox_reduce {used[0]} ell_spmv "
+            f"{used[1]} dense_spmv {used[2]} dense_spmv_minplus {used[3]} "
+            f"bottomup_scan {used[4]}"
+            + ("" if stats is None else
+               f", edges examined {stats['edges_examined'].tolist()}, "
+               f"switches {stats['switches'].tolist()}"))
+        check(used[5] == 0, f"[shard] {name} ({side}): no fused launch")
+        if name in SUM_LIMITS:
+            rel = max_rel_err(res, exact_sums[name])
+            h_res, h_steps = hyb_out[side, name]
+            check(rel <= SUM_LIMITS[name] and np.array_equal(steps, h_steps),
+                  f"[shard] {name}: max rel err vs float64 {rel:.3e} <= "
+                  f"{SUM_LIMITS[name]:.0e}, equal steps (single-device "
+                  f"hybrid {max_rel_err(h_res, exact_sums[name]):.3e})")
+        else:
+            h_res, h_steps = hyb_out[side, name]
+            check(np.array_equal(res, h_res)
+                  and np.array_equal(steps, h_steps),
+                  f"[shard] {name} ({side}): bit-equal to the single-device "
+                  f"hybrid, equal steps")
+    shard_launches = {fn.__name__: fn.launches for fn in shard_counters}
+    log(f"[shard] launches on the sharded path: {shard_launches}")
+    check(shard_launches["outbox_reduce"] > 0, f"[shard] outbox_reduce "
+          f"launched on the sharded path ({shard_launches['outbox_reduce']} "
+          f"times)")
+    check(np.array_equal(pr_mod.pagerank_distributed(shards["vote"][0],
+                                                     PR_ITERS),
+                         shard_out["vote", "pagerank"]),
+          "[shard] pagerank_distributed (the converge loop with a vote that "
+          "never finishes) bit-equal to pagerank (num_steps)")
+    del shards
+    torch.cuda.empty_cache()
+
+    # the sharded reference and fused backends at world one on BFS
+    for backend in ("reference", "fused"):
+        eng = DistributedBSPEngine(pg, backend=backend, block_e=BLOCK_E)
+        before = kfs.fused_superstep.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, steps = runs["bfs_batched"](eng, None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        p_res, p_steps = yardstick["bfs_batched"]
+        used = kfs.fused_superstep.launches - before
+        check(np.array_equal(res, p_res) and np.array_equal(steps, p_steps)
+              and (used > 0) == (backend == "fused"),
+              f"[shard] bfs_batched on the sharded {backend} backend: "
+              f"bit-equal to BSPEngine, equal steps ({wall:.3f} s wall, "
+              f"{used} fused launches)")
+        del eng
+    torch.cuda.empty_cache()
+
+    # -- phase 5: numpy oracles at RMAT12 on the card ------------------------
     small = G.rmat(12, 16, seed=SEED)
     sw = small.with_uniform_weights(seed=SEED)
     ss = symmetrize(small)
@@ -917,10 +1174,12 @@ def main() -> int:
             "dense_spmv": (hyb_rows["dense_spmv"],
                            hyb_rows["dense_spmv"]["err"]),
             "dense_spmv_minplus": (hyb_rows["dense_spmv_minplus"],
-                                   hyb_rows["dense_spmv_minplus"]["err"])}
+                                   hyb_rows["dense_spmv_minplus"]["err"]),
+            "outbox_reduce": (shard_rows["pagerank"], shard_err)}
     launches.update(
         (name, hyb_launches[name]) for name in ("ell_spmv", "dense_spmv",
                                                 "dense_spmv_minplus"))
+    launches["outbox_reduce"] = shard_launches["outbox_reduce"]
     record = {"kernels": [dict(
         name=name, route="cuda", source=KERNELS[name][0],
         replaces=KERNELS[name][1], launches=launches[name],

@@ -1,6 +1,7 @@
 from repro_torch.algorithms.bfs import (bfs, bfs_batched, bfs_reference,
                                         gather_batch, multi_source_state)
-from repro_torch.algorithms.pagerank import (pagerank, pagerank_reference,
+from repro_torch.algorithms.pagerank import (pagerank, pagerank_distributed,
+                                             pagerank_reference,
                                              personalized_pagerank,
                                              personalized_pagerank_reference)
 from repro_torch.algorithms.sssp import sssp, sssp_batched, sssp_reference
@@ -11,7 +12,8 @@ from repro_torch.algorithms.bc import (bc_reference, betweenness_centrality,
 
 __all__ = [
     "bfs", "bfs_batched", "bfs_reference", "gather_batch",
-    "multi_source_state", "pagerank", "pagerank_reference",
+    "multi_source_state", "pagerank", "pagerank_distributed",
+    "pagerank_reference",
     "personalized_pagerank", "personalized_pagerank_reference", "sssp",
     "sssp_batched", "sssp_reference", "connected_components",
     "cc_reference", "symmetrize", "betweenness_centrality",

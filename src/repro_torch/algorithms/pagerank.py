@@ -77,6 +77,22 @@ def pagerank(engine: BSPEngine, num_iterations: int = 20,
     return pg.gather_global(state["rank"].cpu().numpy())
 
 
+def pagerank_distributed(engine, num_iterations: int = 20,
+                         damping: float = DAMPING) -> np.ndarray:
+    """PageRank on a ``DistributedBSPEngine`` through its converge loop:
+    the round count rides ``max_steps`` with a vote that never finishes, as
+    the JAX package's ``pagerank_distributed`` runs it.  Every rank returns
+    the global ranks."""
+    pg = engine.pg
+    program = make_pagerank_program(pg.num_vertices, damping,
+                                    max_steps=num_iterations)
+    program = dataclasses.replace(
+        program, apply_fn=_never_finished(program.apply_fn))
+    state, _ = engine.execute(program,
+                              batch_state(initial_state(pg, damping)))
+    return pg.gather_global(unbatch_state(state)["rank"].cpu().numpy())
+
+
 def make_personalized_pagerank_program(damping: float = DAMPING,
                                        max_steps: int = 1 << 30
                                        ) -> VertexProgram:

@@ -1,7 +1,7 @@
 """Carry the JAX package's data across to the port.
 
-Reads a JAX-side ``PartitionedGraph``, ``BlockMetadata``, ``HybridGraph``
-or state dict —
+Reads a JAX-side ``PartitionedGraph``, ``BlockMetadata``, ``HybridGraph``,
+``ShardHybridData`` or state dict —
 any object with the same attributes holding numpy arrays (or anything
 ``np.asarray`` takes) — without importing ``repro``, and returns the port's
 objects and tensors.  Tests use it to feed both packages the same graph,
@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.graph import CSRGraph
-from repro_torch.core.hybrid import HybridGraph
+from repro_torch.core.hybrid import HybridGraph, ShardHybridData
 from repro_torch.core.partition import (BlockMetadata, EdgeArrays,
                                         PartitionedGraph, VertexAssignment)
 from repro_torch.device import DeviceLike, resolve_device
@@ -68,26 +68,78 @@ def block_metadata(blk) -> BlockMetadata:
         block_spans=np.asarray(blk.block_spans))
 
 
+def _ell_rows(col: np.ndarray, val: np.ndarray, sentinel: int):
+    """An ELL block ``[V, kmax]`` as CSR rows: the real slots (``col !=
+    sentinel``) of each row, in order."""
+    real = col != sentinel
+    row_ptr = np.zeros(col.shape[0] + 1, dtype=np.int32)
+    np.cumsum(real.sum(axis=1), out=row_ptr[1:])
+    return row_ptr, col[real].astype(np.int32), val[real].astype(np.float32)
+
+
 def hybrid_graph(hg) -> HybridGraph:
     """A JAX ``HybridGraph`` as the port's: the ELL remainder
     ``[V, kmax]`` becomes CSR rows by dropping the sentinel slots
     (``col == V``) row by row; the real slots keep their order."""
     col = np.asarray(hg.ell_col)
-    val = np.asarray(hg.ell_val)
     n = int(hg.num_vertices)
-    real = col != n
-    row_ptr = np.zeros(n + 1, dtype=np.int32)
-    np.cumsum(real.sum(axis=1), out=row_ptr[1:])
+    row_ptr, rcol, rval = _ell_rows(col, np.asarray(hg.ell_val), n)
     return HybridGraph(
         num_vertices=n, num_edges=int(hg.num_edges),
         k_dense=int(hg.k_dense), perm=np.asarray(hg.perm),
         inv_perm=np.asarray(hg.inv_perm),
         dense_block=np.asarray(hg.dense_block, dtype=np.float32),
-        ell_row_ptr=row_ptr, ell_col=col[real].astype(np.int32),
-        ell_val=val[real].astype(np.float32), kmax=int(col.shape[1]),
+        ell_row_ptr=row_ptr, ell_col=rcol, ell_val=rval,
+        kmax=int(col.shape[1]),
         out_deg=np.asarray(hg.out_deg), dense_edges=int(hg.dense_edges),
         sparse_edges=int(hg.sparse_edges), semiring=str(hg.semiring),
         model_table=hg.model_table)
+
+
+def shard_hybrid_data(shd) -> ShardHybridData:
+    """A JAX ``ShardHybridData`` as the port's: each shard's ELL remainder
+    ``[n_max, kmax]`` becomes CSR rows, the boundary edges' flat slot ids
+    come from the block metadata (``base + local``, the real edges being
+    each row's masked prefix), and each exchanged value's source partition
+    from the row of the outbox it is read from."""
+    col, val = np.asarray(shd.ell_col), np.asarray(shd.ell_val)
+    n_max, num_slots = int(shd.n_max), int(shd.num_slots)
+    rows = [_ell_rows(col[s], val[s], n_max) for s in range(col.shape[0])]
+    mask = np.asarray(shd.b_mask)
+    count = mask.sum(axis=1).astype(np.int64)
+    flat = (np.repeat(np.asarray(shd.b_base), int(shd.b_block), axis=1)
+            + np.asarray(shd.b_local)).astype(np.int32)
+    flat = np.where(np.arange(flat.shape[1]) < count[:, None], flat,
+                    num_slots).astype(np.int32)
+    pl, per_part = int(shd.parts_per_shard), int(shd.num_parts * shd.o_max)
+    shard = np.arange(col.shape[0])
+    send_idx, loc_idx = np.asarray(shd.send_idx), np.asarray(shd.loc_idx)
+    recv_src = np.where(send_idx < num_slots,
+                        shard[:, None, None] * pl + send_idx // per_part,
+                        -1).transpose(1, 0, 2).astype(np.int32)
+    loc_src = np.where(loc_idx < num_slots,
+                       shard[:, None] * pl + loc_idx // per_part,
+                       -1).astype(np.int32)
+    push_src = _opt(shd.push_src)
+    return ShardHybridData(
+        semiring=str(shd.semiring), num_shards=int(shd.num_shards),
+        parts_per_shard=pl, v_max=int(shd.v_max),
+        num_parts=int(shd.num_parts), o_max=int(shd.o_max),
+        k_dense=int(shd.k_dense), n_max=n_max, num_slots=num_slots,
+        n_vert=np.asarray(shd.n_vert), dense=np.asarray(shd.dense),
+        ell_row_ptr=np.stack([r[0] for r in rows]),
+        ell_col=[r[1] for r in rows], ell_val=[r[2] for r in rows],
+        kmax=int(col.shape[2]), slot=np.asarray(shd.slot),
+        hid=np.asarray(shd.hid), b_src=np.asarray(shd.b_src),
+        b_weight=_opt(shd.b_weight), b_flat=flat, b_count=count,
+        send_idx=send_idx, recv_ids=np.asarray(shd.recv_ids),
+        recv_src=recv_src, loc_idx=loc_idx, loc_ids=np.asarray(shd.loc_ids),
+        loc_src=loc_src, wire_width=int(shd.wire_width),
+        has_boundary=bool(shd.has_boundary),
+        has_remote=bool(shd.has_remote), push_src=push_src,
+        push_dst=_opt(shd.push_dst), push_w=_opt(shd.push_w),
+        n_intra=(None if push_src is None
+                 else (push_src != n_max).sum(axis=1).astype(np.int64)))
 
 
 def state(tree: Dict[str, object],

@@ -30,12 +30,21 @@ through the degree split of ``core/hybrid.py`` (dense block of the top
 degree vertices + sparse remainder), with no outbox: one device has no
 partition boundary to cross.
 
-This is the port of ``repro.core.bsp``'s single-device engine with the
-``reference``, ``fused`` and ``hybrid`` backends.  Program callbacks take
-batched state directly (PyTorch has no ``vmap`` need here).  Python loops
-stand in for ``lax.while_loop``/``fori_loop``; the converge loop reads the
-vote on the host once per superstep, and a direction-optimized superstep
-reads the direction votes.
+``DistributedBSPEngine`` shards the partitions over the ranks of a
+``torch.distributed`` group (``repro_torch/distributed.py``): each rank
+holds ``P / world`` consecutive partitions, the exchange is an
+``all_to_all`` and the vote a global AND.  Its hybrid backend runs each
+shard's degree split over the shard's intra-partition edges and reduces
+boundary messages into outbox slots at the source
+(``kernels/outbox_reduce.py``), so only used slots cross the wire.  A world
+of one (``group=None``) runs the same path in one process on one device.
+
+This is the port of ``repro.core.bsp``'s engines with the ``reference``,
+``fused`` and ``hybrid`` backends.  Program callbacks take batched state
+directly (PyTorch has no ``vmap`` need here).  Python loops stand in for
+``lax.while_loop``/``fori_loop`` and ``shard_map``; the converge loop reads
+the vote on the host once per superstep, and a direction-optimized
+superstep reads the direction votes.
 """
 from __future__ import annotations
 
@@ -52,10 +61,12 @@ from repro_torch.core.hybrid import (MIN_PLUS, PLUS_TIMES, add_identity,
                                      hybrid_spmv, hybrid_spmv_scan, splits_of)
 from repro_torch.core.partition import (BlockMetadata, EdgeArrays,
                                         PartitionedGraph, build_block_metadata,
-                                        build_transposed_csc)
+                                        build_transposed_csc, slice_parts)
 from repro_torch.core.perf_model import fit_shard_pull_thresholds
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.kernels.ops import bottomup_scan_op, fused_superstep_op
+from repro_torch.distributed import ShardGroup
+from repro_torch.kernels.ops import (bottomup_scan_op, fused_superstep_op,
+                                     outbox_reduce_op)
 from repro_torch.kernels.ref import MIN, SUM, segment_reduce_ref
 
 State = Dict[str, torch.Tensor]  # batched: leaves [Q, Pl, ...]
@@ -66,8 +77,9 @@ HYBRID = "hybrid"
 BACKENDS = (REFERENCE, FUSED, HYBRID)
 
 __all__ = ["SUM", "MIN", "REFERENCE", "FUSED", "HYBRID", "BACKENDS",
-           "EdgeMessage", "VertexProgram", "BSPEngine", "batch_state",
-           "unbatch_state", "num_queries", "gather_src"]
+           "EdgeMessage", "VertexProgram", "BSPEngine",
+           "DistributedBSPEngine", "batch_state", "unbatch_state",
+           "num_queries", "gather_src"]
 
 
 def batch_state(state: State) -> State:
@@ -346,11 +358,18 @@ def _compute_directed(dims: _Dims, program: VertexProgram, cfg: _DoptCfg,
 
 
 def _superstep(dims: _Dims, program: VertexProgram, edges: dict,
+               exchange: Callable[[torch.Tensor], torch.Tensor],
+               all_finished: Callable[[torch.Tensor], torch.Tensor],
                fused_block_e: Optional[int], state: State, step: int,
                dopt_cfg: Optional[_DoptCfg] = None,
                pull: Optional[_PullLayout] = None
                ) -> Tuple[State, torch.Tensor]:
-    """One BSP superstep of the whole query batch over all partitions."""
+    """One BSP superstep of the whole query batch over the local partitions.
+
+    ``exchange`` maps the outboxes ``[Q, pl, P, o_max]`` to the inboxes of
+    the same shape (a transpose on one device, an ``all_to_all`` across
+    shards); ``all_finished`` turns the local votes ``[Q]`` into global
+    ones."""
     combine = program.combine
     state, dopt = _dopt_strip(state)
 
@@ -370,7 +389,7 @@ def _superstep(dims: _Dims, program: VertexProgram, edges: dict,
     outbox = acc[:, :, v_max + 1:].reshape(q, pl, dims.num_parts, dims.o_max)
 
     # -- communicate: outbox -> symmetric inbox (paper Fig. 6) --------------
-    inbox = outbox.transpose(1, 2)            # [Q, pl, P, o_max]
+    inbox = exchange(outbox)                  # [Q, pl, P, o_max]
 
     # -- scatter: one pass per peer; each local vertex has at most one slot
     # per peer, so no segment receives two values in a pass and the sum
@@ -386,7 +405,7 @@ def _superstep(dims: _Dims, program: VertexProgram, edges: dict,
     new_state, finished = program.apply_fn(state, total, float(step))
     if dopt is not None:
         new_state = dict(new_state, **dopt)
-    return new_state, finished
+    return new_state, all_finished(finished)
 
 
 # ---------------------------------------------------------------------------
@@ -410,77 +429,193 @@ class _HybridCfg:
     e_dense: int = 0              # a pull step's dense-stage charge, k^2
 
 
+def _hybrid_messages(program: VertexProgram, arrs: dict, state: State,
+                     step: int) -> Tuple[Dict[str, torch.Tensor],
+                                         torch.Tensor]:
+    """The program's per-vertex messages in the hybrid id space:
+    ``(gathered values, x [Q, n])``.  ``slot`` translates from the
+    ``[Q, Pl, v_max]`` layout; per-partition scalar consts are replicated
+    across partitions, so the compute reads partition 0's copy, shaped
+    ``[Q, 1]``.  The ⊗ weight is its identity here: the split's edge
+    values carry it."""
+    spec = program.edge_msg
+    q = state[spec.gather[0]].shape[0]
+    vals = {k: state[k].float().reshape(q, -1)[:, arrs["slot"]]
+            for k in spec.gather}
+    consts = {c: state[c][:, :1].float() for c in spec.consts}
+    w_ident = None
+    if spec.use_weight:
+        w_ident = 0.0 if spec.weight_op == "add" else 1.0
+    return vals, spec.fn(vals, w_ident, float(step), consts).float()
+
+
+def _hybrid_directed(cfg: _HybridCfg, arrs: dict, x: torch.Tensor,
+                     first: torch.Tensor, dopt: Optional[dict],
+                     vmask: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                                Optional[torch.Tensor]]:
+    """The two-engine step over ``x [Q, n]``: ``(y, want, cnt)``.
+
+    Without direction leaves (``dopt`` None) it is the pull SpMV.  For min
+    programs each query votes push (gather + segment min over the push
+    edges: cheap when few vertices send) or pull (the two-engine step, its
+    sparse stage through the bottom-up scan) on its frontier density over
+    ``cfg.num_vertices`` real vertices (``vmask`` marks them where ``x``
+    has padding, which must hold the identity); ``cnt`` is each query's
+    work-model charge.
+    """
+    if dopt is None:
+        return hybrid_spmv(arrs["dense"], arrs["row_ptr"], arrs["col"],
+                           arrs["val"], x, semiring=cfg.semiring,
+                           k_dense=cfg.k_dense), None, None
+    ident = add_identity(cfg.semiring)
+    nf = float(max(cfg.num_vertices, 1))
+    density = (x != ident).sum(1, dtype=torch.float32) / nf
+    unvisited = first == ident
+    if vmask is not None:
+        unvisited = unvisited & vmask
+    unvisited = unvisited.sum(1, dtype=torch.float32) / nf
+    want = _dopt_want(cfg.forced, density, unvisited, cfg.pull_threshold)
+    picked = set(want.tolist())
+    if picked != {_DIR_PULL}:
+        msgs = x[:, arrs["push_src"]]                  # [Q, E]
+        if "push_w" in arrs:
+            msgs = msgs + arrs["push_w"]
+        y_push = segment_reduce_ref(msgs, arrs["push_dst"], x.shape[1], MIN)
+        cnt_push = (msgs != ident).sum(1)
+        del msgs
+    if picked != {_DIR_PUSH}:
+        # Under the uniform licence a row already holding a value is
+        # final: a sequential bottom-up pass skips it.
+        skip = (first != ident) if cfg.uniform else None
+        y_pull, scanned = hybrid_spmv_scan(
+            arrs["dense"], arrs["row_ptr"], arrs["col"], arrs["val"], x,
+            semiring=cfg.semiring, k_dense=cfg.k_dense,
+            early_exit=cfg.uniform, skip=skip)
+        cnt_pull = scanned + cfg.e_dense
+    if picked == {_DIR_PUSH}:
+        return y_push, want, cnt_push
+    if picked == {_DIR_PULL}:
+        return y_pull, want, cnt_pull
+    sel = want == _DIR_PULL
+    return (torch.where(sel[:, None], y_pull, y_push), want,
+            torch.where(sel, cnt_pull, cnt_push))
+
+
 def _superstep_hybrid(program: VertexProgram, cfg: _HybridCfg, arrs: dict,
                       state: State, step: int) -> Tuple[State, torch.Tensor]:
     """One BSP superstep through the degree-split two-engine backend.
 
     The compute phase is a semiring SpMV over the whole graph in the
     degree-ranked id space (``slot``/``hid`` translate from and to the
-    ``[Q, Pl, v_max]`` layout, the sink ``n`` serving padding slots).  For
-    min combines each query votes push (gather + segment min over the push
-    edges: cheap when few vertices send) or pull (the two-engine step, its
-    sparse stage through the bottom-up scan), as the JAX engine does.
+    ``[Q, Pl, v_max]`` layout, the sink ``n`` serving padding slots), with
+    the per-query push/pull vote for min combines (``_hybrid_directed``),
+    as the JAX engine runs it.
     """
-    spec = program.edge_msg
-    _require_f32(spec, state, HYBRID)
+    _require_f32(program.edge_msg, state, HYBRID)
     ident = add_identity(cfg.semiring)
     state, dopt = _dopt_strip(state)
-    q = state[spec.gather[0]].shape[0]
-    n = cfg.num_vertices
-    vals = {k: state[k].float().reshape(q, -1)[:, arrs["slot"]]
-            for k in spec.gather}             # [Q, n] in hybrid id space
-    # Per-partition scalar consts are replicated across partitions; the
-    # whole-graph compute reads partition 0's copy, shaped [Q, 1].
-    consts = {c: state[c][:, :1].float() for c in spec.consts}
-    w_ident = None
-    if spec.use_weight:
-        w_ident = 0.0 if spec.weight_op == "add" else 1.0
-    x = spec.fn(vals, w_ident, float(step), consts).float()   # [Q, n]
-
-    if dopt is None:
-        y = hybrid_spmv(arrs["dense"], arrs["row_ptr"], arrs["col"],
-                        arrs["val"], x, semiring=cfg.semiring,
-                        k_dense=cfg.k_dense)
-    else:
-        first = vals[spec.gather[0]]
-        density = (x != ident).sum(1, dtype=torch.float32) / float(max(n, 1))
-        unvisited = (first == ident).sum(1, dtype=torch.float32) / float(
-            max(n, 1))
-        want = _dopt_want(cfg.forced, density, unvisited, cfg.pull_threshold)
-        picked = set(want.tolist())
-        if picked != {_DIR_PULL}:
-            msgs = x[:, arrs["push_src"]]                  # [Q, E]
-            if "push_w" in arrs:
-                msgs = msgs + arrs["push_w"]
-            y_push = segment_reduce_ref(msgs, arrs["push_dst"], n, MIN)
-            cnt_push = (msgs != ident).sum(1)
-            del msgs
-        if picked != {_DIR_PUSH}:
-            # Under the uniform licence a row already holding a value is
-            # final: a sequential bottom-up pass skips it.
-            skip = (first != ident) if cfg.uniform else None
-            y_pull, scanned = hybrid_spmv_scan(
-                arrs["dense"], arrs["row_ptr"], arrs["col"], arrs["val"], x,
-                semiring=cfg.semiring, k_dense=cfg.k_dense,
-                early_exit=cfg.uniform, skip=skip)
-            cnt_pull = scanned + cfg.e_dense
-        if picked == {_DIR_PUSH}:
-            y, cnt = y_push, cnt_push
-        elif picked == {_DIR_PULL}:
-            y, cnt = y_pull, cnt_pull
-        else:
-            sel = want == _DIR_PULL
-            y = torch.where(sel[:, None], y_pull, y_push)
-            cnt = torch.where(sel, cnt_pull, cnt_push)
-        dopt = _dopt_fold(dopt, want, cnt)
-
+    vals, x = _hybrid_messages(program, arrs, state, step)     # [Q, n]
+    q = x.shape[0]
+    y, want, cnt = _hybrid_directed(cfg, arrs, x,
+                                    vals[program.edge_msg.gather[0]], dopt)
     y_ext = torch.cat([y, torch.full((q, 1), ident, dtype=y.dtype,
                                      device=y.device)], dim=1)
     acc = y_ext[:, arrs["hid"]]               # back to [Q, Pl, v_max]
     new_state, finished = program.apply_fn(state, acc, float(step))
     if dopt is not None:
-        new_state = dict(new_state, **dopt)
+        new_state = dict(new_state, **_dopt_fold(dopt, want, cnt))
     return new_state, finished
+
+
+@dataclasses.dataclass(frozen=True)
+class _ShardCfg(_HybridCfg):
+    """One rank's slice of a sharded hybrid split
+    (``hybrid.ShardHybridData``).  ``num_vertices`` is the shard's real
+    hybrid vertices (its messages ``x`` have ``n_max`` columns).  Beside
+    the split's tensors, ``arrs`` holds ``vmask``, the boundary edges
+    (``b_src``/``b_flat``/``b_weight``), ``send_idx`` (remote slots) and
+    ``in_parts``: per source partition, the positions of its values in
+    ``[received wire | own outbox]`` and their scatter ids."""
+
+    combine: str = SUM
+    weight_op: Optional[str] = None   # the boundary leg's ⊗
+    pl: int = 1
+    v_max: int = 0
+    num_slots: int = 0
+    has_boundary: bool = False        # any shard has boundary edges
+    has_remote: bool = False          # any slot crosses shards
+
+
+def _superstep_hybrid_dist(program: VertexProgram, cfg: _ShardCfg,
+                           arrs: dict, group: ShardGroup, state: State,
+                           step: int) -> Tuple[State, torch.Tensor]:
+    """One BSP superstep of the sharded degree-split backend, on one rank.
+
+    ``state`` leaves are the rank's ``[Q, pl, v_max]`` slice.  The paper's
+    cycle, per shard:
+
+      1. evaluate the EdgeMessage once per local vertex (⊗-identity weight)
+         and run the two-engine SpMV over the shard's intra-partition edges
+         (with the push/pull vote for min combines);
+      2. reduce boundary messages into outbox slots at the source
+         (``ops.outbox_reduce_op``, §3.4), so the wire carries aggregated
+         slots, never per-edge messages;
+      3. exchange only the used (shard, peer) slot blocks in one
+         ``all_to_all`` (Fig. 6's outbox-to-inbox copy); same-shard slots
+         are read from the outbox directly;
+      4. scatter the inbox values into the local accumulator, one pass per
+         source partition (each sends a vertex at most one slot, so no
+         pass writes an id twice and sums keep one order), combine with
+         the SpMV result, apply and vote (a global AND).
+    """
+    spec = program.edge_msg
+    _require_f32(spec, state, HYBRID)
+    ident = add_identity(cfg.semiring)
+    state, dopt = _dopt_strip(state)
+    vals, x = _hybrid_messages(program, arrs, state, step)    # [Q, n_max]
+    x = torch.where(arrs["vmask"], x, ident)    # pad ids never contribute
+    q = x.shape[0]
+    y, want, cnt = _hybrid_directed(cfg, arrs, x, vals[spec.gather[0]],
+                                    dopt, vmask=arrs["vmask"])
+    y_ext = torch.cat([y, torch.full((q, 1), ident, dtype=y.dtype,
+                                     device=y.device)], dim=1)
+    acc = y_ext[:, arrs["hid"]]                          # [Q, pl, v_max]
+
+    if cfg.has_boundary:
+        if "b_src" in arrs:
+            if dopt is not None:
+                # the boundary leg pushes whichever way the intra step
+                # went: charge its live edges in both directions (each
+                # live vertex's count of boundary out-edges)
+                cnt = cnt + torch.where(x != ident, arrs["b_deg"], 0).sum(1)
+            outbox = outbox_reduce_op(
+                x, arrs["b_src"], arrs["b_flat"], arrs.get("b_weight"),
+                num_slots=cfg.num_slots, combine=cfg.combine,
+                weight_op=cfg.weight_op)                 # [Q, num_slots]
+        else:   # this shard has no boundary edge
+            outbox = torch.full((q, cfg.num_slots), ident,
+                                dtype=torch.float32, device=x.device)
+        inbound = outbox
+        if cfg.has_remote:
+            obox_ext = torch.cat([outbox, torch.full(
+                (q, 1), ident, dtype=outbox.dtype, device=outbox.device)], 1)
+            send = obox_ext[:, arrs["send_idx"]]         # [Q, S, w]
+            recv = group.all_to_all(send.transpose(0, 1))    # [S, Q, w]
+            inbound = torch.cat([recv.transpose(0, 1).reshape(q, -1),
+                                 outbox], dim=1)
+        racc = torch.full((q, cfg.pl * (cfg.v_max + 1)), ident,
+                          dtype=torch.float32, device=x.device)
+        for pos, ids in arrs["in_parts"]:
+            racc[:, ids] = _combine(cfg.combine, racc[:, ids],
+                                    inbound[:, pos])
+        racc = racc.view(q, cfg.pl, cfg.v_max + 1)[:, :, :cfg.v_max]
+        acc = _combine(cfg.combine, acc, racc)
+
+    new_state, finished = program.apply_fn(state, acc, float(step))
+    if dopt is not None:
+        new_state = dict(new_state, **_dopt_fold(dopt, want, cnt))
+    return new_state, group.all_true(finished)
 
 
 def _edges_dict(ea: EdgeArrays, blk: Optional[BlockMetadata],
@@ -589,6 +724,7 @@ class BSPEngine:
         self.backend = backend
         self.fused = backend == FUSED
         self.device = resolve_device(device)
+        self._parts = self._shard_parts(pg)
         self.direction = direction
         self._direction_switch = direction_switch
         self._pull_threshold = pull_threshold
@@ -597,14 +733,15 @@ class BSPEngine:
         self._block_e = block_e
         self.pg = pg
         self.dims = _Dims(pg.num_parts, pg.v_max, pg.fwd.e_max, pg.fwd.o_max)
-        fwd_blk = rev_blk = None
-        if self.fused:
-            fwd_blk = build_block_metadata(pg.fwd, block_e=block_e)
-            if pg.rev is not None:
-                rev_blk = build_block_metadata(pg.rev, block_e=block_e)
-        self._fwd = _edges_dict(pg.fwd, fwd_blk, self.device)
-        self._rev = (_edges_dict(pg.rev, rev_blk, self.device)
-                     if pg.rev is not None else None)
+        # this engine's partitions (all of them on one device): the edge,
+        # block and pull arrays it puts on its device
+        local = [slice_parts(ea, *self._parts) if ea is not None else None
+                 for ea in (pg.fwd, pg.rev)]
+        blks = [build_block_metadata(ea, block_e=block_e)
+                if self.fused and ea is not None else None for ea in local]
+        self._fwd, self._rev = (
+            _edges_dict(ea, blk, self.device) if ea is not None else None
+            for ea, blk in zip(local, blks))
         self._hybrid_plan: Optional[dict] = None
         self._hybrid_cache: dict = {}
         self._hybrid_layouts: dict = {}
@@ -614,9 +751,17 @@ class BSPEngine:
                     "the hybrid backend needs PartitionedGraph.source; "
                     "partition with core.partition.partition()")
             self._splits = splits_of(pg)
-            self._hybrid_plan = self._splits.plan(hybrid_k_dense, block_e)
+            self._hybrid_plan = self._plan_hybrid(hybrid_k_dense, block_e)
         elif direction_switch:
             self._pull = self._build_pull_layout()
+
+    def _shard_parts(self, pg: PartitionedGraph) -> Tuple[int, int]:
+        """The partitions ``[lo, hi)`` this engine holds: all of them."""
+        return 0, pg.num_parts
+
+    def _plan_hybrid(self, k_dense: Optional[int], block_e: int) -> dict:
+        """The split decision (``hybrid.SplitCache.plan``)."""
+        return self._splits.plan(k_dense, block_e)
 
     def edges_for(self, program: VertexProgram) -> dict:
         if program.use_reverse:
@@ -656,27 +801,37 @@ class BSPEngine:
                         forced=_DIRECTIONS[self.direction])
 
     def _build_pull_layout(self) -> _PullLayout:
-        """The transposed rows and the vote's inputs."""
-        pg = self.pg
-        tc = build_transposed_csc(pg.fwd, pg.v_max)
-        vmask = np.asarray(pg.vertex_mask, dtype=bool)
-        nreal_p = np.maximum(vmask.sum(axis=1), 1).astype(np.float64)
+        """The transposed rows of this engine's partitions and the vote's
+        inputs.  The per-partition crossovers are fitted on the whole
+        graph's rows (their ``kmax``), as the JAX package fits them before
+        sharding."""
+        pg, (lo, hi) = self.pg, self._parts
+        v_max = pg.v_max
+        tc = build_transposed_csc(pg.fwd, v_max)
+        vmask_all = np.asarray(pg.vertex_mask, dtype=bool)
+        nreal_p = np.maximum(vmask_all.sum(axis=1), 1).astype(np.float64)
         if self._pull_threshold is not None:
             thr = np.full(pg.num_parts, self._pull_threshold, np.float32)
         else:
             thr = fit_shard_pull_thresholds(
                 tc.deg_out.sum(axis=1) / nreal_p, [tc.kmax] * pg.num_parts,
                 backend=self.backend)
-        # One direction serves every partition, so the crossover is the
-        # edge-mass blend of the per-partition fits, in float32 as the JAX
-        # engine computes it.
-        emass = tc.deg_out.sum(axis=1).astype(np.float32)
-        threshold = (np.sum(thr.astype(np.float32) * emass, dtype=np.float32)
+        # One direction serves every local partition, so the crossover is
+        # the edge-mass blend of their fits, in float32 as the JAX engine
+        # computes it (a shard blends its own partitions').
+        deg, vmask = tc.deg_out[lo:hi], vmask_all[lo:hi]
+        emass = deg.sum(axis=1).astype(np.float32)
+        threshold = (np.sum(thr[lo:hi].astype(np.float32) * emass,
+                            dtype=np.float32)
                      / np.maximum(np.sum(emass, dtype=np.float32),
                                   np.float32(1.0)))
+        # the local rows; their sources lie in the same partition
+        r0, r1 = lo * v_max, hi * v_max
+        s0, s1 = int(tc.row_ptr[r0]), int(tc.row_ptr[r1])
         bnd_edges = None
-        if bool((pg.fwd.edge_mask & (pg.fwd.dst_ext > pg.v_max)).any()):
-            fwd, v_max = self._fwd, pg.v_max
+        local = slice_parts(pg.fwd, lo, hi)
+        if bool((local.edge_mask & (local.dst_ext > v_max)).any()):
+            fwd = self._fwd
             bnd_edges = dict(fwd, dst_ext=torch.where(
                 fwd["dst_ext"] < v_max, v_max, fwd["dst_ext"]))
             if "blk_mask" in fwd:
@@ -687,12 +842,13 @@ class BSPEngine:
 
         put = self._put
         return _PullLayout(
-            row_ptr=put(tc.row_ptr, torch.int32),
-            col=put(tc.col, torch.int32),
-            val=put(tc.val, torch.float32) if tc.val is not None else None,
+            row_ptr=put(tc.row_ptr[r0:r1 + 1] - s0, torch.int32),
+            col=put(tc.col[s0:s1] - r0, torch.int32),
+            val=(put(tc.val[s0:s1], torch.float32) if tc.val is not None
+                 else None),
             vmask=put(vmask, torch.bool),
             nreal=float(max(int(vmask.sum()), 1)),
-            deg=put(tc.deg_out, torch.int64), bnd=put(tc.deg_bnd, torch.int64),
+            deg=put(deg, torch.int64), bnd=put(tc.deg_bnd[lo:hi], torch.int64),
             threshold=float(threshold), bnd_edges=bnd_edges)
 
     # ---------------------- hybrid backend ---------------------------------
@@ -809,25 +965,48 @@ class BSPEngine:
             return self._direction_switch and program.combine == MIN
         return self._dopt_cfg_for(program, state) is not None
 
+    # Local exchange: outbox[q, p, r] -> inbox[q, r, p] is a transpose over
+    # the partition axes (the query axis rides along).
+    @staticmethod
+    def _exchange(outbox: torch.Tensor) -> torch.Tensor:
+        return outbox.transpose(1, 2)
+
+    # One device: each query's apply vote is already its global vote.
+    @staticmethod
+    def _all_finished(fin: torch.Tensor) -> torch.Tensor:
+        return fin
+
+    def _hybrid_step_fn(self, program: VertexProgram) -> Callable:
+        cfg, arrs = self.hybrid_for(program)
+        return functools.partial(_superstep_hybrid, program, cfg, arrs)
+
     def _step_fn(self, program: VertexProgram,
                  dopt_cfg: Optional[_DoptCfg] = None) -> Callable:
         if self._uses_hybrid(program):
-            cfg, arrs = self.hybrid_for(program)
-            return functools.partial(_superstep_hybrid, program, cfg, arrs)
+            return self._hybrid_step_fn(program)
         edges = self.edges_for(program)
         dims = self.dims_for(edges)
         block_e = self._block_e if self.fused else None
         pull = self._pull if dopt_cfg is not None else None
 
         def step_fn(state, step):
-            return _superstep(dims, program, edges, block_e, state, step,
+            return _superstep(dims, program, edges, self._exchange,
+                              self._all_finished, block_e, state, step,
                               dopt_cfg, pull)
         return step_fn
+
+    def _local(self, state: State) -> State:
+        """The engine's part of a global ``[Q, P, ...]`` state: all of it."""
+        return state
+
+    def _global(self, state: State) -> State:
+        """The global state back from the engine's part."""
+        return state
 
     def execute(self, program: VertexProgram, state: State, *,
                 num_steps: Optional[int] = None, chunk: Optional[int] = None,
                 incremental=None):
-        """Run ``program`` on a batched ``[Q, Pl, v_max]`` state dict.
+        """Run ``program`` on a batched ``[Q, P, v_max]`` state dict.
 
         - ``execute(program, state)`` — run to convergence; returns
           ``(state, steps_q [Q])``.
@@ -856,14 +1035,15 @@ class BSPEngine:
                                         device=self.device),
                 _dopt_switch=torch.zeros((q, parts), dtype=torch.int64,
                                          device=self.device))
+        state = self._local(state)
         step_fn = self._step_fn(program, dopt_cfg)
         if num_steps is not None:
             for i in range(num_steps):
                 state, _ = step_fn(state, i)
-            return self._dopt_finish(state)
+            return self._dopt_finish(self._global(state))
         state, steps_q = _run_batched_loop(step_fn, program.max_steps, state,
                                            num_queries(state))
-        return self._dopt_finish(state), steps_q
+        return self._dopt_finish(self._global(state)), steps_q
 
     def _dopt_finish(self, state: State) -> State:
         """Strip the direction leaves and record per-query aggregates."""
@@ -874,3 +1054,204 @@ class BSPEngine:
                 edges_examined=dopt["_dopt_edges"].sum(1).cpu().numpy(),
                 switches=dopt["_dopt_switch"].sum(1).cpu().numpy())
         return state
+
+
+class DistributedBSPEngine(BSPEngine):
+    """Partitions sharded over the ranks of a ``torch.distributed`` group.
+
+    Each rank holds ``P / world`` consecutive partitions on its device and
+    puts only their edge, block, pull-row and hybrid arrays there.  The
+    exchange phase is an ``all_to_all`` (the paper's PCI-E outbox/inbox
+    copy, Fig. 6) and the termination vote a global AND.  ``group`` is a
+    process group, a :class:`~repro_torch.distributed.ShardGroup`, or None
+    for a world of one (one process, no process group); ``device`` is the
+    rank's device, ``cuda`` unless named.  ``execute`` takes and returns
+    the global ``[Q, P, v_max]`` state on every rank: it slices the rank's
+    partitions on entry and all-gathers them on exit, so the algorithms'
+    entry points run unchanged.
+
+    The reference and fused backends vote per shard: the crossover is the
+    edge-mass blend of the shard's own partitions' fits, and each shard
+    counts its examined edges and switches in its first column of the
+    ``[Q, P]`` direction leaves.  ``backend="hybrid"`` runs the paper's
+    configuration: every shard runs its own degree split over its
+    intra-partition edges (``hybrid.shard_degree_split``, |H| per shard
+    from ``perf_model.plan_shards``, reported by ``hybrid_plan()``), while
+    boundary messages are reduced into outbox slots at the source
+    (``kernels/outbox_reduce.py``) and only the used slots cross the wire.
+    Unlike the single-device hybrid, ``use_reverse`` programs (BC) need
+    ``include_reverse=True`` partitioning: reverse boundary edges route
+    through the reverse outbox maps.
+
+    Not ported yet: ``tiered=`` raises (single-device only, as in the JAX
+    package), dynamic graphs raise (Queue 1 item 11), and so do chunked
+    windows and their checked exchange (items 9 and 13).
+    """
+
+    def __init__(self, pg: PartitionedGraph, group=None, *,
+                 device: DeviceLike = None, tiered=None, **kwargs):
+        if tiered is not None:
+            raise ValueError(
+                "tiered= is single-device only: the sharded superstep has "
+                "no host-streaming seam; drop tiered= or use BSPEngine")
+        if not isinstance(pg, PartitionedGraph):
+            raise _not_in_slice(
+                f"a sharded engine over {type(pg).__name__} (dynamic "
+                f"graphs)", "11")
+        self.group = (group if isinstance(group, ShardGroup)
+                      else ShardGroup(group, device))
+        if pg.num_parts % self.group.world_size:
+            raise ValueError(
+                f"num_parts ({pg.num_parts}) must divide over the world size "
+                f"({self.group.world_size}): every rank holds the same number "
+                f"of partitions")
+        super().__init__(pg, device=self.group.device, **kwargs)
+
+    def _shard_parts(self, pg: PartitionedGraph) -> Tuple[int, int]:
+        pl = pg.num_parts // self.group.world_size
+        return self.group.rank * pl, (self.group.rank + 1) * pl
+
+    # ------------------------- state and votes -----------------------------
+
+    def _validate_state(self, state: State) -> None:
+        """Fail fast on mis-sharded inputs: every leaf must be a global
+        ``[Q, num_parts, ...]`` array (the exchange mis-routes otherwise)."""
+        for k, v in state.items():
+            if v.dim() < 2 or v.shape[1] != self.pg.num_parts:
+                raise ValueError(
+                    f"state leaf {k!r} has shape {tuple(v.shape)}, expected "
+                    f"[Q, num_parts={self.pg.num_parts}, ...]: every rank "
+                    f"passes the global state and holds its own partitions")
+
+    def _local(self, state: State) -> State:
+        self._validate_state(state)
+        lo, hi = self._parts
+        return {k: v[:, lo:hi] for k, v in state.items()}
+
+    def _global(self, state: State) -> State:
+        return {k: self.group.all_gather(v, dim=1) for k, v in state.items()}
+
+    def _exchange(self, outbox: torch.Tensor) -> torch.Tensor:
+        """Outboxes ``[Q, pl, P, o_max]`` -> inboxes of the same shape (the
+        JAX ``_dist_exchange``): the peer axis regroups as (rank, local
+        partition), moves to the front for ``all_to_all``, and comes back."""
+        q, pl, peers, o = outbox.shape
+        world = self.group.world_size
+        if peers != world * pl:
+            raise ValueError(
+                f"outbox shape {tuple(outbox.shape)} is inconsistent with the "
+                f"group: the peer axis ({peers}) must equal the world size "
+                f"({world}) x local partitions ({pl})")
+        send = outbox.reshape(q, pl, world, pl, o).permute(2, 0, 1, 3, 4)
+        recv = self.group.all_to_all(send)   # [world, Q, pl_src, pl_dst, o]
+        return recv.permute(1, 3, 0, 2, 4).reshape(q, pl, peers, o)
+
+    def _all_finished(self, fin: torch.Tensor) -> torch.Tensor:
+        """Per-shard votes ``[Q]`` -> the global AND (JAX
+        ``_dist_finished``)."""
+        return self.group.all_true(fin)
+
+    # ------------------------ sharded hybrid -------------------------------
+
+    def provides_reverse(self, program: VertexProgram) -> bool:
+        """False: the sharded hybrid routes reverse boundary edges through
+        the reverse outbox maps, which only ``include_reverse=True``
+        partitioning builds."""
+        return False
+
+    def _plan_hybrid(self, k_dense: Optional[int], block_e: int) -> dict:
+        """Per-shard split decision (``hybrid.SplitCache.shard_plan``): each
+        shard's |H| minimises its own exchange-inclusive makespan (Eq. 1),
+        the system's is the max over shards (Eq. 2)."""
+        return self._splits.shard_plan(self.group.world_size, k_dense,
+                                       block_e)
+
+    def hybrid_for(self, program: VertexProgram) -> Tuple[_ShardCfg, dict]:
+        """This rank's slice of the per-shard split ``program`` runs on (the
+        JAX ``_hybrid_dist_for``): its static cfg and device tensors, built
+        at the first call (the split itself is kept on ``pg``) and cached
+        per direction, semiring, weight use and frontier uniformity."""
+        key = self._hybrid_key(program)
+        if key not in self._hybrid_cache:
+            self._hybrid_cache[key] = self._build_shard(program)
+        return self._hybrid_cache[key]
+
+    def _build_shard(self, program: VertexProgram) -> Tuple[_ShardCfg,
+                                                             dict]:
+        spec = program.edge_msg
+        semiring = self._hybrid_semiring(program)
+        world, s = self.group.world_size, self.group.rank
+        ks = [rec["k_dense"] for rec in self._hybrid_plan["per_shard"]]
+        shd = self._splits.shard_split(
+            world, ks, program.use_reverse, semiring, spec.use_weight,
+            program.combine == MIN and self._direction_switch)
+        k, n_max, put = ks[s], shd.n_max, self._put
+        arrs = dict(slot=put(shd.slot[s], torch.int64),
+                    vmask=put(np.arange(n_max) < shd.n_vert[s], torch.bool),
+                    hid=put(shd.hid[s], torch.int64),
+                    dense=put(shd.dense[s, :k, :k], torch.float32),
+                    row_ptr=put(shd.ell_row_ptr[s], torch.int32),
+                    col=put(shd.ell_col[s], torch.int32),
+                    val=put(shd.ell_val[s], torch.float32))
+        # An unweighted graph packs the ⊗ identity (zero-cost hops,
+        # multiplicity one), so its boundary leg takes no weight either.
+        b_src, b_flat, b_w = shd.boundary(s)
+        weight_op = spec.weight_op if spec.use_weight and (
+            b_w is not None) else None
+        if len(b_src):
+            arrs["b_src"] = put(b_src, torch.int32)
+            arrs["b_flat"] = put(b_flat, torch.int32)
+            # boundary out-edges per source: the vote's work count
+            arrs["b_deg"] = put(np.bincount(b_src, minlength=n_max),
+                                torch.int64)
+            if weight_op is not None:
+                arrs["b_weight"] = put(b_w, torch.float32)
+        # Inbound values: [received wire (world * w) | own outbox]; per
+        # source partition, the positions of its values and their ids.
+        pos, src_p, ids = [], [], []
+        width = 0
+        if shd.has_remote:
+            arrs["send_idx"] = put(shd.send_idx[s], torch.int64)
+            width = world * shd.wire_width
+            pos.append(np.arange(width))
+            src_p.append(shd.recv_src[s].reshape(-1))
+            ids.append(shd.recv_ids[s].reshape(-1))
+        pos.append(width + shd.loc_idx[s])
+        src_p.append(shd.loc_src[s])
+        ids.append(shd.loc_ids[s])
+        pos, src_p, ids = (np.concatenate(a) for a in (pos, src_p, ids))
+        arrs["in_parts"] = [
+            (put(pos[src_p == p], torch.int64),
+             put(ids[src_p == p], torch.int64))
+            for p in np.unique(src_p[src_p >= 0])]
+        if shd.push_src is not None:
+            n = int(shd.n_intra[s])
+            arrs["push_src"] = put(shd.push_src[s, :n], torch.int64)
+            arrs["push_dst"] = put(shd.push_dst[s, :n], torch.int64)
+            if shd.push_w is not None:
+                arrs["push_w"] = put(shd.push_w[s, :n], torch.float32)
+        thr = self._pull_threshold
+        if thr is None:
+            # per shard: its intra slots (remainder + the dense charge)
+            # per vertex, and the widest remainder row over the shards
+            nv = np.maximum(shd.n_vert.astype(np.float64), 1.0)
+            intra = (shd.ell_row_ptr[:, -1].astype(np.int64)
+                     + np.asarray(ks, np.int64) ** 2)
+            thr = perf_model.fit_shard_pull_thresholds(
+                intra / nv, [shd.kmax] * world, backend=HYBRID)[s]
+        rows = np.diff(shd.ell_row_ptr[s])
+        cfg = _ShardCfg(
+            semiring=semiring, k_dense=k, num_vertices=int(shd.n_vert[s]),
+            kmax=max(int(rows.max(initial=0)), 1),
+            pull_threshold=float(thr), forced=_DIRECTIONS[self.direction],
+            uniform=spec.frontier_uniform, e_dense=k * k,
+            combine=program.combine, weight_op=weight_op,
+            pl=shd.parts_per_shard, v_max=shd.v_max,
+            num_slots=shd.num_slots, has_boundary=shd.has_boundary,
+            has_remote=shd.has_remote)
+        return cfg, arrs
+
+    def _hybrid_step_fn(self, program: VertexProgram) -> Callable:
+        cfg, arrs = self.hybrid_for(program)
+        return functools.partial(_superstep_hybrid_dist, program, cfg, arrs,
+                                 self.group)

@@ -15,24 +15,30 @@ Semirings, one per TOTEM reduction class (§3.4), make the split a backend
 for every vertex program: ``plus_times`` (PageRank, BC), ``min_plus``
 (SSSP), ``min`` (BFS, CC).
 
-The single-device half of ``repro.core.hybrid``.  The JAX package keeps
-the remainder as an ELL block ``[V, kmax]`` padded to the widest row; on a
-scale-free graph that row is a hub's in-degree (about 50k at RMAT20, where
-the block would need hundreds of GB), so here the remainder is CSR rows
+The sharded engine runs one such split per shard over the shard's
+intra-partition edges (``shard_degree_split``, ``ShardHybridData``) and
+routes every boundary edge through the outbox slots instead
+(``kernels/outbox_reduce.py``).
+
+A port of ``repro.core.hybrid``.  The JAX package keeps the remainder as an
+ELL block ``[V, kmax]`` padded to the widest row; on a scale-free graph
+that row is a hub's in-degree (about 50k at RMAT20, where the block would
+need hundreds of GB), so here the remainder is CSR rows
 (``ell_row_ptr``/``ell_col``/``ell_val``) in the same slot order: padded to
 ``kmax`` with the sentinel ``V`` they equal the JAX block.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core import perf_model
 from repro_torch.core.graph import CSRGraph
-from repro_torch.core.partition import build_block_metadata
+from repro_torch.core.partition import (EdgeArrays, _round_up,
+                                        boundary_edges, build_block_metadata)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.ops import (bottomup_scan_op, dense_spmv_minplus_op,
                                      dense_spmv_op, ell_spmv_op)
@@ -46,6 +52,7 @@ __all__ = ["PLUS_TIMES", "MIN_PLUS", "MIN_SR", "SEMIRINGS", "add_identity",
            "HybridGraph", "SplitLayout", "degree_ranking", "edge_max_ranks",
            "split_layout", "degree_split", "plan_degree_split",
            "auto_degree_split", "SplitCache", "splits_of",
+           "ShardHybridData", "shard_plan_inputs", "shard_degree_split",
            "hybrid_spmv", "hybrid_spmv_scan", "hybrid_pagerank"]
 
 
@@ -235,10 +242,338 @@ def auto_degree_split(g: CSRGraph, semiring: str = PLUS_TIMES,
     return hg
 
 
+# ---------------------------------------------------------------------------
+# Per-shard degree split of the sharded hybrid engine (paper §4.3, §6)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class ShardHybridData:
+    """One direction's per-shard degree split and outbox maps, stacked on a
+    leading shard axis ``S``; each rank of the sharded engine puts its own
+    row on its device.
+
+    Shard ``s`` owns ``parts_per_shard`` consecutive partitions and runs the
+    two-engine step over its *intra-partition* edges in a shard-local
+    degree-ranked id space (``slot``/``hid`` translate to and from the
+    engine's ``[pl, v_max]`` layout).  Every inter-partition edge goes
+    through the outbox-slot space of ``partition.py`` instead: boundary
+    messages are reduced into slots at the source (§3.4) and only the used
+    slots of each (shard, peer shard) pair cross the wire.  ``send_idx``/
+    ``recv_ids`` are the gather and scatter maps of that compact exchange,
+    ``loc_idx``/``loc_ids`` the same-shard pairs that never reach it;
+    ``recv_src``/``loc_src`` name each value's source partition, so the
+    inbox scatter can run one pass per source partition in a fixed order.
+    Shapes are uniform over shards (padded to the largest); pad slots read
+    and write identity sinks.
+
+    The JAX package's fields keep its names and values, with two changes.
+    The remainder is CSR rows (``ell_row_ptr`` per shard, ``ell_col``/
+    ``ell_val`` one array per shard), which padded to ``kmax`` with the
+    sentinel ``n_max`` equal the JAX ``[S, n_max, kmax]`` block.  The
+    boundary edges are flat slot ids (``b_flat``, what the outbox kernel
+    reads: ``boundary(s)``), not the JAX package's per-block
+    ``b_base``/``b_local``/``b_mask`` metadata, which its Pallas kernel
+    needs and this port does not.
+    """
+
+    semiring: str
+    num_shards: int
+    parts_per_shard: int      # pl
+    v_max: int
+    num_parts: int            # P
+    o_max: int
+    k_dense: int              # largest shard |H|
+    n_max: int                # padded per-shard hybrid vertex count
+    num_slots: int            # pl * P * o_max flat outbox space per shard
+    # --- per shard [S, ...] ---
+    n_vert: np.ndarray        # [S] hybrid vertices of each shard
+    dense: np.ndarray         # [S, K, K] ⊗ values (⊕-identity off-edge)
+    ell_row_ptr: np.ndarray   # [S, n_max + 1] int32 remainder rows
+    ell_col: List[np.ndarray]  # per shard [nnz_s] int32 source hybrid ids
+    ell_val: List[np.ndarray]  # per shard [nnz_s] f32 ⊗ values
+    kmax: int                 # widest remainder row over the shards (>= 1)
+    slot: np.ndarray          # [S, n_max] hybrid id -> p_local*v_max + local
+    hid: np.ndarray           # [S, pl, v_max] slot -> hybrid id (pad n_max)
+    # --- boundary edges, sorted by flat outbox slot id ---
+    b_src: np.ndarray         # [S, be_max] hybrid source id (pad -> n_max)
+    b_weight: Optional[np.ndarray]   # [S, be_max] f32 or None
+    b_flat: np.ndarray        # [S, be_max] flat slot id (pad -> num_slots)
+    b_count: np.ndarray       # [S] real boundary edges (each row's prefix)
+    # --- compact exchange maps ---
+    send_idx: np.ndarray      # [S, S, w] flat outbox index (pad -> num_slots)
+    recv_ids: np.ndarray      # [S, S, w] local scatter segment id
+    recv_src: np.ndarray      # [S, S, w] source partition (pad -> -1)
+    loc_idx: np.ndarray       # [S, L] same-shard flat outbox indices
+    loc_ids: np.ndarray       # [S, L] same-shard scatter segment ids
+    loc_src: np.ndarray       # [S, L] source partition (pad -> -1)
+    wire_width: int           # w: packed slots per (shard, peer) pair
+    has_boundary: bool
+    has_remote: bool
+    # --- push direction (min combines; None without the switch) ---
+    push_src: Optional[np.ndarray]   # [S, ei_pad] hybrid ids (pad -> n_max)
+    push_dst: Optional[np.ndarray]   # [S, ei_pad]
+    push_w: Optional[np.ndarray]     # [S, ei_pad] (min_plus) or None
+    n_intra: Optional[np.ndarray]    # [S] real push edges (row prefix)
+
+    def boundary(self, s: int):
+        """Shard ``s``'s real boundary edges as the outbox kernel takes
+        them: ``(hybrid src, flat slot id, weight or None)``, flat ids
+        non-decreasing."""
+        c = int(self.b_count[s])
+        w = self.b_weight[s, :c] if self.b_weight is not None else None
+        return self.b_src[s, :c], self.b_flat[s, :c], w
+
+
+def _shard_intra(pg, num_shards: int, g: CSRGraph):
+    """Per-shard intra-partition edges and degree-descending rankings.
+
+    Ranks each shard's vertices by (in + out) degree over the intra edges
+    only (the edges its two-engine step runs); the ranking is direction
+    symmetric.  Returns per shard: (ranked global ids, global -> hybrid
+    inverse, intra src, intra dst, intra weights or None).
+    """
+    asg = pg.assignment
+    pl = pg.num_parts // num_shards
+    src_g, dst_g = g.edge_sources(), g.col
+    sp = asg.part_of[src_g]
+    intra = sp == asg.part_of[dst_g]
+    shard_of_edge = sp // pl
+    n = pg.num_vertices
+    deg = (np.bincount(src_g[intra], minlength=n)
+           + np.bincount(dst_g[intra], minlength=n)).astype(np.int64)
+    out = []
+    for s in range(num_shards):
+        verts = np.concatenate(
+            [asg.l2g[p] for p in range(s * pl, (s + 1) * pl)])
+        order = verts[np.argsort(-deg[verts], kind="stable")]
+        inv = np.full(n, -1, dtype=np.int64)
+        inv[order] = np.arange(len(order))
+        em = intra & (shard_of_edge == s)
+        w = g.weights[em] if g.weights is not None else None
+        out.append((order, inv, src_g[em], dst_g[em], w))
+    return out
+
+
+def shard_plan_inputs(pg, num_shards: int, layouts=None):
+    """Inputs of ``perf_model.plan_shards`` (Eq. 1 per shard):
+    ``(ranks, edges, slots, nverts)`` per shard: the intra edges'
+    ``max(rank(src), rank(dst))``, their count, the outbox slots the shard
+    ships to *other* shards per superstep, and its vertex count.
+    ``layouts`` reuses a forward ``_shard_intra`` result."""
+    pl = pg.num_parts // num_shards
+    om = pg.fwd.outbox_mask
+    if layouts is None:
+        layouts = _shard_intra(pg, num_shards, pg.source)
+    ranks, edges, slots, nverts = [], [], [], []
+    for s, (order, inv, es, ed, _) in enumerate(layouts):
+        ranks.append(np.maximum(inv[es], inv[ed]))
+        edges.append(len(es))
+        rows = om[s * pl:(s + 1) * pl]
+        slots.append(float(rows.sum() - rows[:, s * pl:(s + 1) * pl].sum()))
+        nverts.append(len(order))
+    return ranks, edges, slots, nverts
+
+
+def _boundary_arrays(ea: EdgeArrays, asg, shard: int, pl: int, v_max: int,
+                     inv: np.ndarray):
+    """One shard's boundary edges as (hybrid src, flat slot id, weight),
+    sorted by flat slot id (the edges are sorted by ``dst_ext`` and the
+    flat id is p_local-major)."""
+    P, o_max = ea.outbox_dst.shape[0], ea.o_max
+    srcs, flats, ws = [], [], []
+    for p_local in range(pl):
+        p = shard * pl + p_local
+        src, flat, w = boundary_edges(ea, p, v_max)
+        srcs.append(inv[asg.l2g[p][src]])
+        flats.append(p_local * (P * o_max) + flat)
+        if w is not None:
+            ws.append(w)
+    return (np.concatenate(srcs), np.concatenate(flats),
+            np.concatenate(ws) if ea.weight is not None else None)
+
+
+def shard_degree_split(pg, num_shards: int, semiring: str,
+                       per_shard_k: Sequence[int], *,
+                       use_reverse: bool = False, use_weights: bool = True,
+                       direction_switch: bool = False, layouts=None,
+                       align: int = 8) -> ShardHybridData:
+    """Build one direction's :class:`ShardHybridData` (numpy).
+
+    ``per_shard_k`` is each shard's |H| (``perf_model.plan_shards``): shard
+    ``s`` moves only its own top-``k_s`` edges to the dense block.  The
+    JAX package pads every dense block to the largest |H| for its SPMD
+    step; ``dense`` keeps that shape, and a rank needs only its
+    ``[:k_s, :k_s]`` corner.  ``use_weights=False`` packs the semiring's
+    defaults (multiplicity counts, zero-cost hops) even on a weighted graph.
+    ``direction_switch`` adds the push edges of the min combines' vote.
+    ``layouts`` reuses ``_shard_intra`` of this direction's graph.
+    """
+    if semiring not in SEMIRINGS:
+        raise ValueError(f"unknown semiring {semiring!r}")
+    if pg.source is None:
+        raise ValueError("per-shard split needs PartitionedGraph.source")
+    ea = pg.rev if use_reverse else pg.fwd
+    if ea is None:
+        raise ValueError(
+            "the sharded hybrid needs reverse edge and outbox arrays for "
+            "use_reverse programs; partition with include_reverse=True")
+    asg = pg.assignment
+    S, pl = num_shards, pg.num_parts // num_shards
+    P, v_max, o_max = pg.num_parts, pg.v_max, ea.o_max
+    ident = add_identity(semiring)
+    if layouts is None:
+        layouts = _shard_intra(
+            pg, S, pg.source.reverse() if use_reverse else pg.source)
+
+    k_list = [int(k) for k in per_shard_k]
+    K = max(k_list) if k_list else 0
+    n_max = max(_round_up(max(len(o) for o, *_ in layouts), align), align, K)
+    n_vert = np.array([len(o) for o, *_ in layouts], dtype=np.int32)
+    dense = np.full((S, K, K), ident, dtype=np.float32)
+    slot = np.zeros((S, n_max), dtype=np.int32)
+    hid = np.full((S, pl, v_max), n_max, dtype=np.int32)
+    row_ptr = np.zeros((S, n_max + 1), dtype=np.int32)
+    ell_col, ell_val = [], []
+    push = ([], [], []) if direction_switch else None
+
+    for s, (order, inv, es, ed, ws) in enumerate(layouts):
+        n_s, k_s = len(order), k_list[s]
+        slot[s, :n_s] = ((asg.part_of[order] - s * pl) * v_max
+                         + asg.local_id[order]).astype(np.int32)
+        for p_local in range(pl):
+            l2g = asg.l2g[s * pl + p_local]
+            hid[s, p_local, : len(l2g)] = inv[l2g]
+        # per-semiring ⊗ values (degree_split's policy)
+        hs, hd = inv[es], inv[ed]
+        if not use_weights:
+            ws = None
+        if semiring == PLUS_TIMES:
+            w = ws if ws is not None else np.ones(len(es), dtype=np.float32)
+        elif semiring == MIN_PLUS:
+            w = ws if ws is not None else np.zeros(len(es), dtype=np.float32)
+        else:
+            w = np.zeros(len(es), dtype=np.float32)
+        w = np.asarray(w, dtype=np.float32)
+        in_h = (hs < k_s) & (hd < k_s)
+        if k_s:
+            if semiring == PLUS_TIMES:
+                np.add.at(dense[s], (hs[in_h], hd[in_h]), w[in_h])
+            else:
+                np.minimum.at(dense[s], (hs[in_h], hd[in_h]), w[in_h])
+        # remainder rows: destination, then source id, ties in edge order
+        # (the JAX from_edge_list sort and csr_to_ell's stable transpose)
+        rest = np.flatnonzero(~in_h)
+        rest = rest[np.lexsort((hs[rest], hd[rest]))]
+        if len(rest) >= 2 ** 31:
+            raise ValueError(f"{len(rest)} remainder edges overflow int32")
+        np.cumsum(np.bincount(hd[rest], minlength=n_max), out=row_ptr[s, 1:])
+        ell_col.append(hs[rest].astype(np.int32))
+        ell_val.append(w[rest])
+        if push is not None:
+            push[0].append(hs.astype(np.int32))
+            push[1].append(hd.astype(np.int32))
+            push[2].append(w)
+    kmax = max(int(np.diff(row_ptr, axis=1).max(initial=0)), 1)
+
+    # ---- boundary edges -> outbox-slot segment space ----------------------
+    num_slots = pl * P * o_max
+    bnd = [_boundary_arrays(ea, asg, s, pl, v_max, layouts[s][1])
+           for s in range(S)]
+    be_req = max(len(b[0]) for b in bnd)
+    be_max = max(_round_up(be_req, align), align)
+    b_src = np.full((S, be_max), n_max, dtype=np.int32)
+    b_flat = np.full((S, be_max), num_slots, dtype=np.int32)
+    b_weight = (np.zeros((S, be_max), dtype=np.float32)
+                if ea.weight is not None else None)
+    counts = np.zeros(S, dtype=np.int64)
+    for s, (bs, bf, bw) in enumerate(bnd):
+        k = len(bs)
+        b_src[s, :k] = bs
+        b_flat[s, :k] = bf
+        if b_weight is not None and k:
+            b_weight[s, :k] = bw
+        counts[s] = k
+
+    # ---- compact exchange maps --------------------------------------------
+    pair_counts = np.zeros((S, S), dtype=np.int64)
+    for u in range(S):
+        for t in range(S):
+            if t != u:
+                pair_counts[u, t] = int(ea.outbox_mask[
+                    u * pl:(u + 1) * pl, t * pl:(t + 1) * pl].sum())
+    w_req = int(pair_counts.max()) if S > 1 else 0
+    w_pad = max(_round_up(w_req, align), align)
+    seg_sink = pl * (v_max + 1)
+    send_idx = np.full((S, S, w_pad), num_slots, dtype=np.int32)
+    recv_ids = np.full((S, S, w_pad), seg_sink, dtype=np.int32)
+    recv_src = np.full((S, S, w_pad), -1, dtype=np.int32)
+    loc_lists = [([], [], []) for _ in range(S)]
+    for u in range(S):
+        for t in range(S):
+            j = 0
+            for p_local in range(pl):
+                p = u * pl + p_local
+                for q in range(t * pl, (t + 1) * pl):
+                    k = int(ea.outbox_mask[p, q].sum())
+                    if k == 0:
+                        continue
+                    idx = p_local * (P * o_max) + q * o_max + np.arange(k)
+                    ids = ((q - t * pl) * (v_max + 1)
+                           + ea.outbox_dst[p, q, :k])
+                    if t == u:
+                        loc_lists[u][0].append(idx)
+                        loc_lists[u][1].append(ids)
+                        loc_lists[u][2].append(np.full(k, p))
+                    else:
+                        send_idx[u, t, j: j + k] = idx
+                        recv_ids[t, u, j: j + k] = ids
+                        recv_src[t, u, j: j + k] = p
+                        j += k
+    l_req = max(sum(len(a) for a in ls[0]) for ls in loc_lists)
+    l_pad = max(_round_up(l_req, align), align)
+    loc_idx = np.full((S, l_pad), num_slots, dtype=np.int32)
+    loc_ids = np.full((S, l_pad), seg_sink, dtype=np.int32)
+    loc_src = np.full((S, l_pad), -1, dtype=np.int32)
+    for s, lists in enumerate(loc_lists):
+        for arr, out in zip(lists, (loc_idx, loc_ids, loc_src)):
+            if arr:
+                cat = np.concatenate(arr)
+                out[s, : len(cat)] = cat
+
+    push_src = push_dst = push_w = n_intra = None
+    if push is not None:
+        n_intra = np.array([len(a) for a in push[0]], dtype=np.int64)
+        ei_max = max(_round_up(int(n_intra.max()), align), align)
+        push_src = np.full((S, ei_max), n_max, dtype=np.int32)
+        push_dst = np.full((S, ei_max), n_max, dtype=np.int32)
+        for s in range(S):
+            push_src[s, : n_intra[s]] = push[0][s]
+            push_dst[s, : n_intra[s]] = push[1][s]
+        if (semiring == MIN_PLUS and use_weights
+                and pg.source.weights is not None):
+            push_w = np.zeros((S, ei_max), dtype=np.float32)
+            for s in range(S):
+                push_w[s, : n_intra[s]] = push[2][s]
+
+    return ShardHybridData(
+        semiring=semiring, num_shards=S, parts_per_shard=pl, v_max=v_max,
+        num_parts=P, o_max=o_max, k_dense=K, n_max=n_max,
+        num_slots=num_slots, n_vert=n_vert, dense=dense,
+        ell_row_ptr=row_ptr, ell_col=ell_col, ell_val=ell_val, kmax=kmax,
+        slot=slot, hid=hid, b_src=b_src, b_weight=b_weight, b_flat=b_flat,
+        b_count=counts,
+        send_idx=send_idx, recv_ids=recv_ids, recv_src=recv_src,
+        loc_idx=loc_idx, loc_ids=loc_ids, loc_src=loc_src,
+        wire_width=w_pad, has_boundary=be_req > 0, has_remote=w_req > 0,
+        push_src=push_src, push_dst=push_dst, push_w=push_w,
+        n_intra=n_intra)
+
+
 class SplitCache:
     """The host work of the degree split over one partitioned graph, done
     once: the degree ranking, the planner's decisions, each direction's
-    layout and each semiring's split.  Hybrid engines over the same graph
+    layout and each semiring's split, and the same per shard for the
+    sharded engine.  Hybrid engines over the same graph
     differ in direction settings and device, not in these arrays, so they
     share one cache (``splits_of``)."""
 
@@ -292,6 +627,50 @@ class SplitCache:
                                 layout=self.layout(k_dense, reverse))
         return self._once(("split", k_dense, reverse, semiring, weighted),
                           build)
+
+    # --- the sharded engine's per-shard splits -----------------------------
+
+    def shard_intra(self, num_shards: int, reverse: bool):
+        """``_shard_intra`` of one direction over ``num_shards`` shards."""
+        return self._once(("shard_intra", num_shards, reverse),
+                          lambda: _shard_intra(self.pg, num_shards,
+                                               self.graph(reverse)))
+
+    def shard_plan(self, num_shards: int, k_dense: Optional[int],
+                   block_e: int) -> dict:
+        """``perf_model.plan_shards`` over the forward intra edges, each
+        shard with the candidates of its vertex count and the skew signal;
+        each record also carries its ``mode``, the plan ``skew``,
+        ``num_shards`` and ``candidates``."""
+        def build():
+            ranks, edges, slots, nverts = shard_plan_inputs(
+                self.pg, num_shards, layouts=self.shard_intra(num_shards,
+                                                              False))
+            skew = self.skew(block_e)
+            candidates = [perf_model.k_dense_candidates(n, skewed=skew > 0.0)
+                          for n in nverts]
+            plan = perf_model.plan_shards(ranks, edges, slots, candidates,
+                                          k_dense=k_dense)
+            for rec, n in zip(plan["per_shard"], nverts):
+                rec["mode"] = perf_model.split_mode(rec["k_dense"], n,
+                                                    rec["e_sparse"])
+            plan.update(skew=skew, num_shards=num_shards,
+                        candidates=candidates)
+            return plan
+        return self._once(("shard_plan", num_shards, k_dense, block_e), build)
+
+    def shard_split(self, num_shards: int, per_shard_k: Sequence[int],
+                    reverse: bool, semiring: str, weighted: bool,
+                    direction_switch: bool) -> ShardHybridData:
+        """``shard_degree_split`` of one direction and semiring."""
+        ks = tuple(int(k) for k in per_shard_k)
+        return self._once(
+            ("shard_split", num_shards, ks, reverse, semiring, weighted,
+             direction_switch),
+            lambda: shard_degree_split(
+                self.pg, num_shards, semiring, ks, use_reverse=reverse,
+                use_weights=weighted, direction_switch=direction_switch,
+                layouts=self.shard_intra(num_shards, reverse)))
 
 
 def splits_of(pg) -> SplitCache:

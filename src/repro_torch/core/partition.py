@@ -179,6 +179,38 @@ def assign_vertices(g: CSRGraph, num_parts: int, strategy: str = RAND,
     return VertexAssignment(num_parts, part_of, local_id, l2g)
 
 
+def boundary_edges(ea: EdgeArrays, p: int, v_max: int):
+    """One partition's boundary edges as (local src, flat outbox slot,
+    weight-or-None), in ``dst_ext`` order (so flat slot ids ascend).
+
+    The flat slot id is ``q * o_max + slot``, the edge's position in the
+    partition's ``[P, o_max]`` outbox, recovered from the extended
+    destination index the edge arrays already carry (§4.3.1).  The sharded
+    hybrid engine reduces boundary messages into exactly this segment space
+    before the exchange (§3.4 source-side aggregation).
+    """
+    em = ea.edge_mask[p] & (ea.dst_ext[p] > v_max)
+    src = ea.src[p][em]
+    flat = ea.dst_ext[p][em] - (v_max + 1)
+    w = ea.weight[p][em] if ea.weight is not None else None
+    return src, flat, w
+
+
+def slice_parts(ea: EdgeArrays, lo: int, hi: int) -> EdgeArrays:
+    """The rows of partitions ``[lo, hi)``: what one shard of the sharded
+    engine holds.  Ids keep their global meaning (``dst_ext`` still spans
+    every peer's outbox)."""
+    def cut(x):
+        return None if x is None else x[lo:hi]
+
+    return EdgeArrays(src=ea.src[lo:hi], dst_ext=ea.dst_ext[lo:hi],
+                      weight=cut(ea.weight), edge_mask=ea.edge_mask[lo:hi],
+                      outbox_dst=ea.outbox_dst[lo:hi],
+                      outbox_mask=ea.outbox_mask[lo:hi],
+                      inbox_dst=ea.inbox_dst[lo:hi],
+                      num_edges=ea.num_edges[lo:hi], edge_id=cut(ea.edge_id))
+
+
 def _build_edge_arrays(g: CSRGraph, asg: VertexAssignment, v_max: int,
                        align: int, spare_outbox: int = 0) -> EdgeArrays:
     """Construct the edge-parallel arrays + outbox maps for one direction.

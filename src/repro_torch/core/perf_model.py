@@ -9,9 +9,11 @@ Every constant below is that package's model of its own accelerator, kept
 under the package's names; none was fitted on a GPU.  ``DIRECTION_GAMMA``
 is its per-backend cost of a bottom-up scan slot relative to a pushed edge.
 The ``TPU_*`` rates and the fast-memory size behind ``K_DENSE_CAP`` are the
-inputs of its split planner (``hybrid_makespan_tpu``); copying them keeps
-``hybrid_k_dense=None`` on the JAX package's choice.  A model of the card's
-own rates, fitted from measurement, is later work.
+inputs of its split planner (``hybrid_makespan_tpu``), and its interconnect
+rate (``TPU_ICI_LINK_BW`` x ``TPU_ICI_LINKS``) the boundary-exchange term
+of the sharded planner (``plan_shards``); copying them keeps
+``hybrid_k_dense=None`` on the JAX package's choice, per shard too.  A
+model of the card's own rates, fitted from measurement, is later work.
 """
 from __future__ import annotations
 
@@ -22,6 +24,8 @@ DIRECTION_GAMMA = {"hybrid": 1.0, "fused": 1.5, "reference": 2.0}
 # The JAX package's accelerator model (see the module docstring).
 TPU_PEAK_FLOPS = 197e12
 TPU_HBM_BW = 819e9
+TPU_ICI_LINK_BW = 50e9
+TPU_ICI_LINKS = 4
 TPU_VMEM_BYTES = 128 * 1024 * 1024
 
 
@@ -69,20 +73,28 @@ def dense_block_rate(density: float) -> float:
 
 
 def hybrid_makespan_tpu(e_dense: float, dense_density: float,
-                        e_sparse: float) -> dict:
+                        e_sparse: float, boundary_slots: float = 0.0,
+                        num_chips: int = 1, bytes_per_edge: float = 8.0,
+                        msg_bytes: float = 4.0) -> dict:
     """Predicted makespan of the two-engine step (paper Eq. 2 recast): the
-    dense and sparse stages run one after the other on one device.
+    dense and sparse stages run one after the other on a device, the
+    ``num_chips`` shards side by side, and the boundary exchange before
+    them (Eq. 1's ``|E_p^b| / c`` with the §3.4 reduced slots):
 
-      t_dense = e_dense / dense_block_rate(density)
-      t_sparse = e_sparse / (memory rate / 8 bytes per remainder edge)
+      t_dense = e_dense / dense_block_rate(density) / chips
+      t_sparse = e_sparse / (memory rate / bytes_per_edge) / chips
+      t_comm = boundary_slots * msg_bytes / (chips * link rate * links)
 
-    The JAX package's version adds a boundary-exchange term for its
-    sharded engine, which is 0 on one device.
+    One device ships no boundary slots, so ``t_comm`` is 0 there.
     """
-    t_dense = e_dense / dense_block_rate(max(dense_density, 1e-12))
-    t_sparse = e_sparse / (TPU_HBM_BW / 8.0)
-    return dict(t_dense=t_dense, t_sparse=t_sparse,
-                makespan=t_dense + t_sparse)
+    r_dense = dense_block_rate(max(dense_density, 1e-12))
+    r_sparse = TPU_HBM_BW / bytes_per_edge
+    t_dense = e_dense / r_dense / num_chips
+    t_sparse = e_sparse / r_sparse / num_chips
+    t_comm = boundary_slots * msg_bytes / (TPU_ICI_LINK_BW * TPU_ICI_LINKS
+                                           * num_chips)
+    return dict(t_dense=t_dense, t_sparse=t_sparse, t_comm=t_comm,
+                makespan=t_comm + t_dense + t_sparse)
 
 
 # Largest dense block the planner considers: the f32 H x H block within a
@@ -110,10 +122,15 @@ def k_dense_candidates(num_vertices: int, skewed: bool = True,
 
 
 def rank_k_dense(edge_max_rank: np.ndarray, num_edges: int,
-                 candidates) -> list:
+                 candidates, num_chips: int = 1, bytes_per_edge: float = 8.0,
+                 msg_bytes: float = 4.0, boundary_slots: float = 0.0) -> list:
     """One record per candidate |H|: the edges inside the H x H block
     (``e_dense(k) = #{e : edge_max_rank[e] < k}``), the rest, the block's
-    density and the makespan terms of :func:`hybrid_makespan_tpu`.
+    density, ``boundary_slots`` and the makespan terms of
+    :func:`hybrid_makespan_tpu`.  ``boundary_slots`` (the outbox slots a
+    shard ships per superstep) shifts every candidate by the same time; it
+    differs between shards, which is what makes ``plan_shards``'s argmin
+    per shard depend on the partitioning.
 
     The JAX package sorts the ranks and searches them; counting them gives
     the same integers in one pass over the edges.
@@ -127,17 +144,67 @@ def rank_k_dense(edge_max_rank: np.ndarray, num_edges: int,
         e_dense = int(below[int(k)])
         e_sparse = int(num_edges) - e_dense
         density = e_dense / max(int(k) * int(k), 1)
+        pred = hybrid_makespan_tpu(e_dense, density, e_sparse,
+                                   boundary_slots=boundary_slots,
+                                   num_chips=num_chips,
+                                   bytes_per_edge=bytes_per_edge,
+                                   msg_bytes=msg_bytes)
         table.append(dict(k_dense=int(k), e_dense=e_dense, e_sparse=e_sparse,
                           density=density,
-                          **hybrid_makespan_tpu(e_dense, density, e_sparse)))
+                          boundary_slots=float(boundary_slots), **pred))
     return table
 
 
-def choose_k_dense(edge_max_rank: np.ndarray, num_edges: int, candidates):
+def choose_k_dense(edge_max_rank: np.ndarray, num_edges: int, candidates,
+                   **kwargs):
     """Pick |H| = argmin of predicted makespan; returns (k, ranked table)."""
-    table = rank_k_dense(edge_max_rank, num_edges, candidates)
+    table = rank_k_dense(edge_max_rank, num_edges, candidates, **kwargs)
     best = min(table, key=lambda rec: rec["makespan"])
     return best["k_dense"], table
+
+
+def plan_shards(shard_ranks, shard_edges, shard_slots, candidates,
+                k_dense: "int | None" = None, **kwargs) -> dict:
+    """Per-shard split decision of the sharded hybrid engine (Eq. 1-2).
+
+    Shard ``p`` runs its own two-engine step over its intra-partition edges
+    (``shard_ranks[p]``, ``shard_edges[p]``) and ships ``shard_slots[p]``
+    aggregated outbox slots to other shards, so its predicted superstep is
+    ``t_p = |slots_p| / c + t_dense + t_sparse`` and the system is bound
+    by ``max_p t_p``.  Each shard's |H| is the argmin of its own makespan,
+    or ``k_dense`` for all when given.  ``candidates`` is one ladder for
+    every shard or one ladder per shard.
+
+    Returns ``dict(per_shard=[{shard, num_edges, boundary_slots, table,
+    k_dense, e_dense, e_sparse, density, t_dense, t_sparse, t_comm,
+    makespan}], k_dense=the largest shard |H|, makespan=max_p t_p,
+    bottleneck=argmax_p)``.
+    """
+    nested = (len(candidates) > 0
+              and isinstance(candidates[0], (list, tuple, np.ndarray)))
+    per_shard = []
+    for s, (ranks, edges, slots) in enumerate(
+            zip(shard_ranks, shard_edges, shard_slots)):
+        cands = list(candidates[s]) if nested else list(candidates)
+        cands = (sorted(set(cands) | {k_dense})
+                 if k_dense is not None else cands)
+        table = rank_k_dense(ranks, edges, cands,
+                             boundary_slots=slots, **kwargs)
+        if k_dense is None:
+            best = min(table, key=lambda rec: rec["makespan"])
+        else:
+            best = next(r for r in table if r["k_dense"] == k_dense)
+        per_shard.append(dict(shard=s, num_edges=int(edges),
+                              boundary_slots=float(slots), table=table,
+                              **{k: best[k] for k in
+                                 ("k_dense", "e_dense", "e_sparse", "density",
+                                  "t_dense", "t_sparse", "t_comm",
+                                  "makespan")}))
+    bottleneck = max(per_shard, key=lambda rec: rec["makespan"])
+    return dict(per_shard=per_shard,
+                k_dense=max((rec["k_dense"] for rec in per_shard), default=0),
+                makespan=bottleneck["makespan"],
+                bottleneck=bottleneck["shard"])
 
 
 def split_mode(k_dense: int, num_vertices: int, e_sparse: int) -> str:

@@ -52,6 +52,11 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{key[:16]}.so"
 
 
+def sources() -> Tuple[str, ...]:
+    """The names of every CUDA source under ``csrc/``."""
+    return tuple(sorted(p.stem for p in CSRC.glob("*.cu")))
+
+
 def build_all(names: Iterable[str]) -> Dict[str, Tuple[Path, str]]:
     """Build every named source that is not built yet, one ``nvcc`` each,
     all started together.  Returns ``{name: (library, compiler log)}``; the

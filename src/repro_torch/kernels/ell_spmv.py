@@ -20,6 +20,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.ref import SEMIRINGS
 
 SOURCE = "ell_spmv"
 
@@ -77,6 +78,8 @@ def ell_spmv(row_ptr: torch.Tensor, col: torch.Tensor,
     y = torch.empty((q, v), dtype=torch.float32, device=dev)
     if v == 0 or q == 0:
         return y
+    if col.shape[0] == 0:   # no slot at all: every row is the ⊕-identity
+        return y.fill_(SEMIRINGS[semiring][1])
     lib = _library()
     # the hub list: at most nnz // (warp_max + 1) rows are longer than a
     # warp's share

@@ -16,9 +16,11 @@ from repro_torch.kernels.bottomup import bottomup_scan
 from repro_torch.kernels.dense_spmv import dense_spmv, dense_spmv_minplus
 from repro_torch.kernels.ell_spmv import ell_spmv
 from repro_torch.kernels.fused_superstep import KINDS, fused_superstep
-from repro_torch.kernels.ref import (SEMIRINGS, bottomup_scan_ref,
+from repro_torch.kernels.outbox_reduce import WEIGHT_OPS, outbox_reduce
+from repro_torch.kernels.ref import (MIN, SEMIRINGS, SUM, bottomup_scan_ref,
                                      dense_spmv_minplus_ref, dense_spmv_ref,
-                                     ell_spmv_ref, fused_superstep_ref)
+                                     ell_spmv_ref, fused_superstep_ref,
+                                     outbox_reduce_ref)
 
 _COMBINE_ALIAS = {"sum": "plus_times", "min": "min_plus"}
 
@@ -143,6 +145,44 @@ def dense_spmv_minplus_op(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return dense_spmv_minplus_ref(x, a)
     return dense_spmv_minplus(x.contiguous(), a.contiguous())
+
+
+def outbox_reduce_op(x: torch.Tensor, src: torch.Tensor, flat: torch.Tensor,
+                     weight: Optional[torch.Tensor], *, num_slots: int,
+                     combine: str = SUM,
+                     weight_op: Optional[str] = None) -> torch.Tensor:
+    """Reduce boundary messages into the flat outbox-slot space (the
+    sharded hybrid's boundary leg, §3.4).
+
+    ``x`` is one shard's per-query per-vertex message matrix ``[Q, x_len]``;
+    ``src``/``flat``/``weight`` are its real
+    boundary edges (``hybrid.ShardHybridData.boundary``): hybrid source
+    ids, flat slot ids in non-decreasing order, and the edge weights,
+    shared across the batch.  ``weight_op`` is the EdgeMessage's ⊗
+    (``"add"``/``"mul"``/None; ``weight`` is not read without one).
+    Returns the ``[Q, num_slots]`` outboxes, the ⊕-identity in unused
+    slots.
+
+    The JAX contract's ``local``/``mask``/``base`` block arrays, ``span``,
+    ``max_span``, ``block_e``, ``gather_chunk`` and ``interpret`` are TPU
+    geometry: the Hopper kernel reads the flat ids and has no span bound,
+    so none of them exists here and nothing falls back.
+    """
+    if combine not in (SUM, MIN):
+        raise ValueError(f"combine must be {SUM!r} or {MIN!r}, got "
+                         f"{combine!r}")
+    if weight_op not in WEIGHT_OPS:
+        raise ValueError(f"weight_op must be None, 'add' or 'mul', got "
+                         f"{weight_op!r}")
+    if weight_op is not None and weight is None:
+        raise ValueError(f"weight_op {weight_op!r} needs weight")
+    if x.device.type == "cpu":
+        return outbox_reduce_ref(x, src, flat, weight, num_slots=num_slots,
+                                 combine=combine, weight_op=weight_op)
+    return outbox_reduce(x.contiguous(), src, flat,
+                         weight if weight_op is not None else None,
+                         num_slots=num_slots, combine=combine,
+                         weight_op=weight_op)
 
 
 def csr_to_ell_rows(g: CSRGraph, combine: Optional[str] = None,

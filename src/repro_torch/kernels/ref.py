@@ -139,3 +139,19 @@ def dense_spmv_minplus_ref(x: torch.Tensor, a: torch.Tensor, *,
         cand = x[:, k0:k0 + chunk, None] + a[None, k0:k0 + chunk]
         y = torch.minimum(y, cand.amin(1))
     return y
+
+
+def outbox_reduce_ref(x: torch.Tensor, src: torch.Tensor, flat: torch.Tensor,
+                      weight: Optional[torch.Tensor], *, num_slots: int,
+                      combine: str, weight_op: Optional[str] = None
+                      ) -> torch.Tensor:
+    """The sharded hybrid's boundary leg as plain passes: gather
+    ``x[:, src]``, apply the weight (``add``/``mul``/none), and
+    scatter-reduce into ``[Q, num_slots]`` outbox slots by ``flat``, from
+    the combine identity (an unused slot keeps it)."""
+    msgs = x[:, src.long()]
+    if weight_op == "add":
+        msgs = msgs + weight
+    elif weight_op == "mul":
+        msgs = msgs * weight
+    return segment_reduce_ref(msgs, flat.long(), num_slots, combine)

@@ -116,10 +116,13 @@ def test_planner_tables_equal_jax():
                 jpm.k_dense_candidates(n, skewed))
     for density in (1e-6, 0.01, 0.5):
         assert tpm.dense_block_rate(density) == jpm.dense_block_rate(density)
-        assert_same_planner_table(
-            [tpm.hybrid_makespan_tpu(1e5, density, 3e6)],
-            [dict(jpm.hybrid_makespan_tpu(1e5, density, 3e6, 0.0),
-                  boundary_slots=0.0)])
+        assert tpm.hybrid_makespan_tpu(1e5, density, 3e6) == (
+            jpm.hybrid_makespan_tpu(1e5, density, 3e6, 0.0))
+        assert tpm.hybrid_makespan_tpu(
+            1e5, density, 3e6, boundary_slots=4e4, num_chips=4,
+            bytes_per_edge=12.0, msg_bytes=8.0) == jpm.hybrid_makespan_tpu(
+                1e5, density, 3e6, 4e4, num_chips=4, bytes_per_edge=12.0,
+                msg_bytes=8.0)
     for symmetric in (False, True):
         jg, tg = _graphs(symmetric=symmetric)
         ranks = TH.edge_max_ranks(tg)

@@ -1,4 +1,5 @@
 """The port stands alone: no JAX, no ``repro``, and no quiet CPU fallback."""
+import importlib
 import os
 import subprocess
 import sys
@@ -29,7 +30,7 @@ import runpy
 runpy.run_path(sys.argv[1], run_name="not_main")
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "repro")
                for m in sys.modules)
-print(len(names))
+print(" ".join(names))
 """
 
 
@@ -39,7 +40,11 @@ def test_every_module_imports_without_jax_or_repro():
         [sys.executable, "-c", _BLOCKED_IMPORT, str(ROOT / "chip_smoke.py")],
         env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15      # every module was imported
+    names = out.stdout.split()
+    assert len(names) >= 20                   # every module was imported
+    for name in ("distributed", "kernels.outbox_reduce", "launch.world",
+                 "launch.selftest", "launch.hybrid_selftest"):
+        assert f"repro_torch.{name}" in names
 
 
 def test_sources_name_neither_jax_nor_repro():
@@ -56,14 +61,33 @@ def test_sources_name_neither_jax_nor_repro():
 def test_engine_without_device_raises_when_no_card(monkeypatch):
     from repro_torch.core import graph as TG
     from repro_torch.core import partition as TPT
-    from repro_torch.core.bsp import BSPEngine
+    from repro_torch.core.bsp import BSPEngine, DistributedBSPEngine
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     pg = TPT.partition(TG.rmat(5, 4, seed=1), 2, TPT.RAND)
     for backend in ("reference", "fused", "hybrid"):
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            BSPEngine(pg, backend=backend)
+        for engine in (BSPEngine, DistributedBSPEngine):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                engine(pg, backend=backend)
     assert BSPEngine(pg, device="cpu").device.type == "cpu"
+    assert DistributedBSPEngine(pg, device="cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("launcher", ["run_world", "launch.selftest",
+                                      "launch.hybrid_selftest"])
+def test_launchers_default_to_the_card(monkeypatch, launcher):
+    """Run with no device named, the multi-rank launchers ask for cards and
+    raise without one before they start any process."""
+    from repro_torch.launch import world
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        if launcher == "run_world":
+            world.run_world(print, 1)
+        else:
+            importlib.import_module(f"repro_torch.{launcher}").main(
+                ["--world", "1", "--parts", "1"] if "hybrid" in launcher
+                else ["--world", "1"])
 
 
 def test_unported_modes_raise_naming_the_roadmap_item():

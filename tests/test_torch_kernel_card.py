@@ -15,7 +15,10 @@ sums take a fixed order).  The bottom-up scan bit for bit in every mode
 ``ell_spmv`` (plus_times) and ``dense_spmv`` within their own f32 rounding
 bound of a float64 evaluation (``depth * 2^-24 * sum|terms|``, the depth
 from the kernel's fixed summation tree), since the plain version sums with
-atomics in no fixed order; two launches bit-equal.
+atomics in no fixed order; two launches bit-equal.  The outbox kernel:
+min modes bit for bit, sums bit for bit on dyadic messages (exact in any
+order) and within its f32 rounding bound of float64 on continuous ones;
+two launches bit-equal.
 """
 import math
 
@@ -31,6 +34,7 @@ from repro_torch.kernels import bottomup as kbu
 from repro_torch.kernels import dense_spmv as kds
 from repro_torch.kernels import ell_spmv as kell
 from repro_torch.kernels import fused_superstep as kfs
+from repro_torch.kernels import outbox_reduce as kob
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
@@ -313,6 +317,21 @@ def test_ell_kernel_matches_plain_on_card(cuda, semiring, q):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("semiring", ["plus_times", "min_plus", "min"])
+def test_ell_kernel_without_slots_gives_the_identity_on_card(cuda, semiring):
+    """A remainder with no slot at all (a shard whose intra edges all lie
+    in its dense block): every row is the ⊕-identity, as in the plain
+    version."""
+    row_ptr = torch.zeros(9, dtype=torch.int32, device=cuda)
+    col = torch.zeros(0, dtype=torch.int32, device=cuda)
+    val = torch.zeros(0, dtype=torch.float32, device=cuda)
+    x = torch.rand(3, 8, device=cuda)
+    got = tops.ell_spmv_op(row_ptr, col, val, x, semiring=semiring)
+    want = tref.ell_spmv_ref(row_ptr, col, val, x, semiring)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("m,k,n", [(1, 100, 100), (3, 300, 257),
                                    (8, 2816, 2816), (11, 129, 513)])
 def test_dense_kernels_match_plain_on_card(cuda, m, k, n):
@@ -372,3 +391,133 @@ def test_engine_hybrid_matches_reference_on_card(cuda):
     np.testing.assert_allclose(pagerank(ref, 10), pagerank(hyb, 10),
                                rtol=1e-6, atol=1e-9)
     assert all(fn.launches > 0 for fn in counters)
+
+
+# (combine, weight_op) modes of the outbox kernel on the sharded path
+OUTBOX_MODES = [("sum", None), ("sum", "mul"), ("min", None), ("min", "add")]
+
+
+def outbox_inputs(e, num_slots, q, x_len, combine, rng, dyadic=True):
+    """Boundary edges sorted by slot, with a hub slot spanning many
+    1024-edge blocks, a slot whose every message is the identity, and a
+    ragged last block; messages ``x [Q, x_len]`` (dyadic: every partial sum
+    exact) and weights."""
+    hub, dead = num_slots // 2, num_slots // 3
+    others = rng.integers(0, num_slots, e - 6000)
+    others[others == dead] = dead + 1
+    flat = np.sort(np.concatenate([others, np.full(5000, hub),
+                                   np.full(1000, dead)])).astype(np.int32)
+    src = rng.integers(0, x_len - 1, e).astype(np.int32)
+    src[flat == dead] = x_len - 1           # the identity column
+    if dyadic:
+        x = rng.integers(0, 64, (q, x_len)) * 2.0 ** -10
+        w = 2.0 ** -rng.integers(0, 5, e)
+    else:
+        x = rng.uniform(0.5, 1.5, (q, x_len))
+        w = rng.uniform(1.0, 64.0, e)
+    if combine == "min":
+        x[rng.random((q, x_len)) < 0.2] = np.inf
+    x[:, x_len - 1] = 0.0 if combine == "sum" else np.inf
+    return src, flat, x.astype(np.float32), w.astype(np.float32), dead
+
+
+def outbox_sum_depth(flat, block_e=kob.BLOCK_E):
+    """Roundings on the longest path of the kernel's sum: a thread's run,
+    the warp scan (5) and warp fold (4), a carry, two per block a slot's
+    run touches in the merge, and the message's product
+    (``csrc/outbox_reduce.cu``)."""
+    nb = -(-len(flat) // block_e)
+    first = flat[::block_e]
+    last = flat[np.minimum(np.arange(1, nb + 1) * block_e, len(flat)) - 1]
+    spans = np.bincount(np.concatenate([first, last[last != first]])).max()
+    return block_e // 128 + 5 + 4 + 1 + 2 * int(spans) + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("combine,weight_op", OUTBOX_MODES)
+@pytest.mark.parametrize("q,e", [(1, 6001), (3, 20480), (8, 37777)])
+def test_outbox_kernel_matches_plain_on_card(cuda, combine, weight_op, q, e):
+    rng = np.random.default_rng(e + q)
+    num_slots, x_len = 4000, 3001
+    src, flat, x, w, dead = outbox_inputs(e, num_slots, q, x_len, combine,
+                                          rng)
+    args = [torch.as_tensor(a, device=cuda) for a in (x, src, flat, w)]
+    kw = dict(num_slots=num_slots, combine=combine, weight_op=weight_op)
+    before = kob.outbox_reduce.launches
+    got = tops.outbox_reduce_op(*args, **kw)
+    again = tops.outbox_reduce_op(*args, **kw)
+    want = tref.outbox_reduce_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert kob.outbox_reduce.launches == before + 2
+    assert torch.equal(got, again)
+    assert torch.equal(got, want)
+    ident = 0.0 if combine == "sum" else math.inf
+    assert bool((got[:, dead] == ident).all())
+    unused = np.setdiff1d(np.arange(num_slots), flat)
+    assert bool((got[:, torch.as_tensor(unused, device=cuda)] == ident).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("weight_op", [None, "mul"])
+def test_outbox_kernel_sums_within_f32_bound_on_card(cuda, weight_op):
+    rng = np.random.default_rng(7)
+    num_slots, x_len = 5000, 4001
+    src, flat, x, w, _ = outbox_inputs(60000, num_slots, 8, x_len, "sum", rng,
+                                       dyadic=False)
+    x, src, flat, w = (torch.as_tensor(a, device=cuda)
+                       for a in (x, src, flat, w))
+    kw = dict(num_slots=num_slots, combine="sum", weight_op=weight_op)
+    got = tops.outbox_reduce_op(x, src, flat, w, **kw)
+    assert torch.equal(got, tops.outbox_reduce_op(x, src, flat, w, **kw))
+    exact = tref.outbox_reduce_ref(x.double(), src, flat, w.double(), **kw)
+    assert within_f32_bound(got, exact, exact,
+                            outbox_sum_depth(flat.cpu().numpy()))
+
+
+@pytest.mark.gpu
+def test_outbox_kernel_refuses_what_it_does_not_take(cuda):
+    x = torch.zeros(2, 10, device=cuda)
+    idx = torch.zeros(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="int32"):
+        kob.outbox_reduce(x, idx.long(), idx, None, num_slots=3,
+                          combine="sum")
+    with pytest.raises(ValueError, match="needs weight"):
+        kob.outbox_reduce(x, idx, idx, None, num_slots=3, combine="min",
+                          weight_op="add")
+    with pytest.raises(ValueError, match="CUDA"):
+        kob.outbox_reduce(x.cpu(), idx, idx, None, num_slots=3,
+                          combine="sum")
+    empty = torch.zeros(0, dtype=torch.int32, device=cuda)
+    before = kob.outbox_reduce.launches
+    out = kob.outbox_reduce(x, empty, empty, None, num_slots=3,
+                            combine="min")
+    assert bool((out == math.inf).all()) and out.shape == (2, 3)
+    assert kob.outbox_reduce.launches == before
+
+
+@pytest.mark.gpu
+def test_engine_sharded_hybrid_matches_reference_on_card(cuda):
+    """The sharded engine at a world of one (P=2 and P=4 on one card)
+    against plain push on the reference backend: min algorithms bit for
+    bit with equal steps, PageRank within ``rtol=1e-6``; the outbox kernel
+    launches."""
+    from repro_torch.algorithms import (bfs_batched, pagerank,
+                                        pagerank_distributed, sssp_batched)
+    from repro_torch.core.bsp import BSPEngine, DistributedBSPEngine
+
+    g = TG.rmat(11, 8, seed=4).with_uniform_weights(seed=3)
+    kob.outbox_reduce.launches = 0
+    for parts in (2, 4):
+        pg = TPT.partition(g, parts, TPT.HIGH, include_reverse=True)
+        ref = BSPEngine(pg, device=cuda, direction_switch=False)
+        for backend in ("hybrid", "fused", "reference"):
+            eng = DistributedBSPEngine(pg, device=cuda, backend=backend)
+            for run in (lambda e: bfs_batched(e, [0, 9, 99]),
+                        lambda e: sssp_batched(e, [0, 9])):
+                (a, sa), (b, sb) = run(ref), run(eng)
+                np.testing.assert_array_equal(a, b)
+                np.testing.assert_array_equal(sa, sb)
+            np.testing.assert_allclose(pagerank(ref, 10),
+                                       pagerank_distributed(eng, 10),
+                                       rtol=1e-6, atol=1e-9)
+    assert kob.outbox_reduce.launches > 0
