@@ -54,7 +54,26 @@ Phases (any failed check exits non-zero; nothing is caught and passed over):
    card, so the wire between ranks is tested by the gloo tests on the CPU
    and by ``launch/hybrid_selftest.py --device cuda`` on several cards;
 5. the numpy oracles at RMAT12 on the card, all five algorithms, on the
-   fused and the hybrid backends.
+   fused and the hybrid backends;
+6. ``[segment_reduce]``: the sorted segment reduce through its entry point
+   (``ops.segment_reduce_op``) on partition 0's sorted forward ``dst_ext``
+   at RMAT20 / P=2 / HIGH with messages made from the seed, sum and min:
+   min bit for bit, sum within its f32 bound of float64, timed beside its
+   bytes bound, its plain version and ``torch.segment_reduce``;
+7. ``[lm]``: the LM serving path, tinyllama-1.1b at full width (22 layers,
+   d_model 2048, GQA 32/4, random weights from a generator seeded 0, bf16
+   compute) through ``models.api.build`` and the serve launcher's
+   ``generate``: a B=4, S=2048 Zipf prompt, prefill, 32 greedy tokens; the
+   flash kernel must launch once per layer in the prefill.  Checks: the
+   flash kernel against its plain version at the layer's shapes (bf16 and
+   f32, window 0 and 1024); decode after ``prefill(2048)`` against
+   ``prefill(2049)`` at f32 compute within the JAX test's 2e-3 and at bf16
+   within 0.1 + 0.05 |logit|; f32 prefill logits (B=1, S=256) against a
+   float64 run of the same forward assembled from the plain functions.
+   Timed: prefill and decode wall and tok/s beside their bounds, the flash
+   kernel beside its operations bound, its plain version and
+   ``scaled_dot_product_attention`` (the yardstick only; the port never
+   calls it).
 
 Phase 2 also holds the hybrid kernels at the planner's RMAT20 split (|H|,
 Q=8): ``ell_spmv`` in its three semirings on the forward remainder (min and
@@ -97,6 +116,7 @@ BLOCK_E = 1024
 PR_ITERS = 20
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 F32_OPS_PER_S = 67e12        # H100 SXM, f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12      # H100 SXM, dense bf16 tensor cores
 UNIT_ROUNDOFF = 2.0 ** -24
 # fused vs float64, max relative error (measured 4.3e-7 and 2.1e-7)
 SUM_LIMITS = {"pagerank": 2e-6, "betweenness_centrality": 1e-6}
@@ -113,7 +133,27 @@ KERNELS = {
                            "src/repro/kernels/dense_spmv.py:103"),
     "outbox_reduce": ("src/repro_torch/kernels/csrc/outbox_reduce.cu",
                       "src/repro/kernels/outbox_reduce.py:128"),
+    "segment_reduce": ("src/repro_torch/kernels/csrc/segment_reduce.cu",
+                       "src/repro/kernels/segment_reduce.py:67"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:87"),
 }
+# the LM serving phase: tinyllama-1.1b at full width, the serve launcher's
+# batch, the model's own context length as the prompt, 32 new tokens
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 32
+LM_WINDOWS = (0, 1024)       # full causal, and gemma3's local window
+# flash kernel vs its plain version: f32 statistics on both sides; bf16
+# rounds only the output, so the two differ by about one bf16 ulp
+FLASH_TOL = {"bfloat16": dict(rtol=1e-2, atol=1e-2),
+             "float32": dict(rtol=1e-4, atol=1e-5)}
+# decode after prefill(t) vs prefill(t + 1), |diff| <= atol + rtol |logit|:
+# at f32 compute the JAX test's tolerance (tests/test_models.py), at bf16
+# the CPU parity tests' (tests/test_torch_lm.py; measured here: 0.0625 on
+# logits up to 4.3)
+DECODE_TOL = {"f32": (2e-3, 2e-3), "bf16": (0.1, 0.05)}
+# f32 prefill logits vs a float64 run of the same forward, max |diff| over
+# max |logit|
+F64_REL = 1e-3
 # the outbox kernel's modes on the sharded path: program -> (graph, reverse
 # edges, combine, weight_op, semiring of its messages)
 OUTBOX_MODES = {"bfs": ("pg", False, "min", None, "min"),
@@ -397,6 +437,283 @@ def within_f32_bound(got, exact, mag, depth) -> bool:
     return bool((slack <= 0).all())
 
 
+def segment_reduce_phase(pg, rng, dev, check):
+    """``[segment_reduce]``: the sorted segment reduce on partition 0's
+    sorted ``dst_ext`` (its real forward edges) at RMAT20 / P=2 / HIGH,
+    messages made from the seed, through ``ops.segment_reduce_op`` (the
+    op's entry point, its only path), in sum and min.  Min bit for bit
+    against the plain version, sum within its f32 bound of float64, two
+    launches bit-equal, empty segments the identity; timed beside its bytes
+    bound, the plain version and ``torch.segment_reduce``.  Returns
+    ``(rows by combine, max |err|, launches on the path)``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import segment_reduce as ksr
+    from repro_torch.kernels.ops import segment_reduce_op
+    from repro_torch.kernels.ref import identity, segment_reduce_ref
+
+    n = int(pg.fwd.num_edges[0])
+    ids_np = np.sort(pg.fwd.dst_ext[0, :n]).astype(np.int32)
+    seg = pg.seg_count
+    ids = torch.as_tensor(ids_np, device=dev)
+    ids64 = ids.long()
+    msgs = torch.as_tensor(rng.normal(size=n).astype(np.float32), device=dev)
+    empty = torch.as_tensor(np.setdiff1d(np.arange(seg), ids_np), device=dev)
+
+    ksr.segment_reduce.launches = 0
+    outs = {c: segment_reduce_op(msgs, ids, seg, combine=c)
+            for c in ("sum", "min")}
+    torch.cuda.synchronize()
+    launches = ksr.segment_reduce.launches
+    check(launches == 2, f"[segment_reduce] the op launched the kernel once "
+          f"per call ({launches} launches for sum and min)")
+    lengths = torch.bincount(ids64, minlength=seg)
+    rows, worst = {}, 0.0
+    for combine, got in outs.items():
+        def kern(c=combine):
+            return ksr.segment_reduce(msgs[None], ids, num_segments=seg,
+                                      combine=c)
+
+        def plain(c=combine):
+            return segment_reduce_ref(msgs, ids64, seg, c)
+
+        def library(c=combine):
+            return torch.segment_reduce(msgs, c, lengths=lengths,
+                                        unsafe=True, initial=identity(c))
+
+        again, want = kern()[0], plain()
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        worst = max(worst, err)
+        if combine == "min":
+            check(torch.equal(got, want), f"[segment_reduce] min: bit-equal "
+                  f"to the plain version (max |err| {err})")
+        else:
+            exact = segment_reduce_ref(msgs.double(), ids64, seg, "sum")
+            mag = segment_reduce_ref(msgs.double().abs(), ids64, seg, "sum")
+            depth = outbox_sum_depth(ids_np, ksr.BLOCK_E) - 1
+            check(within_f32_bound(got, exact, mag, depth),
+                  f"[segment_reduce] sum: within its f32 bound ({depth} "
+                  f"roundings x 2^-24 x sum|msg|) of float64; max |err| vs "
+                  f"float64 kernel {max_abs_err(got, exact):.3e}, plain f32 "
+                  f"{max_abs_err(want, exact):.3e}")
+            del exact, mag
+        check(torch.equal(got, again) and bool(
+            (got[empty] == identity(combine)).all()),
+            f"[segment_reduce] {combine}: two launches bit-equal; the "
+            f"{len(empty)} empty segments hold the identity")
+        lib_err = max_abs_err(library(), got)
+        ms, plain_ms = cuda_ms(kern, 20), cuda_ms(plain, 5)
+        lib_ms = cuda_ms(library, 20)
+        bms = 1e3 * (4 * n + 4 * n + 4 * seg) / HBM_BYTES_PER_S
+        rows[combine] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                             library_ms=lib_ms, bound_by="bytes")
+        log(f"[segment_reduce] {combine}: E={n} segments={seg} (used "
+            f"{seg - len(empty)}) kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+            f"ms, bound {bms:.4f} ms (bytes), {bms / ms:.1%} of bound, "
+            f"torch.segment_reduce {lib_ms:.4f} ms (max |diff| vs kernel "
+            f"{lib_err:.3e})")
+    return rows, worst, launches
+
+
+def lm_forward64(module, tokens):
+    """The prefill's last-token logits in float64, assembled from the
+    port's plain functions (``rms_norm``, ``rope``, ``flash_attention_ref``)
+    and ``module``'s weights: the yardstick of the f32 prefill."""
+    import math
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.models.common import rms_norm, rope
+
+    cfg = module.cfg
+    b, s = tokens.shape
+    g, hd = cfg.n_kv_heads, cfg.hd
+    r = cfg.n_heads // g
+    pos = torch.arange(s, device=tokens.device)[None]
+    x = module.embed.double()[tokens] * math.sqrt(cfg.d_model)
+    for layer in module.layers:
+        w = {n: p.double() for n, p in layer.named_parameters()}
+        h = rms_norm(x, w["norm1"], cfg.norm_eps)
+        q = rope((h @ w["wq"]).reshape(b, s, g, r, hd), pos, cfg.rope_theta)
+        k = rope((h @ w["wk"]).reshape(b, s, g, hd), pos, cfg.rope_theta)
+        v = (h @ w["wv"]).reshape(b, s, g, hd)
+        o = flash_attention_ref(q, k, v, causal=True, window=layer.window)
+        x = x + o.reshape(b, s, -1) @ w["wo"]
+        h = rms_norm(x, w["norm2"], cfg.norm_eps)
+        x = x + (F.silu(h @ w["w_gate"]) * (h @ w["w_up"])) @ w["w_down"]
+    x = rms_norm(x[:, -1:], module.final_norm.double(), cfg.norm_eps)
+    head = module.embed.t() if cfg.tie_embeddings else module.lm_head
+    return (x @ head.double())[:, 0]
+
+
+def lm_phase(dev, check):
+    """``[lm]``: tinyllama-1.1b at full width, random weights from a
+    generator seeded 0, bf16 compute, through ``models.api.build`` and the
+    serve launcher's ``generate``: a B=4, S=2048 Zipf prompt
+    (``TokenStream(seed=0).batch_at(0)``) and 32 greedy tokens.  Checks:
+    (a) the flash kernel against its plain version at the layer's shapes,
+    bf16 and f32, window 0 and 1024; (b) decode after ``prefill(t)``
+    against ``prefill(t + 1)`` at full width; (c) f32 prefill logits at
+    B=1, S=256 against a float64 run of the same forward.  Returns
+    ``(flash row, max |err|, launches per prefill)``."""
+    import dataclasses
+    import math
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import tinyllama_1_1b as TL
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import api
+    from repro_torch.models.transformer import layer_param_shapes
+
+    torch.backends.cuda.matmul.allow_tf32 = False    # f32 products in f32
+    cfg = TL.CONFIG
+    b, s, n_gen = LM_BATCH, LM_PROMPT, LM_GEN
+    g, hd = cfg.n_kv_heads, cfg.hd
+    r = cfg.n_heads // g
+    t0 = time.perf_counter()
+    model = api.build(cfg, dev, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.module.parameters())
+    log(f"[lm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads over {g} KV heads, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}; {n_params} parameters ({cfg.compute_dtype}), built "
+        f"in {time.perf_counter() - t0:.2f} s")
+    check(n_params == 1_100_048_384, f"[lm] full width: {n_params} "
+          f"parameters (1,100,048,384)")
+    tokens = TokenStream(cfg, b, s, seed=0).batch_at(0)["tokens"].to(dev)
+    prompt = tokens[:, :s]
+
+    # the serve path: warm once (cuBLAS handles), then the measured run
+    generate(model, prompt[:, :128], 2)
+    torch.cuda.reset_peak_memory_stats()
+    kfa.flash_attention.launches = 0
+    res = generate(model, prompt, n_gen)
+    launches = kfa.flash_attention.launches
+    out = res["tokens"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(out.shape == (b, n_gen) and int(out.min()) >= 0
+          and int(out.max()) < cfg.vocab,
+          f"[lm] generated tokens [{b}, {n_gen}] in the vocabulary")
+    check(launches == cfg.n_layers, f"[lm] the flash kernel launched "
+          f"{launches} times in the prefill (one per layer, {cfg.n_layers})")
+    weights = cfg.n_layers * sum(math.prod(shape) for name, shape in
+                                 layer_param_shapes(cfg).items()
+                                 if not name.startswith("norm"))
+    pairs = s * (s + 1) // 2
+    attn_flops = 4 * hd * pairs * b * cfg.n_heads
+    attn_bytes = 2 * (2 * b * s * cfg.n_heads * hd + 2 * b * s * g * hd)
+    attn_bound = 1e3 * max(attn_flops / BF16_OPS_PER_S,
+                           attn_bytes / HBM_BYTES_PER_S)
+    mm_flops = 2 * b * s * weights + 2 * b * cfg.d_model * cfg.vocab
+    prefill_bound = 1e3 * mm_flops / BF16_OPS_PER_S + cfg.n_layers * attn_bound
+    # a step reads every weight but the embedding table's unused rows, and
+    # the live KV cache (its mean length over the steps)
+    unread = 0 if cfg.tie_embeddings else cfg.vocab * cfg.d_model
+    step_bytes = (2 * (n_params - unread)
+                  + 2 * 2 * cfg.n_layers * b * (s + n_gen // 2) * g * hd)
+    step_bound = 1e3 * step_bytes / HBM_BYTES_PER_S
+    steps = n_gen - 1
+    log(f"[lm] prefill: {b * s} tokens in {res['prefill_s'] * 1e3:.1f} ms "
+        f"({b * s / res['prefill_s']:.0f} tok/s); bound {prefill_bound:.2f} "
+        f"ms ({mm_flops / 1e12:.2f} TFLOP of products at 989 TFLOP/s plus "
+        f"{cfg.n_layers} x {attn_bound:.4f} ms of attention)")
+    log(f"[lm] decode: {b * steps} tokens in {res['decode_s'] * 1e3:.1f} ms "
+        f"({b * steps / res['decode_s']:.0f} tok/s, "
+        f"{res['decode_s'] * 1e3 / steps:.3f} ms per step); bound "
+        f"{step_bound:.3f} ms per step (weights and live cache at 3.35 TB/s)"
+        f"; peak {peak:.2f} GiB; first tokens {out[0, :8].tolist()}")
+
+    # (a) the flash kernel at the layer's shapes
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    q32 = torch.randn(b, s, g, r, hd, generator=gen, device=dev)
+    k32 = torch.randn(b, s, g, hd, generator=gen, device=dev)
+    v32 = torch.randn(b, s, g, hd, generator=gen, device=dev)
+    worst = 0.0
+    for dtype in ("bfloat16", "float32"):
+        q, k, v = (t.to(getattr(torch, dtype)) for t in (q32, k32, v32))
+        for window in LM_WINDOWS:
+            got = kfa.flash_attention(q, k, v, causal=True, window=window)
+            again = kfa.flash_attention(q, k, v, causal=True, window=window)
+            want = flash_attention_ref(q, k, v, causal=True, window=window)
+            err = max_abs_err(got, want)
+            if dtype == "bfloat16":
+                worst = max(worst, err)
+            check(torch.allclose(got.float(), want.float(), **FLASH_TOL[dtype])
+                  and torch.equal(got, again),
+                  f"[lm] flash kernel {dtype}, window {window}: within "
+                  f"{FLASH_TOL[dtype]} of the plain version (max |err| "
+                  f"{err:.3e}), two launches bit-equal")
+    q, k, v = (t.bfloat16() for t in (q32, k32, v32))
+    del q32, k32, v32
+
+    def kern():
+        return kfa.flash_attention(q, k, v, causal=True)
+
+    def plain():
+        return flash_attention_ref(q, k, v, causal=True)
+
+    qh = q.reshape(b, s, cfg.n_heads, hd).transpose(1, 2).contiguous()
+    kh, vh = (t.transpose(1, 2).contiguous() for t in (k, v))
+
+    def library():
+        return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                              enable_gqa=True)
+
+    lib_err = max_abs_err(library().transpose(1, 2).reshape(q.shape), kern())
+    ms, plain_ms, lib_ms = cuda_ms(kern, 10), cuda_ms(plain, 3), cuda_ms(
+        library, 20)
+    row = dict(ms=ms, plain_ms=plain_ms, bound_ms=attn_bound,
+               library_ms=lib_ms, bound_by="operations")
+    log(f"[lm] flash kernel (bf16, causal, q [{b}, {s}, {g}, {r}, {hd}]): "
+        f"{ms:.4f} ms per launch, {launches} launches per prefill; plain "
+        f"{plain_ms:.4f} ms; bound {attn_bound:.4f} ms (operations: "
+        f"{attn_flops / 1e9:.1f} GFLOP at 989 TFLOP/s; bytes "
+        f"{attn_bytes / 1e6:.1f} MB), {attn_bound / ms:.1%} of bound, "
+        f"{attn_flops / ms / 1e9:.1f} TFLOP/s; scaled_dot_product_attention "
+        f"{lib_ms:.4f} ms (max |diff| vs kernel {lib_err:.3e})")
+    del q, k, v, qh, kh, vh
+
+    # (b) decode after prefill(t) against prefill(t + 1), at full width
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    model32 = api.build(cfg32, dev, torch.Generator(device=dev).manual_seed(0))
+    for name, m in (("bf16", model), ("f32", model32)):
+        _, cache = m.prefill({"tokens": prompt}, max_len=s + 1)
+        lg_dec, _ = m.decode_step(cache, tokens[:, s])
+        del cache
+        lg_full, _ = m.prefill({"tokens": tokens})
+        diff = (lg_dec.float() - lg_full.float()).abs()
+        top = lg_full.float().abs().max()
+        same = bool((lg_dec.argmax(-1) == lg_full.argmax(-1)).all())
+        atol, rtol = DECODE_TOL[name]
+        check(bool((diff <= atol + rtol * lg_full.float().abs()).all()),
+              f"[lm] decode after prefill({s}) vs prefill({s + 1}), {name}: "
+              f"max |diff| {float(diff.max()):.3e} (max |logit| "
+              f"{float(top):.3f}) within atol {atol} + rtol {rtol}; greedy "
+              f"tokens equal: {same}")
+
+    # (c) f32 prefill logits against float64, B=1, S=256
+    short = tokens[:1, :256]
+    lg32, _ = model32.prefill({"tokens": short})
+    with torch.inference_mode():
+        lg64 = lm_forward64(model32.module, short)
+    rel = float((lg32.double() - lg64).abs().max() / lg64.abs().max())
+    check(rel <= F64_REL and bool(torch.isfinite(lg32).all()),
+          f"[lm] f32 prefill logits (B=1, S=256) vs float64: max |diff| / "
+          f"max |logit| {rel:.3e} <= {F64_REL:.0e}")
+    del model, model32
+    torch.cuda.empty_cache()
+    return row, worst, launches
+
+
 def main() -> int:
     import torch
 
@@ -424,7 +741,9 @@ def main() -> int:
         from repro_torch.kernels import dense_spmv as kds
         from repro_torch.kernels import ell_spmv as kell
         from repro_torch.kernels import fused_superstep as kfs
+        from repro_torch.kernels import flash_attention as kfa
         from repro_torch.kernels import outbox_reduce as kob
+        from repro_torch.kernels import segment_reduce as ksr
         from repro_torch.kernels.ops import (bottomup_scan_op,
                                              dense_spmv_minplus_op,
                                              dense_spmv_op, ell_spmv_op,
@@ -457,7 +776,8 @@ def main() -> int:
     # -- phase 1: build ------------------------------------------------------
     t0 = time.perf_counter()
     built = _build.build_all([kfs.SOURCE, kbu.SOURCE, kell.SOURCE,
-                              kds.SOURCE, kob.SOURCE])
+                              kds.SOURCE, kob.SOURCE, ksr.SOURCE,
+                              kfa.SOURCE])
     log(f"[build] {len(built)} kernels in {time.perf_counter() - t0:.1f} s")
     for path, build_log in built.values():
         log(f"[build] {path.name}")
@@ -1162,6 +1482,15 @@ def main() -> int:
           f"bfs, cc exact; sssp, pagerank, bc within the tolerances above "
           f"(no include_reverse: the backend splits the reverse graph)")
 
+    # -- phase 6: the sorted segment reduce at RMAT20 ------------------------
+    seg_rows, seg_err, seg_launches = segment_reduce_phase(pg, rng, dev,
+                                                           check)
+    del pg, pgs, blks, tcs, tc_graphs
+    torch.cuda.empty_cache()
+
+    # -- phase 7: the LM serving path, tinyllama-1.1b at full width ---------
+    lm_row, lm_err, lm_launches = lm_phase(dev, check)
+
     if check.failed:
         log(f"FAILED {len(check.failed)} check(s):")
         for what in check.failed:
@@ -1175,16 +1504,20 @@ def main() -> int:
                            hyb_rows["dense_spmv"]["err"]),
             "dense_spmv_minplus": (hyb_rows["dense_spmv_minplus"],
                                    hyb_rows["dense_spmv_minplus"]["err"]),
-            "outbox_reduce": (shard_rows["pagerank"], shard_err)}
+            "outbox_reduce": (shard_rows["pagerank"], shard_err),
+            "segment_reduce": (seg_rows["sum"], seg_err),
+            "flash_attention": (lm_row, lm_err)}
     launches.update(
         (name, hyb_launches[name]) for name in ("ell_spmv", "dense_spmv",
                                                 "dense_spmv_minplus"))
     launches["outbox_reduce"] = shard_launches["outbox_reduce"]
+    launches["segment_reduce"] = seg_launches
+    launches["flash_attention"] = lm_launches
     record = {"kernels": [dict(
         name=name, route="cuda", source=KERNELS[name][0],
         replaces=KERNELS[name][1], launches=launches[name],
         max_abs_err=err, ms=row["ms"], plain_ms=row["plain_ms"],
-        bound_ms=row["bound_ms"], bound_by="bytes",
+        bound_ms=row["bound_ms"], bound_by=row.get("bound_by", "bytes"),
         library_ms=row.get("library_ms"))
         for name, (row, err) in rows.items()]}
     log(card)

@@ -1,11 +1,11 @@
 """Carry the JAX package's data across to the port.
 
 Reads a JAX-side ``PartitionedGraph``, ``BlockMetadata``, ``HybridGraph``,
-``ShardHybridData`` or state dict —
+``ShardHybridData``, state dict or LM parameter pytree —
 any object with the same attributes holding numpy arrays (or anything
 ``np.asarray`` takes) — without importing ``repro``, and returns the port's
 objects and tensors.  Tests use it to feed both packages the same graph,
-partition, block layout and query state.
+partition, block layout, query state and model weights.
 """
 from __future__ import annotations
 
@@ -19,6 +19,8 @@ from repro_torch.core.hybrid import HybridGraph, ShardHybridData
 from repro_torch.core.partition import (BlockMetadata, EdgeArrays,
                                         PartitionedGraph, VertexAssignment)
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.common import ArchConfig
+from repro_torch.models.transformer import layer_param_shapes
 
 
 def _opt(x) -> Optional[np.ndarray]:
@@ -153,3 +155,35 @@ def state(tree: Dict[str, object],
 
 def to_numpy(tree: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     return {k: v.detach().cpu().numpy() for k, v in tree.items()}
+
+
+def lm_params(params, cfg: ArchConfig) -> Dict[str, torch.Tensor]:
+    """The JAX transformer's parameter pytree (``init_params``: ``embed``,
+    ``layers`` stacked on a leading L axis, ``final_norm``, ``lm_head`` when
+    the head is untied) → the port's module state, f32 CPU tensors named
+    ``embed``, ``layers.<i>.<name>``, ``final_norm``, ``lm_head``.  Weights
+    keep the ``[in, out]`` layout of ``x @ W`` (no transpose).
+    ``Transformer.load_state_dict`` casts them to the stored dtypes.
+    Raises if a shape or the head does not match ``cfg``."""
+    def put(name, x, shape):
+        a = np.array(x, dtype=np.float32)          # a writable copy
+        if a.shape != tuple(shape):
+            raise ValueError(f"{name}: shape {a.shape}, {cfg.name} wants "
+                             f"{tuple(shape)}")
+        return torch.from_numpy(a)
+
+    if ("lm_head" in params) == cfg.tie_embeddings:
+        raise ValueError(f"lm_head {'given' if cfg.tie_embeddings else 'missing'}"
+                         f" with tie_embeddings={cfg.tie_embeddings}")
+    out = {"embed": put("embed", params["embed"], (cfg.vocab, cfg.d_model))}
+    layers = params["layers"]
+    for name, shape in layer_param_shapes(cfg).items():
+        stack = put(f"layers.{name}", layers[name], (cfg.n_layers,) + shape)
+        for i in range(cfg.n_layers):
+            out[f"layers.{i}.{name}"] = stack[i]
+    out["final_norm"] = put("final_norm", params["final_norm"],
+                            (cfg.d_model,))
+    if not cfg.tie_embeddings:
+        out["lm_head"] = put("lm_head", params["lm_head"],
+                             (cfg.d_model, cfg.vocab))
+    return out

@@ -6,6 +6,7 @@ kernel or raises.  There is no silent fallback on the card.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import numpy as np
@@ -15,12 +16,15 @@ from repro_torch.core.graph import CSRGraph
 from repro_torch.kernels.bottomup import bottomup_scan
 from repro_torch.kernels.dense_spmv import dense_spmv, dense_spmv_minplus
 from repro_torch.kernels.ell_spmv import ell_spmv
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fused_superstep import KINDS, fused_superstep
 from repro_torch.kernels.outbox_reduce import WEIGHT_OPS, outbox_reduce
 from repro_torch.kernels.ref import (MIN, SEMIRINGS, SUM, bottomup_scan_ref,
                                      dense_spmv_minplus_ref, dense_spmv_ref,
-                                     ell_spmv_ref, fused_superstep_ref,
-                                     outbox_reduce_ref)
+                                     ell_spmv_ref, flash_attention_ref,
+                                     fused_superstep_ref, outbox_reduce_ref,
+                                     segment_reduce_ref)
+from repro_torch.kernels.segment_reduce import segment_reduce
 
 _COMBINE_ALIAS = {"sum": "plus_times", "min": "min_plus"}
 
@@ -183,6 +187,72 @@ def outbox_reduce_op(x: torch.Tensor, src: torch.Tensor, flat: torch.Tensor,
                          weight if weight_op is not None else None,
                          num_slots=num_slots, combine=combine,
                          weight_op=weight_op)
+
+
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                       causal: bool = True, window: int = 0) -> torch.Tensor:
+    """``[B, H, S, D]`` attention with GQA (``k, v [B, KV, S, D]``, query
+    head ``h`` reading KV head ``h // (H // KV)``); returns ``[B, H, S, D]``
+    in ``q``'s dtype.  Keys ``k <= q`` are live when ``causal``, and
+    ``q - k < window`` when ``window > 0``.
+
+    The kernel takes the model's ``[B, S, G, R, D]`` layout, so the heads
+    are moved there (a copy) and back; no KV head is repeated.  The JAX
+    contract's ``block_q``, ``block_k`` and ``interpret`` are TPU tiling
+    (its kernel needs S to be a multiple of the block): the Hopper kernel
+    masks a ragged last tile, so none of them exists here.
+    """
+    b, h, s, d = q.shape
+    kv = k.shape[1]
+    if h % kv:
+        raise ValueError(f"{h} query heads do not group over {kv} KV heads")
+    qm = q.transpose(1, 2).reshape(b, s, kv, h // kv, d)
+    km, vm = k.transpose(1, 2), v.transpose(1, 2)
+    if q.device.type == "cpu":
+        out = flash_attention_ref(qm, km, vm, causal=causal, window=window)
+    else:
+        out = flash_attention(qm.contiguous(), km.contiguous(),
+                              vm.contiguous(), causal=causal, window=window)
+    return out.reshape(b, s, h, d).transpose(1, 2)
+
+
+def segment_reduce_op(msgs: torch.Tensor, seg_ids, num_segments: int, *,
+                      combine: str = SUM) -> torch.Tensor:
+    """Sorted segment reduce: ``msgs [..., E]`` → ``[..., num_segments]``,
+    the sum or minimum of the messages with each id, the identity (0 or
+    +inf) where no id is the segment.
+
+    ``seg_ids [E]`` (a tensor or a numpy array) is shared by every leading
+    row; it must be non-decreasing and in ``[0, num_segments)``, which is
+    checked here (on the host for numpy ids, with one device read for a
+    CUDA tensor).  The JAX contract's ``block_e``, ``max_span`` and
+    ``interpret``, and its fallback when a block's id span exceeds
+    ``max_span``, are TPU geometry: the Hopper kernel reduces runs of equal
+    ids and has no span bound, so none of them exists here and nothing
+    falls back.
+    """
+    if combine not in (SUM, MIN):
+        raise ValueError(f"combine must be {SUM!r} or {MIN!r}, got "
+                         f"{combine!r}")
+    ids = torch.as_tensor(seg_ids)
+    e = msgs.shape[-1]
+    if ids.shape != (e,):
+        raise ValueError(f"seg_ids {tuple(ids.shape)} must be [E] with "
+                         f"E={e}")
+    if e:
+        bad = torch.stack([(ids[1:] < ids[:-1]).any(), ids[0] < 0,
+                           ids[-1] >= num_segments]).cpu()
+        if bool(bad[0]):
+            raise ValueError("seg_ids must be sorted ascending")
+        if bool(bad[1] | bad[2]):
+            raise ValueError(f"seg_ids must lie in [0, {num_segments})")
+    if msgs.device.type == "cpu":
+        return segment_reduce_ref(msgs, ids.long(), num_segments, combine)
+    lead = msgs.shape[:-1]
+    out = segment_reduce(msgs.reshape(math.prod(lead), e).contiguous(),
+                         ids.to(msgs.device, torch.int32).contiguous(),
+                         num_segments=num_segments, combine=combine)
+    return out.reshape(lead + (num_segments,))
 
 
 def csr_to_ell_rows(g: CSRGraph, combine: Optional[str] = None,

@@ -18,6 +18,10 @@ import torch
 SUM = "sum"
 MIN = "min"
 _REDUCE = {SUM: "sum", MIN: "amin"}
+# The masked score of the online softmax, as in the JAX kernels: a row
+# whose keys are all masked so far gets p = exp(0) = 1, which the first
+# live key's alpha = exp(NEG_INF - m) = 0 erases.
+NEG_INF = -1e30
 
 
 def identity(combine: str) -> float:
@@ -155,3 +159,61 @@ def outbox_reduce_ref(x: torch.Tensor, src: torch.Tensor, flat: torch.Tensor,
     elif weight_op == "mul":
         msgs = msgs * weight
     return segment_reduce_ref(msgs, flat.long(), num_slots, combine)
+
+
+def attention_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool,
+                   window: int) -> torch.Tensor:
+    """``[Sq, Sk]`` bool: ``k <= q`` when causal, and ``q - k < window``
+    when ``window > 0`` (the Pallas kernel's mask; ``repro/models/
+    attention.py::_mask`` is its causal case)."""
+    m = torch.ones(q_pos.shape[0], k_pos.shape[0], dtype=torch.bool,
+                   device=q_pos.device)
+    if causal:
+        m &= q_pos[:, None] >= k_pos[None, :]
+    if window > 0:
+        m &= (q_pos[:, None] - k_pos[None, :]) < window
+    return m
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int = 0,
+                        q_chunk: int = 1024, k_chunk: int = 1024
+                        ) -> torch.Tensor:
+    """Attention as the double-chunked online softmax of ``repro/models/
+    attention.py::chunked_attention``: ``q [B, S, G, R, D]``, ``k, v
+    [B, S, G, D]`` (G KV heads, R query heads per group, no head repeat)
+    → ``[B, S, G, R, D]`` in ``q``'s dtype.
+
+    Scores, running max, denominator and accumulator in f32 (float64 for
+    float64 inputs); P stays in that type.  Every chunk pair is computed,
+    masked ones too (``NEG_INF``); a last chunk may be ragged.
+    """
+    b, s, g, r, d = q.shape
+    work = torch.promote_types(q.dtype, torch.float32)
+    scale = 1.0 / (d ** 0.5)
+    qf = q.to(work).permute(0, 2, 3, 1, 4)                 # [B, G, R, S, D]
+    kf = k.to(work).permute(0, 2, 1, 3)                    # [B, G, S, D]
+    vf = v.to(work).permute(0, 2, 1, 3)
+    pos = torch.arange(s, device=q.device)
+    out = torch.empty(b, g, r, s, d, dtype=work, device=q.device)
+    for q0 in range(0, s, q_chunk):
+        qi = qf[:, :, :, q0:q0 + q_chunk]
+        q_pos = pos[q0:q0 + q_chunk]
+        shape = qi.shape[:-1]
+        m_run = torch.full(shape, NEG_INF, dtype=work, device=q.device)
+        l_run = torch.zeros(shape, dtype=work, device=q.device)
+        acc = torch.zeros(qi.shape, dtype=work, device=q.device)
+        for k0 in range(0, s, k_chunk):
+            ki, vi = kf[:, :, k0:k0 + k_chunk], vf[:, :, k0:k0 + k_chunk]
+            sc = torch.einsum("bgrqd,bgkd->bgrqk", qi, ki) * scale
+            msk = attention_mask(q_pos, pos[k0:k0 + k_chunk], causal, window)
+            sc = sc.masked_fill(~msk, NEG_INF)
+            m_new = torch.maximum(m_run, sc.amax(-1))
+            p = torch.exp(sc - m_new[..., None])
+            alpha = torch.exp(m_run - m_new)
+            l_run = l_run * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum("bgrqk,bgkd->bgrqd",
+                                                        p, vi)
+            m_run = m_new
+        out[:, :, :, q0:q0 + q_chunk] = acc / l_run.clamp_min(1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).to(q.dtype)

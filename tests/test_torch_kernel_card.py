@@ -18,7 +18,12 @@ from the kernel's fixed summation tree), since the plain version sums with
 atomics in no fixed order; two launches bit-equal.  The outbox kernel:
 min modes bit for bit, sums bit for bit on dyadic messages (exact in any
 order) and within its f32 rounding bound of float64 on continuous ones;
-two launches bit-equal.
+two launches bit-equal.  The segment-reduce kernel: the outbox kernel's
+rules.  The flash-attention kernel against its plain version (the
+double-chunked online softmax, f32 matmuls without TF32): f32
+``rtol=1e-4, atol=1e-5`` (both keep f32 statistics; the sums over D and
+over the keys take other orders), bf16 ``rtol=atol=1e-2`` (both round only
+the output, so they differ by at most about one bf16 ulp).
 """
 import math
 
@@ -33,8 +38,10 @@ from repro_torch.core import partition as TPT
 from repro_torch.kernels import bottomup as kbu
 from repro_torch.kernels import dense_spmv as kds
 from repro_torch.kernels import ell_spmv as kell
+from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import fused_superstep as kfs
 from repro_torch.kernels import outbox_reduce as kob
+from repro_torch.kernels import segment_reduce as ksr
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
@@ -521,3 +528,207 @@ def test_engine_sharded_hybrid_matches_reference_on_card(cuda):
                                        pagerank_distributed(eng, 10),
                                        rtol=1e-6, atol=1e-9)
     assert kob.outbox_reduce.launches > 0
+
+
+def segment_inputs(e, num_segments, q, combine, rng, dyadic=True):
+    """Sorted ids with empty segment ranges (before the first id, inside,
+    after the last) and a hub segment spanning many 1024-edge blocks;
+    messages ``[Q, E]``, dyadic (every partial sum exact) or continuous."""
+    hub = num_segments // 2
+    lo, hi = num_segments // 10, num_segments - num_segments // 10
+    others = rng.integers(lo, hi, e - 5000)
+    others[(others > hub + 10) & (others < hub + 200)] = hub
+    ids = np.sort(np.concatenate([others, np.full(5000, hub)])).astype(
+        np.int32)
+    if dyadic:
+        msgs = rng.integers(-64, 64, (q, e)) * 2.0 ** -10
+    else:
+        msgs = rng.normal(size=(q, e))
+    if combine == "min":
+        msgs[rng.random((q, e)) < 0.2] = np.inf
+    return ids, msgs.astype(np.float32)
+
+
+def segment_sum_depth(ids, block_e=ksr.BLOCK_E):
+    """Roundings on the longest path of the kernel's sum: a thread's run,
+    the warp scan (5) and fold (4), a carry, and two per block a segment's
+    run touches in the merge."""
+    return outbox_sum_depth(ids, block_e) - 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("combine", ["sum", "min"])
+@pytest.mark.parametrize("q,e", [(1, 7001), (3, 20480), (5, 50001)])
+def test_segment_kernel_matches_plain_on_card(cuda, combine, q, e):
+    rng = np.random.default_rng(e + q)
+    num_segments = 3000
+    ids, msgs = segment_inputs(e, num_segments, q, combine, rng)
+    m, i = torch.as_tensor(msgs, device=cuda), torch.as_tensor(ids,
+                                                                device=cuda)
+    before = ksr.segment_reduce.launches
+    got = tops.segment_reduce_op(m, i, num_segments, combine=combine)
+    again = ksr.segment_reduce(m, i, num_segments=num_segments,
+                               combine=combine)
+    want = tref.segment_reduce_ref(m, i.long(), num_segments, combine)
+    torch.cuda.synchronize()
+    assert ksr.segment_reduce.launches == before + 2
+    assert got.shape == (q, num_segments)
+    assert torch.equal(got, again)
+    assert torch.equal(got, want)
+    ident = 0.0 if combine == "sum" else math.inf
+    empty = np.setdiff1d(np.arange(num_segments), ids)
+    assert empty[0] == 0 and empty[-1] == num_segments - 1
+    assert bool((got[:, torch.as_tensor(empty, device=cuda)] == ident).all())
+
+
+@pytest.mark.gpu
+def test_segment_kernel_sums_within_f32_bound_on_card(cuda):
+    rng = np.random.default_rng(11)
+    ids, msgs = segment_inputs(80000, 4000, 4, "sum", rng, dyadic=False)
+    m = torch.as_tensor(msgs, device=cuda)
+    i = torch.as_tensor(ids, device=cuda)
+    got = tops.segment_reduce_op(m[None], i, 4000)[0]     # a leading axis
+    assert torch.equal(got, tops.segment_reduce_op(m, i, 4000))
+    exact = tref.segment_reduce_ref(m.double(), i.long(), 4000, "sum")
+    mag = tref.segment_reduce_ref(m.double().abs(), i.long(), 4000, "sum")
+    assert within_f32_bound(got, exact, mag, segment_sum_depth(ids))
+
+
+@pytest.mark.gpu
+def test_segment_kernel_refuses_what_it_does_not_take(cuda):
+    m = torch.zeros(2, 10, device=cuda)
+    i = torch.zeros(10, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="int32"):
+        ksr.segment_reduce(m, i.long(), num_segments=3, combine="sum")
+    with pytest.raises(ValueError, match="float32"):
+        ksr.segment_reduce(m.double(), i, num_segments=3, combine="sum")
+    with pytest.raises(ValueError, match="CUDA"):
+        ksr.segment_reduce(m.cpu(), i.cpu(), num_segments=3, combine="sum")
+    with pytest.raises(ValueError, match="sorted"):
+        tops.segment_reduce_op(m, torch.arange(10, 0, -1, device=cuda), 11)
+    before = ksr.segment_reduce.launches
+    out = tops.segment_reduce_op(m[:, :0], i[:0], 3, combine="min")
+    assert bool((out == math.inf).all()) and out.shape == (2, 3)
+    assert ksr.segment_reduce.launches == before
+
+
+def attention_inputs(b, s, g, r, d, dtype, device, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn(b, s, g, r, d, generator=gen, device=device)
+    k = torch.randn(b, s, g, d, generator=gen, device=device)
+    v = torch.randn(b, s, g, d, generator=gen, device=device)
+    return tuple(t.to(getattr(torch, dtype)) for t in (q, k, v))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s,d", [(256, 64), (200, 128), (1000, 64), (77, 16),
+                                 (130, 32)])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 64), (False, 0),
+                                           (False, 100)])
+def test_flash_kernel_matches_plain_on_card(cuda, causal, window, s, d,
+                                            dtype):
+    """GQA (2 KV groups x 3 query heads), ragged S, every head dim."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = attention_inputs(2, s, 2, 3, d, dtype, cuda, seed=s + d)
+    before = kfa.flash_attention.launches
+    got = kfa.flash_attention(q, k, v, causal=causal, window=window)
+    want = tref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                    q_chunk=128, k_chunk=96)
+    torch.cuda.synchronize()
+    assert kfa.flash_attention.launches == before + 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    tol = (dict(rtol=1e-4, atol=1e-5) if dtype == "float32"
+           else dict(rtol=1e-2, atol=1e-2))
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    assert torch.equal(got, kfa.flash_attention(q, k, v, causal=causal,
+                                                window=window))
+
+
+@pytest.mark.gpu
+def test_flash_op_keeps_the_jax_contract_on_card(cuda):
+    """``ops.flash_attention_op`` on ``[B, H, S, D]`` with GQA equals the
+    kernel on the model's layout, and the plain version."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q = torch.randn(2, 6, 300, 64, generator=gen, device=cuda)
+    k = torch.randn(2, 2, 300, 64, generator=gen, device=cuda)
+    v = torch.randn(2, 2, 300, 64, generator=gen, device=cuda)
+    got = tops.flash_attention_op(q, k, v, causal=True, window=50)
+    want = tops.flash_attention_op(q.cpu(), k.cpu(), v.cpu(), causal=True,
+                                   window=50)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_flash_kernel_refuses_what_it_does_not_take(cuda):
+    q, k, v = attention_inputs(1, 8, 2, 2, 64, "float32", cuda, seed=0)
+    with pytest.raises(ValueError, match="head dim"):
+        kfa.flash_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                            v[..., :48].contiguous())
+    with pytest.raises(ValueError, match="float32"):
+        kfa.flash_attention(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError, match="bfloat16"):
+        kfa.flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="contiguous"):
+        kfa.flash_attention(q, k.transpose(1, 2).contiguous().transpose(1, 2),
+                            v)
+
+
+@pytest.mark.gpu
+def test_cuda_tensors_never_reach_the_plain_versions(cuda, monkeypatch):
+    """On the card the ops and the model's attention launch the kernels or
+    raise; the plain versions are for CPU tensors only."""
+    from repro_torch.models import attention as tattn
+
+    def refuse(*_a, **_k):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    for mod, name in ((tops, "flash_attention_ref"),
+                      (tops, "segment_reduce_ref"),
+                      (tattn, "flash_attention_ref")):
+        monkeypatch.setattr(mod, name, refuse)
+    q, k, v = attention_inputs(1, 70, 2, 2, 32, "bfloat16", cuda, seed=1)
+    before = (kfa.flash_attention.launches, ksr.segment_reduce.launches)
+    tattn.chunked_attention(q, k, v, window=16)
+    tops.flash_attention_op(q.flatten(2, 3).transpose(1, 2),
+                            k.transpose(1, 2), v.transpose(1, 2))
+    tops.segment_reduce_op(torch.ones(3, 5, device=cuda),
+                           torch.tensor([0, 0, 1, 3, 3], device=cuda), 4)
+    assert kfa.flash_attention.launches == before[0] + 2
+    assert ksr.segment_reduce.launches == before[1] + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_lm_on_card_matches_the_cpu(cuda, compute_dtype):
+    """The reduced tinyllama (GQA, untied head) with one set of weights on
+    the card and on the CPU: prefill and two decode steps; one flash launch
+    per layer per prefill.  f32 compute within 1e-4; bf16 within the CPU
+    parity tests' bf16 tolerance (0.1 + 0.05 |x|)."""
+    import dataclasses
+
+    from repro_torch.configs import tinyllama_1_1b as C
+    from repro_torch.models import api
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(C.CONFIG.reduced(n_kv_heads=2,
+                                               tie_embeddings=False),
+                              compute_dtype=compute_dtype)
+    cpu = api.build(cfg, "cpu", torch.Generator().manual_seed(9))
+    card = api.build(cfg, cuda)
+    card.module.load_state_dict(cpu.module.state_dict())
+    toks = torch.as_tensor(np.random.default_rng(2).integers(0, 256, (2, 70)))
+    kfa.flash_attention.launches = 0
+    lg_card, c_card = card.prefill({"tokens": toks.to(cuda)}, max_len=72)
+    assert kfa.flash_attention.launches == cfg.n_layers
+    lg_cpu, c_cpu = cpu.prefill({"tokens": toks}, max_len=72)
+    tol = (dict(rtol=1e-4, atol=1e-4) if compute_dtype == "float32"
+           else dict(rtol=0.05, atol=0.1))
+    torch.testing.assert_close(lg_card.float().cpu(), lg_cpu.float(), **tol)
+    for _ in range(2):
+        tok = lg_cpu.argmax(-1)
+        lg_card, c_card = card.decode_step(c_card, tok.to(cuda))
+        lg_cpu, c_cpu = cpu.decode_step(c_cpu, tok)
+        torch.testing.assert_close(lg_card.float().cpu(), lg_cpu.float(),
+                                   **tol)
