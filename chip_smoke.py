@@ -8,7 +8,9 @@ card, or alone in a directory, it exits non-zero before printing a result.
 Phases (any failed check exits non-zero; nothing is caught and passed over):
 
 1. device check and kernel build, one ``nvcc`` per kernel, all started
-   together (``-Xptxas -v`` reports printed);
+   together (``-Xptxas -v`` reports printed, with each library's spill
+   stores; the flash library must spill nothing and hold tensor-core
+   instructions, counted in ``cuobjdump -sass``: ``HGMMA`` for ``wgmma``);
 2. each kernel against its plain PyTorch version on the card at the main
    path's shapes: RMAT20 (``totem_rmat.RMAT_MEDIUM``, 2^20 vertices, 16
    edges each), 2 partitions, HIGH, ``block_e=1024``, reverse edges, Q=8.
@@ -65,10 +67,11 @@ Phases (any failed check exits non-zero; nothing is caught and passed over):
    compute) through ``models.api.build`` and the serve launcher's
    ``generate``: a B=4, S=2048 Zipf prompt, prefill, 32 greedy tokens; the
    flash kernel must launch once per layer in the prefill.  Checks: the
-   flash kernel against its plain version at the layer's shapes (bf16 and
-   f32, window 0 and 1024); decode after ``prefill(2048)`` against
-   ``prefill(2049)`` at f32 compute within the JAX test's 2e-3 and at bf16
-   within 0.1 + 0.05 |logit|; f32 prefill logits (B=1, S=256) against a
+   flash kernel against its plain version at the layer's shapes (bf16
+   within the bound of rounding P and the output to bf16,
+   ``bf16_bound_ratio``; f32 within 1e-4; window 0 and 1024); decode
+   after ``prefill(2048)`` against ``prefill(2049)`` at f32 compute within
+   the JAX test's 2e-3 and at bf16 within 0.1 + 0.05 |logit|; f32 prefill logits (B=1, S=256) against a
    float64 run of the same forward assembled from the plain functions.
    Timed: prefill and decode wall and tok/s beside their bounds, the flash
    kernel beside its operations bound, its plain version and
@@ -76,8 +79,11 @@ Phases (any failed check exits non-zero; nothing is caught and passed over):
    calls it).
 
 Phase 2 also holds the hybrid kernels at the planner's RMAT20 split (|H|,
-Q=8): ``ell_spmv`` in its three semirings on the forward remainder (min and
-min_plus bit for bit, plus_times within its f32 bound of float64),
+Q=8): ``ell_spmv`` in its three semirings on the forward remainder with the
+split's row plan, as the engine calls it (min and min_plus bit for bit,
+plus_times within its f32 bound of float64; the query-minor copy of ``x``
+and the kernel timed apart; ``scripts/ell_ablation.py`` times the kernel
+on query-major ``x``),
 ``dense_spmv`` within its bound and ``dense_spmv_minplus`` bit for bit.
 
 Why sums are held to float64 and not to the plain f32 version: at RMAT20 a
@@ -89,10 +95,12 @@ adds across warps, one carry, and two adds per block a segment spans in the
 merge, plus two roundings of the message itself; so its error is at most
 ``depth * 2^-24 * sum|messages|`` with that depth.
 
-The hybrid kernels' sums are fixed trees too: ``ell_spmv`` adds at most
-128 products in a thread, then a warp (5 levels) and block (4 levels) tree
-and, for rows over 65,536 slots, the segments in order; ``dense_spmv`` a
-slice of 128, then a pairwise tree over the slices.  ``outbox_reduce``
+The hybrid kernels' sums are fixed trees too: ``ell_spmv`` follows its
+row plan, a row of a run adding at most 64 products in a lane then a
+butterfly over at most 32 lanes (5 levels), a longer row 8 products in a
+thread, a warp (5) and block (3) tree per 2048-slot chunk and the chunks
+in order; ``dense_spmv`` a slice of 128, then a pairwise tree over the
+slices.  ``outbox_reduce``
 takes the fused kernel's tree (``block_e/128`` adds in a thread, the warp
 scan and fold, a carry, two adds per block a slot spans) plus the message.
 
@@ -104,6 +112,7 @@ from __future__ import annotations
 import dataclasses
 import importlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -142,10 +151,11 @@ KERNELS = {
 # batch, the model's own context length as the prompt, 32 new tokens
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 32
 LM_WINDOWS = (0, 1024)       # full causal, and gemma3's local window
-# flash kernel vs its plain version: f32 statistics on both sides; bf16
-# rounds only the output, so the two differ by about one bf16 ulp
-FLASH_TOL = {"bfloat16": dict(rtol=1e-2, atol=1e-2),
-             "float32": dict(rtol=1e-4, atol=1e-5)}
+# flash kernel vs its plain version in f32 (f32 statistics on both sides);
+# in bf16 both round each P value and the output, so the limit is the
+# rounding bound (bf16_bound_ratio)
+FLASH_F32_TOL = dict(rtol=1e-4, atol=1e-5)
+BF16_UNIT_ROUNDOFF = 2.0 ** -8
 # decode after prefill(t) vs prefill(t + 1), |diff| <= atol + rtol |logit|:
 # at f32 compute the JAX test's tolerance (tests/test_models.py), at bf16
 # the CPU parity tests' (tests/test_torch_lm.py; measured here: 0.0625 on
@@ -379,10 +389,14 @@ def ell_inputs(semiring, n, rng, device):
 
 
 def ell_sum_depth(kmax) -> int:
-    """Roundings on the longest path of ``ell_spmv``'s sum of a row of
-    ``kmax`` slots: a run of 128, the warp and block trees (5 + 4), the
-    65,536-slot segments in order, and the product."""
-    return 128 + 9 + -(-kmax // (512 * 128)) + 1
+    """Roundings on the longest path of ``ell_spmv``'s sum of a row of up
+    to ``kmax`` slots (``csrc/ell_spmv.cu``): in a run, ``LANE_RUN`` adds
+    in a lane, 5 butterfly levels and the product; in chunks,
+    ``BUDGET / THREADS`` adds in a thread, 5 warp and 3 block levels, the
+    chunk partials in order and the product."""
+    from repro_torch.kernels import ell_spmv as kell
+    return max(kell.LANE_RUN + 6, kell.BUDGET // kell.THREADS + 8
+               + -(-kmax // kell.BUDGET))
 
 
 def dense_sum_depth(k) -> int:
@@ -429,6 +443,20 @@ def outbox_bound_ms(e, weighted, q, x_len, num_slots) -> float:
     moved = 4 * e * (3 if weighted else 2) + 4 * q * (x_len + num_slots)
     ops = q * e * (2 if weighted else 1)
     return 1e3 * max(moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S)
+
+
+def bf16_bound_ratio(got, want, q, k, v, window, causal=True) -> float:
+    """Largest |got - want| / (2 * 2^-8 * (|want| + sum p|v| / l)) of the
+    bf16 flash kernel against its plain version.  Both round each
+    P value (weight p / l of its row of V) and the output to bf16, each
+    rounding off by at most 2^-8 relative; ``sum p|v| / l`` is the plain
+    version on |v| in f32.  At most 1 (1.01 with slack) by design."""
+    from repro_torch.kernels.ref import flash_attention_ref
+    mag = flash_attention_ref(q.float(), k.float(), v.float().abs(),
+                              causal=causal, window=window)
+    want = want.float()
+    limit = 2 * BF16_UNIT_ROUNDOFF * (want.abs() + mag)
+    return float(((got.float() - want).abs() / limit).max())
 
 
 def within_f32_bound(got, exact, mag, depth) -> bool:
@@ -647,11 +675,16 @@ def lm_phase(dev, check):
             err = max_abs_err(got, want)
             if dtype == "bfloat16":
                 worst = max(worst, err)
-            check(torch.allclose(got.float(), want.float(), **FLASH_TOL[dtype])
-                  and torch.equal(got, again),
+                ratio = bf16_bound_ratio(got, want, q, k, v, window)
+                ok, limit = ratio <= 1.01, (
+                    f"its rounding bound (largest |err| / bound {ratio:.4f})")
+            else:
+                ok = torch.allclose(got, want, **FLASH_F32_TOL)
+                limit = f"{FLASH_F32_TOL}"
+            check(ok and torch.equal(got, again),
                   f"[lm] flash kernel {dtype}, window {window}: within "
-                  f"{FLASH_TOL[dtype]} of the plain version (max |err| "
-                  f"{err:.3e}), two launches bit-equal")
+                  f"{limit} of the plain version (max |err| {err:.3e}), two "
+                  f"launches bit-equal")
     q, k, v = (t.bfloat16() for t in (q32, k32, v32))
     del q32, k32, v32
 
@@ -748,7 +781,7 @@ def main() -> int:
                                              dense_spmv_minplus_op,
                                              dense_spmv_op, ell_spmv_op,
                                              outbox_reduce_op)
-        from repro_torch.kernels.ref import (bottomup_scan_ref,
+        from repro_torch.kernels.ref import (SEMIRINGS, bottomup_scan_ref,
                                              dense_spmv_minplus_ref,
                                              dense_spmv_ref, ell_spmv_ref,
                                              fused_superstep_ref,
@@ -779,9 +812,24 @@ def main() -> int:
                               kds.SOURCE, kob.SOURCE, ksr.SOURCE,
                               kfa.SOURCE])
     log(f"[build] {len(built)} kernels in {time.perf_counter() - t0:.1f} s")
-    for path, build_log in built.values():
+    spills = {}
+    for name, (path, build_log) in built.items():
         log(f"[build] {path.name}")
-        log(build_log.strip() or "[build] (cached)")
+        log(build_log.strip())
+        spills[name] = sum(int(n) for n in re.findall(
+            r"(\d+) bytes spill stores", build_log))
+    log(f"[build] spill stores in bytes, summed over each library's "
+        f"kernels: {spills}")
+    check(spills[kfa.SOURCE] == 0, f"[build] the flash library spills "
+          f"nothing ({spills[kfa.SOURCE]} bytes)")
+    cuobjdump = Path(_build.nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass",
+                           str(built[kfa.SOURCE][0])], capture_output=True,
+                          text=True, timeout=300).stdout.splitlines()
+    tc_ops = {op: sum(op in line for line in sass) for op in ("HGMMA",
+                                                              "HMMA")}
+    check(tc_ops["HGMMA"] > 0, f"[build] the flash library holds tensor-core "
+          f"instructions: {tc_ops} (cuobjdump -sass)")
 
     # -- host setup ----------------------------------------------------------
     t0 = time.perf_counter()
@@ -947,9 +995,10 @@ def main() -> int:
     for semiring, (cfg, arrs) in splits.items():
         x = ell_inputs(semiring, n, rng, dev)
         rp, col, val = arrs["row_ptr"], arrs["col"], arrs["val"]
+        rows = arrs["plan"]
 
-        def ell(sr=semiring, x=x):
-            return ell_spmv_op(rp, col, val, x, semiring=sr)
+        def ell(sr=semiring, x=x, rows=rows):
+            return ell_spmv_op(rp, col, val, x, semiring=sr, plan=rows)
 
         def plain(sr=semiring, x=x):
             return ell_spmv_ref(rp, col, val, x, sr)
@@ -974,6 +1023,20 @@ def main() -> int:
         check(torch.equal(got, again), f"[kernel] ell_spmv {semiring}: two "
               f"launches bit-equal")
         ms, plain_ms = cuda_ms(ell, 20), cuda_ms(plain, 5)
+
+        # the op's two parts apart
+        def copy(x=x, fill=SEMIRINGS[semiring][1]):
+            return kell.query_minor(x, fill)
+
+        def kern(sr=semiring, xt=copy(), rows=rows):
+            return kell.ell_spmv(rp, col, val, xt, rows, semiring=sr,
+                                 num_queries=Q)
+
+        copy_ms, kern_ms = cuda_ms(copy, 20), cuda_ms(kern, 20)
+        log(f"[kernel] ell_spmv {semiring}: query-minor copy of x "
+            f"{copy_ms:.4f} ms, kernel on it {kern_ms:.4f} ms; row plan "
+            f"{rows.blocks.shape[0]} blocks, {rows.long_rows.shape[0]} long "
+            f"rows in {rows.num_partials} chunks")
         lib_ms = None
         if semiring == "plus_times":
             # A row may repeat a column (multi-edges), which the CSR

@@ -19,6 +19,7 @@ from repro_torch.core.hybrid import HybridGraph, ShardHybridData
 from repro_torch.core.partition import (BlockMetadata, EdgeArrays,
                                         PartitionedGraph, VertexAssignment)
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.ell_spmv import row_plan
 from repro_torch.models.common import ArchConfig
 from repro_torch.models.transformer import layer_param_shapes
 
@@ -92,7 +93,7 @@ def hybrid_graph(hg) -> HybridGraph:
         inv_perm=np.asarray(hg.inv_perm),
         dense_block=np.asarray(hg.dense_block, dtype=np.float32),
         ell_row_ptr=row_ptr, ell_col=rcol, ell_val=rval,
-        kmax=int(col.shape[1]),
+        kmax=int(col.shape[1]), ell_plan=row_plan(row_ptr),
         out_deg=np.asarray(hg.out_deg), dense_edges=int(hg.dense_edges),
         sparse_edges=int(hg.sparse_edges), semiring=str(hg.semiring),
         model_table=hg.model_table)
@@ -141,7 +142,8 @@ def shard_hybrid_data(shd) -> ShardHybridData:
         has_remote=bool(shd.has_remote), push_src=push_src,
         push_dst=_opt(shd.push_dst), push_w=_opt(shd.push_w),
         n_intra=(None if push_src is None
-                 else (push_src != n_max).sum(axis=1).astype(np.int64)))
+                 else (push_src != n_max).sum(axis=1).astype(np.int64)),
+        ell_plan=[row_plan(r[0]) for r in rows])
 
 
 def state(tree: Dict[str, object],

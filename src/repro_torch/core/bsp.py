@@ -416,7 +416,8 @@ def _superstep(dims: _Dims, program: VertexProgram, edges: dict,
 class _HybridCfg:
     """Static geometry of one hybrid degree-split direction.  The tensors
     travel in a separate ``arrs`` dict: ``dense``, ``row_ptr``/``col``/
-    ``val`` (the remainder rows), ``slot``/``hid`` and, when the direction
+    ``val`` (the remainder rows) and ``plan`` (their row plan for the sparse
+    kernel), ``slot``/``hid`` and, when the direction
     switch is on, ``push_src``/``push_dst`` (and ``push_w``)."""
 
     semiring: str
@@ -467,7 +468,7 @@ def _hybrid_directed(cfg: _HybridCfg, arrs: dict, x: torch.Tensor,
     if dopt is None:
         return hybrid_spmv(arrs["dense"], arrs["row_ptr"], arrs["col"],
                            arrs["val"], x, semiring=cfg.semiring,
-                           k_dense=cfg.k_dense), None, None
+                           k_dense=cfg.k_dense, plan=arrs["plan"]), None, None
     ident = add_identity(cfg.semiring)
     nf = float(max(cfg.num_vertices, 1))
     density = (x != ident).sum(1, dtype=torch.float32) / nf
@@ -912,6 +913,7 @@ class BSPEngine:
         for p, l2g in enumerate(asg.l2g):
             hid[p, : len(l2g)] = layout.inv_perm[l2g]
         shared = dict(row_ptr=self._put(layout.row_ptr, torch.int32),
+                      plan=layout.plan.to(self.device),
                       col=self._put(layout.src[layout.rest], torch.int32),
                       slot=self._put(slot, torch.int64),
                       hid=self._put(hid, torch.int64))
@@ -1191,6 +1193,7 @@ class DistributedBSPEngine(BSPEngine):
                     hid=put(shd.hid[s], torch.int64),
                     dense=put(shd.dense[s, :k, :k], torch.float32),
                     row_ptr=put(shd.ell_row_ptr[s], torch.int32),
+                    plan=shd.ell_plan[s].to(self.device),
                     col=put(shd.ell_col[s], torch.int32),
                     val=put(shd.ell_val[s], torch.float32))
         # An unweighted graph packs the ⊗ identity (zero-cost hops,

@@ -40,6 +40,7 @@ from repro_torch.core.graph import CSRGraph
 from repro_torch.core.partition import (EdgeArrays, _round_up,
                                         boundary_edges, build_block_metadata)
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.ell_spmv import EllPlan, row_plan
 from repro_torch.kernels.ops import (bottomup_scan_op, dense_spmv_minplus_op,
                                      dense_spmv_op, ell_spmv_op)
 from repro_torch.kernels.ref import SEMIRINGS
@@ -79,6 +80,7 @@ class HybridGraph:
     out_deg: np.ndarray          # [V] f32 in new id space (true out-degree)
     dense_edges: int             # edges of the dense stage
     sparse_edges: int            # edges of the sparse stage
+    ell_plan: EllPlan            # the sparse kernel's row plan of ell_row_ptr
     semiring: str = PLUS_TIMES
     model_table: Optional[List[dict]] = None  # perf-model ranking (auto split)
 
@@ -123,6 +125,7 @@ class SplitLayout:
     rest: np.ndarray        # [sparse_edges] edge ids in remainder-row order
     row_ptr: np.ndarray     # [V + 1] int32 remainder rows (by destination)
     kmax: int               # widest remainder row (>= 1)
+    plan: EllPlan           # the sparse kernel's row plan of row_ptr
 
 
 def split_layout(g: CSRGraph, k_dense: int, ranking=None) -> SplitLayout:
@@ -149,7 +152,8 @@ def split_layout(g: CSRGraph, k_dense: int, ranking=None) -> SplitLayout:
     return SplitLayout(k_dense=int(k_dense), perm=perm, inv_perm=inv,
                        src=src, dst=dst, in_h=in_h, rest=rest,
                        row_ptr=row_ptr,
-                       kmax=max(int(deg.max(initial=0)), 1))
+                       kmax=max(int(deg.max(initial=0)), 1),
+                       plan=row_plan(row_ptr))
 
 
 def degree_split(g: CSRGraph, k_dense: int, semiring: str = PLUS_TIMES,
@@ -196,7 +200,7 @@ def degree_split(g: CSRGraph, k_dense: int, semiring: str = PLUS_TIMES,
         ell_val=w[layout.rest], kmax=layout.kmax,
         out_deg=g.out_degrees().astype(np.float32)[layout.perm],
         dense_edges=int(in_h.sum()), sparse_edges=len(layout.rest),
-        semiring=semiring)
+        semiring=semiring, ell_plan=layout.plan)
 
 
 def plan_degree_split(g: CSRGraph, k_dense: Optional[int] = None, *,
@@ -314,6 +318,8 @@ class ShardHybridData:
     push_dst: Optional[np.ndarray]   # [S, ei_pad]
     push_w: Optional[np.ndarray]     # [S, ei_pad] (min_plus) or None
     n_intra: Optional[np.ndarray]    # [S] real push edges (row prefix)
+    # --- the sparse kernel's row plan of each shard's ell_row_ptr ---
+    ell_plan: List[EllPlan]
 
     def boundary(self, s: int):
         """Shard ``s``'s real boundary edges as the outbox kernel takes
@@ -566,7 +572,7 @@ def shard_degree_split(pg, num_shards: int, semiring: str,
         loc_idx=loc_idx, loc_ids=loc_ids, loc_src=loc_src,
         wire_width=w_pad, has_boundary=be_req > 0, has_remote=w_req > 0,
         push_src=push_src, push_dst=push_dst, push_w=push_w,
-        n_intra=n_intra)
+        n_intra=n_intra, ell_plan=[row_plan(rp) for rp in row_ptr])
 
 
 class SplitCache:
@@ -683,20 +689,21 @@ def splits_of(pg) -> SplitCache:
 
 def hybrid_spmv(dense: torch.Tensor, row_ptr: torch.Tensor,
                 col: torch.Tensor, val: Optional[torch.Tensor],
-                x: torch.Tensor, *, semiring: str,
-                k_dense: int) -> torch.Tensor:
+                x: torch.Tensor, *, semiring: str, k_dense: int,
+                plan: Optional[EllPlan] = None) -> torch.Tensor:
     """One two-engine step: ``y[v] = ⊕`` over in-edges ``x[u] ⊗ w``.
 
     ``x`` is the per-source value vector ``[n]`` in the degree-ranked id
     space, or a ``[Q, n]`` query batch (the batch rides the dense product's
     M axis and the sparse kernel's query loop); returns the same shape.
-    The sparse stage runs first, then ``y[:, :k] ⊕= dense``, the JAX
-    package's stage order.
+    ``plan`` is the split's row plan of ``row_ptr`` on ``x``'s device (the
+    sparse kernel's blocks; built per call when None).  The sparse stage
+    runs first, then ``y[:, :k] ⊕= dense``, the JAX package's stage order.
     """
     squeeze = x.dim() == 1
     if squeeze:
         x = x[None]
-    y = ell_spmv_op(row_ptr, col, val, x, semiring=semiring)
+    y = ell_spmv_op(row_ptr, col, val, x, semiring=semiring, plan=plan)
     if k_dense:
         xd = x[:, :k_dense]
         if semiring == PLUS_TIMES:
@@ -751,6 +758,7 @@ def hybrid_pagerank(hg: HybridGraph, num_iterations: int = 20,
     row_ptr = put(hg.ell_row_ptr, torch.int32)
     col = put(hg.ell_col, torch.int32)
     val = put(hg.ell_val, torch.float32)
+    plan = hg.ell_plan.to(dev)
     inv_deg = put(np.where(hg.out_deg > 0,
                            1.0 / np.maximum(hg.out_deg, 1.0), 0.0),
                   torch.float32)
@@ -758,7 +766,7 @@ def hybrid_pagerank(hg: HybridGraph, num_iterations: int = 20,
     rank = torch.full((n,), 1.0 / n, dtype=torch.float32, device=dev)
     for _ in range(num_iterations):
         y = hybrid_spmv(dense, row_ptr, col, val, rank * inv_deg,
-                        semiring=PLUS_TIMES, k_dense=hg.k_dense)
+                        semiring=PLUS_TIMES, k_dense=hg.k_dense, plan=plan)
         rank = delta + damping * y
     out = rank.cpu().numpy()
     result = np.empty_like(out)

@@ -60,15 +60,17 @@ def sources() -> Tuple[str, ...]:
 def build_all(names: Iterable[str]) -> Dict[str, Tuple[Path, str]]:
     """Build every named source that is not built yet, one ``nvcc`` each,
     all started together.  Returns ``{name: (library, compiler log)}``; the
-    log holds ``-Xptxas -v``'s register and shared-memory report ("" when
-    the library was already built)."""
+    log holds ``-Xptxas -v``'s register, shared-memory and spill report.
+    It is kept beside the library, so a library built earlier returns the
+    log of its build."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     done: Dict[str, Tuple[Path, str]] = {}
     running = {}
     for name in names:
         out = library_path(name)
         if out.exists():
-            done[name] = (out, "")
+            kept = out.with_suffix(".log")
+            done[name] = (out, kept.read_text() if kept.exists() else "")
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
@@ -83,6 +85,7 @@ def build_all(names: Iterable[str]) -> Dict[str, Tuple[Path, str]]:
             os.unlink(tmp)
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)      # atomic: a reader never sees half a file
         done[name] = (out, log)
     if failed:

@@ -10,45 +10,54 @@
 // through repro/kernels/ops.py::ell_spmv_op).  The TPU kernel reads an ELL
 // block [V, kmax] padded with sentinel slots, kmax the widest row.  At
 // RMAT20 the widest remainder row holds ~50k slots, so that block would
-// need hundreds of GB; here the rows are CSR with no padding, and the work
-// of a row is split by its length:
+// need hundreds of GB; here the rows are CSR with no padding.
 //
-//   * rows of up to kShort slots: one thread each;
-//   * rows of up to kWarpMax slots: one warp each (the long rows of a
-//     block are taken in turn by the warp, as in bottomup.cu);
-//   * longer rows (hubs): one block of kHubThreads threads each.  The
-//     first kernel appends them to a list (scratch); the second launches
-//     one block per possible hub and exits the blocks beyond the count.
+// Design (CSR-adaptive).  A row plan, made once per split on the host
+// (kernels/ell_spmv.py::row_plan), cuts the rows into blocks of work:
 //
-// Each pass handles kQ queries with one accumulator each in registers, so
-// a row's col/val are read once per kQ queries.
+//   * runs: consecutive rows whose slots fit kBudget (and at most kRunRows
+//     rows).  The block stages the run's col/val into shared memory with
+//     coalesced loads, then groups of L lanes (L a power of two chosen by
+//     the plan from the run's mean and longest row) take its rows in turn;
+//     lane i of a group adds slots i, i + L, ... of its row and the group
+//     ends in a butterfly of log2(L) levels.  The plan picks L so that no
+//     lane adds more than kLaneRun slots;
+//   * chunks: a row longer than kBudget gets one block per kBudget slots;
+//     each thread adds at most kBudget / kThreads slots (coalesced reads of
+//     col/val), the warps end in a butterfly and the block in a fixed tree
+//     over its 8 warps, and the chunk's partial is written to scratch.  A
+//     second kernel adds each long row's partials in chunk order.
 //
-// Summation order (plus_times) is fixed by the row's length alone: a thread
-// adds at most kRun products in slot order, then a warp butterfly (5
-// levels) and, for hubs, a tree over the block's warps (4 levels) and a
-// sequential sum over segments of kHubThreads * kRun slots.  No float
-// atomics: results are bit-identical run to run, and the rounding depth of
-// a row of n slots is at most kRun + 9 + ceil(n / (kHubThreads * kRun)),
-// plus one for the product.  A min is exact in any order, so min and
-// min_plus are bit-equal to the plain PyTorch version.  Built without
-// fast-math and with -fmad=false; products and sums use the _rn
+// x is read query-minor: xt [x_len, Qp], Qp = Q rounded up to a multiple of
+// 4 with the (+)-identity in the padding, so one slot's 8 queries are one
+// or two 16-byte loads from one 32-byte sector where query-major x touches
+// 8 sectors (scripts/ell_ablation.py builds that layout as a variant of
+// this source and times the two).  Each pass handles kQ = 8 queries.
+//
+// Summation order (plus_times) is fixed by the plan alone, with no float
+// atomics: results are bit-identical launch to launch.  Longest rounding
+// path of a row of n slots: in a run, kLaneRun adds in a lane, log2(32) = 5
+// butterfly levels and the product, kLaneRun + 6; in chunks,
+// kBudget / kThreads adds in a thread, 5 warp levels, 3 block levels,
+// ceil(n / kBudget) - 1 adds of the partials and the product,
+// kBudget / kThreads + 8 + ceil(n / kBudget).  A min is exact in any order,
+// so min and min_plus are bit-equal to the plain PyTorch version.  Built
+// without fast-math and with -fmad=false; products and sums use the _rn
 // intrinsics.
 //
 // Bound on the card: bytes.  One launch reads row_ptr, col (and val) once,
-// each query's x row once and writes y once; a multiply-add (or an add and
-// a compare) per slot and query is far below the f32 peak.
+// x once and writes y once; a multiply-add (or an add and a compare) per
+// slot and query is far below the f32 peak.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <cstdint>
 
 namespace {
 
-constexpr int kThreads = 256;        // rows per block of the first kernel
-constexpr int kShort = 32;           // rows up to this long: one thread each
-constexpr int kRun = 128;            // longest sequential run of one sum
-constexpr int kWarpMax = 32 * kRun;  // rows up to this long: one warp each
-constexpr int kHubThreads = 512;     // threads of a hub row's block
-constexpr int kHubWarps = kHubThreads / 32;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kBudget = 2048;        // slots staged by a run, or one chunk
+constexpr int kRunRows = 512;        // most rows of one run
 constexpr int kQ = 8;                // queries per pass
 constexpr unsigned kFullMask = 0xffffffffu;
 
@@ -71,174 +80,184 @@ __device__ __forceinline__ float edge(float xv, float w) {
   return xv;
 }
 
-// acc[j] (+)= x[q0 + j, c] (x) w for the queries of this pass.
+// acc[j] (+)= x[q0 + j, c] (x) w for the (up to) 8 queries of this pass:
+// one or two 16-byte loads of row c of xt.
 template <int MODE>
-__device__ __forceinline__ void accumulate(float (&acc)[kQ], const float* x,
-                                           int64_t x_len, int q0, int Q,
-                                           int c, float w) {
-#pragma unroll
-  for (int j = 0; j < kQ; ++j) {
-    if (q0 + j < Q) {
-      acc[j] = combine<MODE>(
-          acc[j], edge<MODE>(x[static_cast<int64_t>(q0 + j) * x_len + c], w));
-    }
+__device__ __forceinline__ void accumulate(float (&acc)[kQ],
+                                           const float* __restrict__ xt,
+                                           int Qp, int q0, int c, float w) {
+  const float4* row =
+      reinterpret_cast<const float4*>(xt + static_cast<int64_t>(c) * Qp + q0);
+  const float4 a = __ldg(row);
+  acc[0] = combine<MODE>(acc[0], edge<MODE>(a.x, w));
+  acc[1] = combine<MODE>(acc[1], edge<MODE>(a.y, w));
+  acc[2] = combine<MODE>(acc[2], edge<MODE>(a.z, w));
+  acc[3] = combine<MODE>(acc[3], edge<MODE>(a.w, w));
+  if (q0 + 4 < Qp) {
+    const float4 b = __ldg(row + 1);
+    acc[4] = combine<MODE>(acc[4], edge<MODE>(b.x, w));
+    acc[5] = combine<MODE>(acc[5], edge<MODE>(b.y, w));
+    acc[6] = combine<MODE>(acc[6], edge<MODE>(b.z, w));
+    acc[7] = combine<MODE>(acc[7], edge<MODE>(b.w, w));
   }
 }
 
+// Butterfly over groups of `lanes` lanes (a power of two, <= 32); every
+// lane of the warp takes part.
 template <int MODE>
-__device__ __forceinline__ void warp_tree(float (&acc)[kQ]) {
+__device__ __forceinline__ void butterfly(float (&acc)[kQ], int lanes) {
 #pragma unroll
   for (int j = 0; j < kQ; ++j) {
-#pragma unroll
-    for (int d = 16; d > 0; d >>= 1) {
+    for (int d = lanes / 2; d > 0; d >>= 1) {
       acc[j] = combine<MODE>(acc[j], __shfl_xor_sync(kFullMask, acc[j], d));
     }
   }
 }
 
-// Grid ceil(V / kThreads): thread t of a block owns row
-// blockIdx.x * kThreads + t.  Short rows are summed by their thread, warp
-// rows by the warp; hub rows are listed for ell_hub_kernel.
+// One block per plan entry (first, second, third):
+//   run   (r0, r1, L):  rows [r0, r1), L lanes per row;
+//   chunk (r, c, -1 - p): slots [c * kBudget, (c + 1) * kBudget) of row r,
+//                         its partial to partials[p].
 template <int MODE>
 __global__ void __launch_bounds__(kThreads)
-ell_rows_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col,
-                const float* __restrict__ val, const float* __restrict__ x,
-                float* __restrict__ y, int* __restrict__ hubs,
-                int* __restrict__ num_hubs, int Q, int V, int64_t x_len) {
-  const int lane = threadIdx.x & 31;
-  const int r = blockIdx.x * kThreads + threadIdx.x;
-  int start = 0;
-  int n = 0;
-  if (r < V) {
-    start = row_ptr[r];
-    n = row_ptr[r + 1] - start;
-  }
-  if (r < V && n > kWarpMax) hubs[atomicAdd(num_hubs, 1)] = r;
+ell_block_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col,
+                 const float* __restrict__ val, const float* __restrict__ xt,
+                 float* __restrict__ y, const int* __restrict__ plan,
+                 float* __restrict__ partials, int Q, int Qp, int V) {
+  __shared__ int s_col[kBudget];
+  __shared__ float s_val[kBudget];
+  __shared__ int s_ptr[kRunRows + 1];
+  __shared__ float s_part[kWarps][kQ];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int a = plan[3 * blockIdx.x];
+  const int b = plan[3 * blockIdx.x + 1];
+  const int c = plan[3 * blockIdx.x + 2];
 
-  if (r < V && n <= kShort) {
-    for (int q0 = 0; q0 < Q; q0 += kQ) {
+  if (c < 0) {
+    // -- a chunk of one long row --------------------------------------------
+    const int s = row_ptr[a] + b * kBudget;
+    const int e = min(row_ptr[a + 1], s + kBudget);
+    float* out = partials + static_cast<int64_t>(-1 - c) * Qp;
+    for (int q0 = 0; q0 < Qp; q0 += kQ) {
       float acc[kQ];
 #pragma unroll
       for (int j = 0; j < kQ; ++j) acc[j] = identity<MODE>();
-      for (int k = 0; k < n; ++k) {
-        const float w = MODE == kMin ? 0.0f : val[start + k];
-        accumulate<MODE>(acc, x, x_len, q0, Q, col[start + k], w);
+      for (int k = s + tid; k < e; k += kThreads) {
+        accumulate<MODE>(acc, xt, Qp, q0, col[k],
+                                MODE == kMin ? 0.0f : val[k]);
       }
-#pragma unroll
-      for (int j = 0; j < kQ; ++j) {
-        if (q0 + j < Q) y[static_cast<int64_t>(q0 + j) * V + r] = acc[j];
-      }
-    }
-  }
-
-  unsigned pending =
-      __ballot_sync(kFullMask, r < V && n > kShort && n <= kWarpMax);
-  while (pending) {
-    const int owner = __ffs(pending) - 1;
-    pending &= pending - 1;
-    const int s = __shfl_sync(kFullMask, start, owner);
-    const int m = __shfl_sync(kFullMask, n, owner);
-    const int row = r - lane + owner;
-    for (int q0 = 0; q0 < Q; q0 += kQ) {
-      float acc[kQ];
-#pragma unroll
-      for (int j = 0; j < kQ; ++j) acc[j] = identity<MODE>();
-      for (int k = lane; k < m; k += 32) {   // at most kRun per lane
-        const float w = MODE == kMin ? 0.0f : val[s + k];
-        accumulate<MODE>(acc, x, x_len, q0, Q, col[s + k], w);
-      }
-      warp_tree<MODE>(acc);
+      butterfly<MODE>(acc, 32);
       if (lane == 0) {
 #pragma unroll
+        for (int j = 0; j < kQ; ++j) s_part[warp][j] = acc[j];
+      }
+      __syncthreads();
+      if (tid < kQ && q0 + tid < Qp) {
+        const float w01 = combine<MODE>(s_part[0][tid], s_part[1][tid]);
+        const float w23 = combine<MODE>(s_part[2][tid], s_part[3][tid]);
+        const float w45 = combine<MODE>(s_part[4][tid], s_part[5][tid]);
+        const float w67 = combine<MODE>(s_part[6][tid], s_part[7][tid]);
+        out[q0 + tid] = combine<MODE>(combine<MODE>(w01, w23),
+                                      combine<MODE>(w45, w67));
+      }
+      __syncthreads();
+    }
+    return;
+  }
+
+  // -- a run of rows [a, b), c lanes per row --------------------------------
+  const int base = row_ptr[a];
+  const int rows = b - a;
+  for (int i = tid; i <= rows; i += kThreads) s_ptr[i] = row_ptr[a + i] - base;
+  const int slots = row_ptr[b] - base;
+  for (int i = tid; i < slots; i += kThreads) {
+    s_col[i] = col[base + i];
+    if (MODE != kMin) s_val[i] = val[base + i];
+  }
+  __syncthreads();
+  const int lanes = c;
+  const int groups = kThreads / lanes;
+  const int group = tid / lanes;
+  const int sub = tid % lanes;
+  for (int first = 0; first < rows; first += groups) {
+    const int i = first + group;
+    const bool live = i < rows;
+    const int s = live ? s_ptr[i] : 0;
+    const int e = live ? s_ptr[i + 1] : 0;
+    for (int q0 = 0; q0 < Q; q0 += kQ) {
+      float acc[kQ];
+#pragma unroll
+      for (int j = 0; j < kQ; ++j) acc[j] = identity<MODE>();
+      for (int k = s + sub; k < e; k += lanes) {
+        accumulate<MODE>(acc, xt, Qp, q0, s_col[k],
+                                MODE == kMin ? 0.0f : s_val[k]);
+      }
+      butterfly<MODE>(acc, lanes);
+      if (live && sub == 0) {
+#pragma unroll
         for (int j = 0; j < kQ; ++j) {
-          if (q0 + j < Q) y[static_cast<int64_t>(q0 + j) * V + row] = acc[j];
+          if (q0 + j < Q) y[static_cast<int64_t>(q0 + j) * V + a + i] = acc[j];
         }
       }
     }
   }
 }
 
-// Grid = the most hub rows the CSR can hold; block b sums hubs[b] if the
-// first kernel listed that many.
+// One thread per (long row, query): the row's chunk partials in chunk
+// order.  long_rows[2 i] is the row, long_rows[2 i + 1] its first partial.
 template <int MODE>
-__global__ void __launch_bounds__(kHubThreads)
-ell_hub_kernel(const int* __restrict__ row_ptr, const int* __restrict__ col,
-               const float* __restrict__ val, const float* __restrict__ x,
-               float* __restrict__ y, const int* __restrict__ hubs,
-               const int* __restrict__ num_hubs, int Q, int V,
-               int64_t x_len) {
-  if (static_cast<int>(blockIdx.x) >= *num_hubs) return;
-  __shared__ float part[kHubWarps][kQ];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int r = hubs[blockIdx.x];
-  const int s = row_ptr[r];
-  const int m = row_ptr[r + 1] - s;
-  for (int q0 = 0; q0 < Q; q0 += kQ) {
-    float total[kQ];
-#pragma unroll
-    for (int j = 0; j < kQ; ++j) total[j] = identity<MODE>();
-    for (int seg = 0; seg < m; seg += kHubThreads * kRun) {
-      const int end = min(m, seg + kHubThreads * kRun);
-      float acc[kQ];
-#pragma unroll
-      for (int j = 0; j < kQ; ++j) acc[j] = identity<MODE>();
-      for (int k = seg + threadIdx.x; k < end; k += kHubThreads) {
-        const float w = MODE == kMin ? 0.0f : val[s + k];
-        accumulate<MODE>(acc, x, x_len, q0, Q, col[s + k], w);
-      }
-      warp_tree<MODE>(acc);
-      if (lane == 0) {
-#pragma unroll
-        for (int j = 0; j < kQ; ++j) part[warp][j] = acc[j];
-      }
-      __syncthreads();
-      if (warp == 0) {
-#pragma unroll
-        for (int j = 0; j < kQ; ++j) {
-          float v = lane < kHubWarps ? part[lane][j] : identity<MODE>();
-#pragma unroll
-          for (int d = kHubWarps / 2; d > 0; d >>= 1) {
-            v = combine<MODE>(v, __shfl_xor_sync(kFullMask, v, d));
-          }
-          total[j] = combine<MODE>(total[j], v);   // segments in order
-        }
-      }
-      __syncthreads();
-    }
-    if (threadIdx.x == 0) {
-#pragma unroll
-      for (int j = 0; j < kQ; ++j) {
-        if (q0 + j < Q) y[static_cast<int64_t>(q0 + j) * V + r] = total[j];
-      }
-    }
+__global__ void __launch_bounds__(kThreads)
+ell_merge_kernel(const int* __restrict__ row_ptr,
+                 const int* __restrict__ long_rows,
+                 const float* __restrict__ partials, float* __restrict__ y,
+                 int num_long, int Q, int Qp, int V) {
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (t >= static_cast<int64_t>(num_long) * Q) return;
+  const int i = static_cast<int>(t / Q);
+  const int q = static_cast<int>(t % Q);
+  const int r = long_rows[2 * i];
+  const int p = long_rows[2 * i + 1];
+  const int chunks = (row_ptr[r + 1] - row_ptr[r] + kBudget - 1) / kBudget;
+  float total = partials[static_cast<int64_t>(p) * Qp + q];
+  for (int k = 1; k < chunks; ++k) {
+    total = combine<MODE>(total,
+                          partials[static_cast<int64_t>(p + k) * Qp + q]);
   }
+  y[static_cast<int64_t>(q) * V + r] = total;
 }
 
 template <int MODE>
 int launch(const int* row_ptr, const int* col, const float* val,
-           const float* x, float* y, int* scratch, int max_hubs, int Q, int V,
-           int64_t x_len, cudaStream_t st) {
-  const int blocks = (V + kThreads - 1) / kThreads;
-  ell_rows_kernel<MODE><<<blocks, kThreads, 0, st>>>(
-      row_ptr, col, val, x, y, scratch + 1, scratch, Q, V, x_len);
+           const float* xt, float* y, const int* plan, int num_blocks,
+           const int* long_rows, int num_long, float* partials, int Q,
+           int Qp, int V, cudaStream_t st) {
+  ell_block_kernel<MODE><<<num_blocks, kThreads, 0, st>>>(
+      row_ptr, col, val, xt, y, plan, partials, Q, Qp, V);
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || max_hubs == 0) return static_cast<int>(err);
-  ell_hub_kernel<MODE><<<max_hubs, kHubThreads, 0, st>>>(
-      row_ptr, col, val, x, y, scratch + 1, scratch, Q, V, x_len);
+  if (err != cudaSuccess || num_long == 0) return static_cast<int>(err);
+  const int64_t threads = static_cast<int64_t>(num_long) * Q;
+  ell_merge_kernel<MODE><<<static_cast<int>((threads + kThreads - 1) /
+                                            kThreads),
+                           kThreads, 0, st>>>(row_ptr, long_rows, partials, y,
+                                              num_long, Q, Qp, V);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// scratch: int32 [1 + max_hubs], scratch[0] zeroed by the caller (the hub
-// count); max_hubs = the most rows longer than ell_spmv_warp_max() that
-// the CSR can hold (0 launches only the first kernel).
+// xt: f32 [x_len, Qp] query-minor, Qp a multiple of 4 >= Q; plan: int32
+// [num_blocks, 3] (kernels/ell_spmv.py::row_plan); long_rows: int32
+// [num_long, 2]; partials: f32 scratch of the plan's partials x Qp.
 extern "C" int ell_spmv_launch(int mode, const int* row_ptr, const int* col,
-                               const float* val, const float* x, float* y,
-                               int* scratch, int max_hubs, int Q, int V,
-                               long long x_len, void* stream) {
-  if (Q <= 0 || V <= 0 || x_len <= 0 || max_hubs < 0) {
+                               const float* val, const float* xt, float* y,
+                               const int* plan, int num_blocks,
+                               const int* long_rows, int num_long,
+                               float* partials, int Q, int Qp, int V,
+                               void* stream) {
+  if (Q <= 0 || V <= 0 || Qp < Q || Qp % 4 != 0 || num_blocks <= 0 ||
+      num_long < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (mode != kMin && val == nullptr) {
@@ -247,20 +266,23 @@ extern "C" int ell_spmv_launch(int mode, const int* row_ptr, const int* col,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (mode) {
     case kPlusTimes:
-      return launch<kPlusTimes>(row_ptr, col, val, x, y, scratch, max_hubs, Q,
-                                V, x_len, st);
+      return launch<kPlusTimes>(row_ptr, col, val, xt, y, plan, num_blocks,
+                                long_rows, num_long, partials, Q, Qp, V, st);
     case kMinPlus:
-      return launch<kMinPlus>(row_ptr, col, val, x, y, scratch, max_hubs, Q,
-                              V, x_len, st);
+      return launch<kMinPlus>(row_ptr, col, val, xt, y, plan, num_blocks,
+                              long_rows, num_long, partials, Q, Qp, V, st);
     case kMin:
-      return launch<kMin>(row_ptr, col, val, x, y, scratch, max_hubs, Q, V,
-                          x_len, st);
+      return launch<kMin>(row_ptr, col, val, xt, y, plan, num_blocks,
+                          long_rows, num_long, partials, Q, Qp, V, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-extern "C" int ell_spmv_warp_max() { return kWarpMax; }
+// The plan's constants, so the host plan and the kernel cannot disagree.
+extern "C" int ell_spmv_budget() { return kBudget; }
+extern "C" int ell_spmv_run_rows() { return kRunRows; }
+extern "C" int ell_spmv_threads() { return kThreads; }
 
 extern "C" const char* ell_spmv_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

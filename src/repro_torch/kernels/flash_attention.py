@@ -1,14 +1,16 @@
-"""Wrapper of the Hopper flash-attention kernel (``csrc/flash_attention.cu``).
+"""Wrapper of the Hopper flash-attention kernels (``csrc/flash_attention.cu``).
 
-The kernel replaces ``repro/kernels/flash_attention.py::flash_attention``
+The kernels replace ``repro/kernels/flash_attention.py::flash_attention``
 (the Pallas kernel) and the head repeat of ``repro/kernels/ops.py::
-flash_attention_op``.  It computes causal online-softmax attention with an
+flash_attention_op``.  They compute causal online-softmax attention with an
 optional sliding window on the model's layout, ``q [B, S, G, R, D]`` and
 ``k, v [B, S, G, D]``, reading KV group ``h // R`` for query head ``h``:
-f32 running max, denominator and accumulator, P in f32, the output rounded
-to the input type.  Any S (a ragged last tile is masked), D in
-``HEAD_DIMS``, f32 or bf16.  At the prefill's shapes it is bound by
-operations (see the note in the source).
+f32 running max, denominator and accumulator, the output rounded to the
+input type.  The input type picks the kernel: bf16 runs both products on
+the tensor cores (``wgmma``, TMA loads, P rounded to bf16 before P·V as
+the Pallas kernel does), f32 on the CUDA cores with P in f32.  Any S (a
+ragged last tile is masked), D in ``HEAD_DIMS``.  At the prefill's shapes
+the work is bound by operations (see the note in the source).
 
 This module builds nothing when imported.  The library is built at the
 first launch (or by ``_build.build_all``), and only CUDA tensors reach it:

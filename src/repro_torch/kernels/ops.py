@@ -15,7 +15,8 @@ import torch
 from repro_torch.core.graph import CSRGraph
 from repro_torch.kernels.bottomup import bottomup_scan
 from repro_torch.kernels.dense_spmv import dense_spmv, dense_spmv_minplus
-from repro_torch.kernels.ell_spmv import ell_spmv
+from repro_torch.kernels.ell_spmv import (EllPlan, ell_spmv, query_minor,
+                                          row_plan)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fused_superstep import KINDS, fused_superstep
 from repro_torch.kernels.outbox_reduce import WEIGHT_OPS, outbox_reduce
@@ -118,21 +119,33 @@ def bottomup_scan_op(row_ptr: torch.Tensor, col: torch.Tensor,
 
 def ell_spmv_op(row_ptr: torch.Tensor, col: torch.Tensor,
                 val: Optional[torch.Tensor], x: torch.Tensor, *,
-                semiring: str) -> torch.Tensor:
+                semiring: str, plan: Optional[EllPlan] = None
+                ) -> torch.Tensor:
     """Semiring SpMV over CSR rows: ``y [Q, V]`` with
     ``y[q, v] = ⊕_{slots s of row v} x[q, col[s]] ⊗ val[s]``.
 
     ``row_ptr [V + 1]``/``col [nnz]`` int32 (``csr_to_ell_rows``), ``val``
     f32 ``[nnz]`` (``min`` ignores it), ``x [Q, x_len]`` f32.  An empty row
-    gives the ⊕-identity.  The JAX contract's ELL block, its sink column in
-    ``x``, ``block_v`` and ``interpret`` are TPU layout; CSR rows need none
-    of them.
+    gives the ⊕-identity.  ``plan`` is the kernel's row plan of
+    ``row_ptr`` (``ell_spmv.row_plan``, as tensors on ``x``'s device; a
+    plan of other rows raises); the hybrid split keeps one, and a direct
+    call without it has it built here (one read of ``row_ptr`` to the
+    host).  The kernel reads ``x`` query-minor, so the op moves it there
+    (a copy).  The JAX contract's ELL block, its sink column in ``x``,
+    ``block_v`` and ``interpret`` are TPU layout; CSR rows need none of
+    them.
     """
     if semiring not in SEMIRINGS:
         raise ValueError(f"unknown semiring {semiring!r}")
+    if plan is not None:
+        plan.check(row_ptr, col)
     if x.device.type == "cpu":
         return ell_spmv_ref(row_ptr, col, val, x, semiring)
-    return ell_spmv(row_ptr, col, val, x.contiguous(), semiring=semiring)
+    if plan is None:
+        plan = row_plan(row_ptr).to(x.device)
+    xt = query_minor(x, SEMIRINGS[semiring][1])
+    return ell_spmv(row_ptr, col, val, xt, plan, semiring=semiring,
+                    num_queries=x.shape[0])
 
 
 def dense_spmv_op(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:

@@ -185,11 +185,16 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     → ``[B, S, G, R, D]`` in ``q``'s dtype.
 
     Scores, running max, denominator and accumulator in f32 (float64 for
-    float64 inputs); P stays in that type.  Every chunk pair is computed,
-    masked ones too (``NEG_INF``); a last chunk may be ragged.
+    float64 inputs).  For inputs narrower than f32 (bf16) P is rounded to
+    the input type before P·V, as the Pallas kernel does
+    (``repro/kernels/flash_attention.py::_flash_kernel``) and as the
+    tensor-core kernel does; the denominator sums P unrounded.  f32 and
+    float64 inputs keep P in their working type.  Every chunk pair is
+    computed, masked ones too (``NEG_INF``); a last chunk may be ragged.
     """
     b, s, g, r, d = q.shape
     work = torch.promote_types(q.dtype, torch.float32)
+    round_p = work != q.dtype
     scale = 1.0 / (d ** 0.5)
     qf = q.to(work).permute(0, 2, 3, 1, 4)                 # [B, G, R, S, D]
     kf = k.to(work).permute(0, 2, 1, 3)                    # [B, G, S, D]
@@ -212,8 +217,9 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             p = torch.exp(sc - m_new[..., None])
             alpha = torch.exp(m_run - m_new)
             l_run = l_run * alpha + p.sum(-1)
+            pv = p.to(q.dtype).to(work) if round_p else p
             acc = acc * alpha[..., None] + torch.einsum("bgrqk,bgkd->bgrqd",
-                                                        p, vi)
+                                                        pv, vi)
             m_run = m_new
         out[:, :, :, q0:q0 + q_chunk] = acc / l_run.clamp_min(1e-30)[..., None]
     return out.permute(0, 3, 1, 2, 4).to(q.dtype)

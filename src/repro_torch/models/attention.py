@@ -8,7 +8,9 @@ in a Python loop and every window is a Python int, so ``chunked_attention``
 launches the Hopper flash kernel on a CUDA tensor (or raises); on a CPU
 tensor it runs the kernel's plain version, the double-chunked online
 softmax of the JAX function (``kernels/ref.py::flash_attention_ref``, whose
-``attention_mask`` is the JAX ``_mask``).
+``attention_mask`` is the JAX ``_mask``).  For bf16 inputs both round P to
+bf16 before P·V, as the Pallas kernel does; the JAX function keeps P in
+f32.
 
 GQA keeps the grouped layout: q heads are ``[G, R]`` (KV groups × q heads
 per group) and no KV head is repeated.  ``cross_attention`` waits for the

@@ -8,9 +8,17 @@ window, where the Pallas kernel still applies it); GQA with 4 query heads
 over 2 KV heads; S of 256 and 512 and 200 (not a multiple of 128; the JAX
 kernel runs it as one block); f32 and bf16.  Tolerances are the JAX
 tests' (``tests/test_kernels.py``): 2e-3 in f32, 5e-2 in bf16, absolute
-and relative.  Both sides keep f32 statistics; the Pallas kernel rounds P
-to the input type before P·V, the port keeps it in f32.  The CUDA kernel
-is held against the same plain version on the card in
+and relative.  Both sides keep f32 statistics and, for bf16 inputs, round
+P to bf16 before P·V (the Pallas kernel, the port's plain version and its
+tensor-core kernel alike), so the bf16 plain version is also held to the
+Pallas kernel within the bound that rounding gives: each side rounds
+every P value (weight p / l of its row of V) and the output to bf16, each
+rounding off by at most 2^-8 relative, so the two differ by at most
+``2 * 2^-8 * (|out| + sum p|v| / l)`` (largest difference measured on these
+inputs 3.9e-3, at most 0.39 of the bound).  ``chunked_attention`` of the
+JAX package keeps
+P in f32, so against it the bf16 tolerance stays 5e-2.  The CUDA kernel is
+held against the same plain version on the card in
 ``test_torch_kernel_card.py``.
 """
 import importlib
@@ -28,6 +36,7 @@ from repro_torch.models import attention as tattn
 jattn = importlib.import_module("repro.models.attention")
 
 TOL = {"float32": 2e-3, "bfloat16": 5e-2}
+BF16_UNIT_ROUNDOFF = 2.0 ** -8
 MASKS = [(True, 0), (True, 64), (False, 0), (False, 64)]
 
 
@@ -62,6 +71,33 @@ def test_flash_attention_op_matches_jax(causal, window, s, d, dtype):
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32),
                                rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("s,d", [(256, 64), (512, 128), (200, 64)])
+@pytest.mark.parametrize("causal,window", MASKS)
+def test_flash_plain_bf16_rounds_p_as_the_pallas_kernel(causal, window, s,
+                                                        d):
+    """The plain version's bf16 path rounds P as the Pallas kernel does, so
+    the two agree within the rounding bound of P and the output."""
+    q, k, v = qkv(2, 4, 2, s, d, "bfloat16", seed=s + d)
+    block = 128 if s % 128 == 0 else s
+    want = jops.flash_attention_op(
+        *(as_jax(a, "bfloat16") for a in (q, k, v)), causal=causal,
+        window=window, block_q=block, block_k=block, interpret=True)
+    qm, km, vm = (as_torch(a, "bfloat16") for a in (q, k, v))
+    b, h, _, _ = qm.shape
+
+    def plain(q, k, v):
+        out = tref.flash_attention_ref(
+            q.transpose(1, 2).reshape(b, s, 2, h // 2, d), k.transpose(1, 2),
+            v.transpose(1, 2), causal=causal, window=window)
+        return out.reshape(b, s, h, d).transpose(1, 2).float().numpy()
+
+    got = plain(qm, km, vm)
+    mag = plain(qm.float(), km.float(), vm.float().abs())   # sum p|v| / l
+    want = np.asarray(want, np.float32)
+    limit = 2 * BF16_UNIT_ROUNDOFF * (np.abs(want) + mag)
+    assert np.all(np.abs(got - want) <= 1.01 * limit)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -200,3 +200,116 @@ def test_csr_rows_padded_equal_jax_ell(policy, weighted, transpose):
                                 jell.SEMIRINGS[sr][3])
     np.testing.assert_array_equal(got_col, want_col)
     np.testing.assert_array_equal(got_val, want_val)
+
+
+def plan_cover(row_ptr, plan):
+    """For each row, the number of plan blocks that cover it, and check
+    each block against the kernel's geometry."""
+    lens = np.diff(row_ptr.astype(np.int64))
+    seen = np.zeros(len(lens), dtype=np.int64)
+    chunks = {}
+    for a, b, c in plan.blocks.tolist():
+        if c < 0:                         # chunk b of long row a
+            assert lens[a] > kell.BUDGET
+            assert 0 <= b * kell.BUDGET < lens[a]
+            chunks.setdefault(a, []).append((b, -1 - c))
+            continue
+        assert a < b <= a + kell.RUN_ROWS
+        assert row_ptr[b] - row_ptr[a] <= kell.BUDGET
+        assert c & (c - 1) == 0 and 1 <= c <= 32      # lanes: a power of two
+        assert -(-lens[a:b].max() // c) <= kell.LANE_RUN
+        seen[a:b] += 1
+    for r, first in plan.long_rows.tolist():
+        got = sorted(chunks.pop(r))
+        k = -(-lens[r] // kell.BUDGET)
+        assert got == [(i, first + i) for i in range(k)]
+        seen[r] += 1
+    assert not chunks
+    assert plan.num_partials == sum(
+        -(-lens[r] // kell.BUDGET) for r, _ in plan.long_rows.tolist())
+    return seen
+
+
+PLAN_CASES = {
+    "empty rows": [0] * 1500,
+    "budget edges": [0, 1, 31, 32, 33, kell.BUDGET - 1, kell.BUDGET,
+                     kell.BUDGET + 1, 0, 5, kell.BUDGET, 0],
+    "hub": [3, 70000, 0, 70000, 2],
+    "random": None,
+}
+
+
+@pytest.mark.parametrize("case", list(PLAN_CASES))
+def test_row_plan_covers_every_row_once_within_budget(case):
+    lens = PLAN_CASES[case]
+    if lens is None:
+        rng = np.random.default_rng(7)
+        lens = np.minimum(rng.zipf(1.7, 20000), 9000)
+    row_ptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    plan = kell.row_plan(row_ptr)
+    assert plan.blocks.dtype == plan.long_rows.dtype == np.int32
+    np.testing.assert_array_equal(plan_cover(row_ptr, plan), 1)
+    # the plan of a CPU tensor is the same
+    again = kell.row_plan(torch.as_tensor(row_ptr))
+    np.testing.assert_array_equal(again.blocks, plan.blocks)
+
+
+@pytest.mark.parametrize("semiring", SEMIRINGS)
+def test_ell_op_same_with_and_without_plan(semiring):
+    row_ptr, col, val, x = ell_inputs(semiring, 3, dyadic=False, seed=4)
+    plan = kell.row_plan(row_ptr).to("cpu")
+    args = [torch.as_tensor(a) for a in (row_ptr, col, val, x)]
+    with_plan = tops.ell_spmv_op(*args, semiring=semiring, plan=plan)
+    without = tops.ell_spmv_op(*args, semiring=semiring)
+    assert torch.equal(with_plan, without)
+
+
+@pytest.mark.parametrize("entry", ["op", "kernel"])
+def test_a_plan_of_other_rows_raises(entry):
+    """The kernel sizes its shared-memory stages by the plan, so a plan
+    made from other rows (another shard, a graph split again) is refused
+    before anything launches, by the op on any device and by the kernel's
+    wrapper."""
+    row_ptr, col, val, x = ell_inputs("plus_times", 3, dyadic=False, seed=4)
+    args = [torch.as_tensor(a) for a in (row_ptr, col, val, x)]
+    fewer_rows = kell.row_plan(row_ptr[:-1])
+    fewer_slots = kell.row_plan(np.minimum(row_ptr, row_ptr[-1] - 1))
+    for plan in (fewer_rows, fewer_slots):
+        with pytest.raises(ValueError, match="does not belong"):
+            if entry == "op":
+                tops.ell_spmv_op(*args, semiring="plus_times",
+                                 plan=plan.to("cpu"))
+            else:
+                kell.ell_spmv(args[0], args[1], args[2],
+                              kell.query_minor(args[3], 0.0), plan.to("cpu"),
+                              semiring="plus_times", num_queries=3)
+
+
+def test_query_minor_pads_with_the_identity():
+    x = torch.arange(15, dtype=torch.float32).reshape(3, 5)
+    xt = kell.query_minor(x, float("inf"))
+    assert xt.shape == (5, 4) and xt.is_contiguous()
+    assert torch.equal(xt[:, :3], x.t()) and bool((xt[:, 3] == np.inf).all())
+    assert kell.query_minor(x[:1], 0.0).shape == (5, 4)
+    assert kell.query_minor(torch.zeros(8, 2), 0.0).shape == (2, 8)
+
+
+def test_splits_keep_the_row_plan_of_their_rows():
+    """``degree_split`` and ``shard_degree_split`` carry the sparse
+    kernel's plan of the rows they hold, so ``SplitCache`` keeps it for
+    every engine over the graph."""
+    from repro_torch.core import hybrid as TH
+    from repro_torch.core import partition as TPT
+
+    g = TG.rmat(9, 8, seed=3)
+    hg = TH.degree_split(g, 32, semiring="min")
+    want = kell.row_plan(hg.ell_row_ptr)
+    np.testing.assert_array_equal(hg.ell_plan.blocks, want.blocks)
+    np.testing.assert_array_equal(hg.ell_plan.long_rows, want.long_rows)
+    pg = TPT.partition(g, 4, TPT.HIGH)
+    shd = TH.shard_degree_split(pg, 2, "min", [16, 16])
+    for s in range(2):
+        want = kell.row_plan(shd.ell_row_ptr[s])
+        np.testing.assert_array_equal(shd.ell_plan[s].blocks, want.blocks)
+        np.testing.assert_array_equal(plan_cover(shd.ell_row_ptr[s],
+                                                 shd.ell_plan[s]), 1)
