@@ -84,7 +84,15 @@ split's row plan, as the engine calls it (min and min_plus bit for bit,
 plus_times within its f32 bound of float64; the query-minor copy of ``x``
 and the kernel timed apart; ``scripts/ell_ablation.py`` times the kernel
 on query-major ``x``),
-``dense_spmv`` within its bound and ``dense_spmv_minplus`` bit for bit.
+``dense_spmv`` within its bound and ``dense_spmv_minplus`` bit for bit,
+both and ``torch.matmul`` timed with the L2 flushed before each launch
+(a 256 MB write; the engine finds the dense block cold, after
+``ell_spmv`` has read its 100+ MB of rows) and warm, with the ratio to
+``torch.matmul`` both ways.  The fused kernel is timed as the op (its
+query-minor copy of the state included), and the copy and the kernel
+apart; ``scripts/fused_ablation.py`` times variants of its source.  The
+``[build]`` lines give every fused and dense kernel's registers and spill
+stores, and check that the fused library spills no more than 40 bytes.
 
 Why sums are held to float64 and not to the plain f32 version: at RMAT20 a
 hub sums ~10^4-10^5 messages, and two f32 summation orders (the kernel's
@@ -99,8 +107,8 @@ The hybrid kernels' sums are fixed trees too: ``ell_spmv`` follows its
 row plan, a row of a run adding at most 64 products in a lane then a
 butterfly over at most 32 lanes (5 levels), a longer row 8 products in a
 thread, a warp (5) and block (3) tree per 2048-slot chunk and the chunks
-in order; ``dense_spmv`` a slice of 128, then a pairwise tree over the
-slices.  ``outbox_reduce``
+in order; ``dense_spmv`` 32 products in a lane, the 8 warps of a block,
+then the 256-row slices in order.  ``outbox_reduce``
 takes the fused kernel's tree (``block_e/128`` adds in a thread, the warp
 scan and fold, a carry, two adds per block a slot spans) plus the message.
 
@@ -127,6 +135,9 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 F32_OPS_PER_S = 67e12        # H100 SXM, f32 outside the tensor cores
 BF16_OPS_PER_S = 989e12      # H100 SXM, dense bf16 tensor cores
 UNIT_ROUNDOFF = 2.0 ** -24
+FLUSH_BYTES = 256 * 2**20    # written before each cold launch: 5x the L2
+FUSED_SPILL_LIMIT = 40       # bytes of spill stores (the fused library)
+SLEEP_CYCLES = 10 ** 7       # ~5 ms at 1.98 GHz: the host enqueues meanwhile
 # fused vs float64, max relative error (measured 4.3e-7 and 2.1e-7)
 SUM_LIMITS = {"pagerank": 2e-6, "betweenness_centrality": 1e-6}
 KERNELS = {
@@ -226,6 +237,74 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def cuda_ms_cold(fn, reps: int, flush) -> float:
+    """Median time of ``fn`` from CUDA events around each launch alone,
+    with ``flush`` (a write of ``FLUSH_BYTES``) before each: ``fn``'s
+    inputs start in device memory, not in the L2.  The median, since the
+    write-back of the flushed lines varies from launch to launch."""
+    import torch
+    fn()
+    pairs = []
+    for _ in range(reps):
+        flush()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    times = sorted(a.elapsed_time(b) for a, b in pairs)
+    return (times[(reps - 1) // 2] + times[reps // 2]) / 2
+
+
+def cuda_ms_ahead(fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` calls back to back: a sleep
+    on the stream lets the host enqueue every call before the first runs,
+    so the host's time between launches does not show (``cuda_ms`` shows
+    it where a call's host work outlasts its kernel)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def ptxas_report(build_log: str, cufilt=None):
+    """Each function's ``(name, registers, spill stores in bytes)`` from an
+    ``nvcc -Xptxas -v`` log, names demangled with ``cufilt`` where given
+    (entry functions carry registers; other functions None)."""
+    rows, name = [], None
+    for line in build_log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name is not None:
+            rows.append([name, None, int(m.group(1))])
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and rows and rows[-1][1] is None:
+            rows[-1][1] = int(m.group(1))
+    if cufilt is not None and rows:
+        out = subprocess.run([str(cufilt)],
+                             input="\n".join(r[0] for r in rows),
+                             capture_output=True, text=True, timeout=60)
+        names = out.stdout.splitlines()
+        if out.returncode == 0 and len(names) == len(rows):
+            for r, n in zip(rows, names):
+                r[0] = n
+    return [tuple(r) for r in rows]
 
 
 def kernel_inputs(kind, pg, blk, rng, device):
@@ -400,10 +479,10 @@ def ell_sum_depth(kmax) -> int:
 
 
 def dense_sum_depth(k) -> int:
-    """Roundings of ``dense_spmv``'s sum over ``k``: a slice of 128, the
-    pairwise tree over the slices, and the product."""
-    import math
-    return 128 + math.ceil(math.log2(max(-(-k // 128), 1))) + 1
+    """Roundings of ``dense_spmv``'s sum over ``k`` (``csrc/dense_spmv.cu``):
+    32 products in a lane, the 8 warps of a block in order, the
+    ``ceil(k / 256)`` slices in order, and the product."""
+    return 32 + 8 + -(-k // 256) + 1
 
 
 def ell_bound_ms(semiring, v, nnz, q, x_len) -> float:
@@ -780,6 +859,7 @@ def main() -> int:
         from repro_torch.kernels.ops import (bottomup_scan_op,
                                              dense_spmv_minplus_op,
                                              dense_spmv_op, ell_spmv_op,
+                                             fused_superstep_op,
                                              outbox_reduce_op)
         from repro_torch.kernels.ref import (SEMIRINGS, bottomup_scan_ref,
                                              dense_spmv_minplus_ref,
@@ -822,6 +902,17 @@ def main() -> int:
         f"kernels: {spills}")
     check(spills[kfa.SOURCE] == 0, f"[build] the flash library spills "
           f"nothing ({spills[kfa.SOURCE]} bytes)")
+    check(spills[kfs.SOURCE] <= FUSED_SPILL_LIMIT, f"[build] the fused "
+          f"library spills {spills[kfs.SOURCE]} bytes, no more than "
+          f"{FUSED_SPILL_LIMIT}")
+    cufilt = Path(_build.nvcc()).parent / "cu++filt"
+    for lib in (kfs.SOURCE, kds.SOURCE):
+        for name, regs, spill in ptxas_report(
+                built[lib][1], cufilt if cufilt.exists() else None):
+            log(f"[build] {lib}: {name}: "
+                + ("" if regs is None else f"{regs} registers, ")
+                + f"{spill} bytes spill stores"
+                + (" (spills)" if spill else ""))
     cuobjdump = Path(_build.nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass",
                            str(built[kfa.SOURCE][0])], capture_output=True,
@@ -903,10 +994,19 @@ def main() -> int:
         msg = _edge_message(kind, pg.num_vertices)
         weight = x["weight"] if spec.use_weight else None
 
-        def kernel():
+        def kernel():     # the op: the query-minor copy, then the kernel
+            return fused_superstep_op(
+                msg, x["vstate"], weight, x["scal"], x["src"], x["local"],
+                x["mask"], x["base"], dst_ext, num_segments=pg.seg_count,
+                combine=spec.combine, block_e=BLOCK_E)
+
+        def copy():
+            return kfs.query_minor_state(x["vstate"])
+
+        def kern(vt=copy()):
             return kfs.fused_superstep(
-                kind, x["vstate"], x["scal"], x["src"], x["local"], x["mask"],
-                weight, x["base"], num_segments=pg.seg_count, block_e=BLOCK_E)
+                kind, vt, x["scal"], x["src"], x["local"], x["mask"], weight,
+                x["base"], num_segments=pg.seg_count, block_e=BLOCK_E)
 
         def plain(m=msg, dtype=torch.float32):
             return fused_superstep_ref(
@@ -937,14 +1037,18 @@ def main() -> int:
                   f"kernel {kern_rel:.3e}, plain f32 {plain_rel:.3e}; "
                   f"kernel vs plain max |err| {err}")
             del exact, mag, slack
-        check(torch.equal(got, again), f"[kernel] {kind}: two launches "
-              f"bit-equal")
+        check(torch.equal(got, again) and torch.equal(got, kern()),
+              f"[kernel] {kind}: two launches bit-equal, through the op and "
+              f"on the query-minor state")
         ms = cuda_ms(kernel, 20)
         plain_ms = cuda_ms(plain, 5)
+        copy_ms, kern_ms = cuda_ms(copy, 20), cuda_ms(kern, 20)
         bms = bound_ms(kind, pg, blk)
         kernel_rows[kind] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms)
-        log(f"[kernel] {kind}: Q={Q} kernel {ms:.4f} ms, plain {plain_ms:.4f}"
-            f" ms, bound {bms:.4f} ms (bytes), {bms / ms:.1%} of bound")
+        log(f"[kernel] {kind}: Q={Q} op {ms:.4f} ms (query-minor copy "
+            f"{copy_ms:.4f} ms, kernel {kern_ms:.4f} ms), plain "
+            f"{plain_ms:.4f} ms, bound {bms:.4f} ms (bytes), "
+            f"{bms / ms:.1%} of bound")
         del x, got, again, want
     torch.cuda.empty_cache()
 
@@ -1062,6 +1166,16 @@ def main() -> int:
         del x, got, again, want
 
     k = plan["k_dense"]
+    scratch = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+
+    def flush():          # L2 full of dirty lines of scratch
+        scratch.fill_(1.0)
+
+    def flush_clean():    # the same, then read back: L2 clean
+        scratch.fill_(1.0)
+        scratch.sum()
+
+    torch.backends.cuda.matmul.allow_tf32 = False
     for name, semiring in (("dense_spmv", "plus_times"),
                            ("dense_spmv_minplus", "min_plus")):
         cfg, arrs = splits[semiring]
@@ -1093,20 +1207,35 @@ def main() -> int:
                   f"bit-equal to the plain version (max |err| {err})")
         check(torch.equal(got, again), f"[kernel] {name}: two launches "
               f"bit-equal")
-        ms, plain_ms = cuda_ms(kern, 20), cuda_ms(plain, 5)
-        lib_ms = None
-        if name == "dense_spmv":
-            torch.backends.cuda.matmul.allow_tf32 = False
-            lib_ms = cuda_ms(lambda: torch.matmul(x, a), 20)
+
+        def matmul(x=x, a=a):
+            return torch.matmul(x, a)
+
+        # kernel and matmul in turns: cold (L2 flushed before each launch;
+        # dirty, then clean), warm (back to back; the host ahead, then
+        # as cuda_ms times every other kernel)
+        times = {}
+        for how, timer in (
+                ("cold", lambda f: cuda_ms_cold(f, 20, flush)),
+                ("cold, clean L2", lambda f: cuda_ms_cold(f, 20, flush_clean)),
+                ("warm", lambda f: cuda_ms_ahead(f, 50)),
+                ("warm, host-paced", lambda f: cuda_ms(f, 20))):
+            times[how] = (timer(kern), timer(matmul))
+        ms, mm_ms = times["cold"]
+        plain_ms = cuda_ms(plain, 5)
         bms = dense_bound_ms(Q, k, k)
         hyb_rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                              library_ms=lib_ms, err=err)
-        log(f"[kernel] {name}: Q={Q} K=N={k} kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bound {bms:.4f} ms (bytes), "
-            f"{bms / ms:.1%} of bound"
-            + ("" if lib_ms is None else
-               f", torch.matmul (f32, no TF32) {lib_ms:.4f} ms"))
+                              library_ms=(mm_ms if name == "dense_spmv"
+                                          else None), err=err)
+        log(f"[kernel] {name}: Q={Q} K=N={k} kernel {ms:.4f} ms cold; plain "
+            f"{plain_ms:.4f} ms (warm); bound {bms:.4f} ms (bytes), "
+            f"{bms / ms:.1%} of bound cold")
+        for how, (t_k, t_mm) in times.items():
+            log(f"[kernel] {name} {how}: kernel {t_k:.4f} ms, torch.matmul "
+                f"(f32, no TF32) {t_mm:.4f} ms, kernel / matmul "
+                f"{t_k / t_mm:.3f}")
         del x, got, again, want
+    del scratch
     torch.cuda.empty_cache()
 
     # -- phase 3: the main path at RMAT20 ------------------------------------

@@ -65,6 +65,7 @@ from repro_torch.core.partition import (BlockMetadata, EdgeArrays,
 from repro_torch.core.perf_model import fit_shard_pull_thresholds
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.distributed import ShardGroup
+from repro_torch.kernels.fused_superstep import stack_query_minor
 from repro_torch.kernels.ops import (bottomup_scan_op, fused_superstep_op,
                                      outbox_reduce_op)
 from repro_torch.kernels.ref import MIN, SUM, segment_reduce_ref
@@ -197,10 +198,12 @@ def _require_f32(spec: EdgeMessage, state: State, backend: str) -> None:
 def _compute_fused(dims: _Dims, program: VertexProgram, edges: dict,
                    block_e: int, state: State, step: int) -> torch.Tensor:
     """Fused compute: one kernel launch per superstep on the card, no
-    [Q, Pl, e_max] message array (kernels/fused_superstep.py)."""
+    [Q, Pl, e_max] message array (kernels/fused_superstep.py).  The
+    gathered state is stacked straight into the kernel's query-minor
+    layout: one copy per superstep."""
     spec = program.edge_msg
     _require_f32(spec, state, FUSED)
-    vstate = torch.stack([state[k].float() for k in spec.gather], dim=2)
+    vstate = stack_query_minor([state[k] for k in spec.gather])
     q, pl = vstate.shape[:2]
     cols = [torch.full((q, pl), float(step), dtype=torch.float32,
                        device=vstate.device)]

@@ -18,7 +18,8 @@ from repro_torch.kernels.dense_spmv import dense_spmv, dense_spmv_minplus
 from repro_torch.kernels.ell_spmv import (EllPlan, ell_spmv, query_minor,
                                           row_plan)
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.fused_superstep import KINDS, fused_superstep
+from repro_torch.kernels.fused_superstep import (KINDS, fused_superstep,
+                                                 query_minor_state)
 from repro_torch.kernels.outbox_reduce import WEIGHT_OPS, outbox_reduce
 from repro_torch.kernels.ref import (MIN, SEMIRINGS, SUM, bottomup_scan_ref,
                                      dense_spmv_minplus_ref, dense_spmv_ref,
@@ -50,7 +51,10 @@ def fused_superstep_op(msg, vstate: torch.Tensor,
     The JAX contract's ``span``, ``max_span``, ``gather_chunk``, ``v_pad``
     and ``interpret`` are TPU geometry (a VMEM one-hot bound and interpret
     mode).  The Hopper kernel reduces runs of equal ids and has no span
-    bound, so none of them exists here and nothing falls back.
+    bound, so none of them exists here and nothing falls back.  It reads
+    the state query-minor, so the op moves ``vstate`` there (one copy); a
+    ``vstate`` made by ``fused_superstep.stack_query_minor``, as the engine
+    makes it, is a view of that layout already and is not copied again.
     """
     if vstate.device.type == "cpu":
         return fused_superstep_ref(msg, vstate, weight, scal, src, mask,
@@ -65,8 +69,8 @@ def fused_superstep_op(msg, vstate: torch.Tensor,
     if spec.combine != combine:
         raise ValueError(f"kind {msg.kind!r} combines by {spec.combine}, "
                          f"the program by {combine}")
-    return fused_superstep(msg.kind, vstate.contiguous(), scal.contiguous(),
-                           src, local, mask,
+    return fused_superstep(msg.kind, query_minor_state(vstate),
+                           scal.contiguous(), src, local, mask,
                            weight if spec.use_weight else None, base,
                            num_segments=num_segments, block_e=block_e)
 

@@ -25,6 +25,8 @@ from test_torch_kernel_card import (KINDS, assert_parity, make_inputs,
 
 from repro_torch.core import graph as TG
 from repro_torch.core import partition as TPT
+from repro_torch.kernels import _build
+from repro_torch.kernels import fused_superstep as kfs
 from repro_torch.kernels import ops as tops
 
 # The algorithm packages re-export functions named like their modules.
@@ -138,3 +140,88 @@ def test_device_tensor_needs_a_device_kind():
         tops.fused_superstep_op(sum_msg, fake, None, fake, fake, fake, fake,
                                 fake, fake, num_segments=9, combine="min",
                                 block_e=128)
+
+
+@pytest.mark.parametrize("q", [1, 3, 8, 13])
+def test_query_minor_state_pads_lanes_never_written_out(q):
+    """The kernel's state layout ``[Pl, K, V, Qp]``: Qp = Q rounded up to
+    a multiple of 4, the padded lanes ``PAD``.  ``stack_query_minor``'s
+    ``[Q, Pl, K, V]`` view is taken as it is (no second copy), and the op
+    gives the same accumulator on it as on the contiguous state, with the
+    Q real queries only (the card test puts NaN in the padded lanes)."""
+    tg = TG.rmat(7, 4, seed=q).with_uniform_weights(seed=2)
+    tp = TPT.partition(tg, 2, TPT.HIGH)
+    blk = TPT.build_block_metadata(tp.fwd, block_e=128)
+    _, tprog = _programs("sssp", tp.num_vertices)
+    vstate, scal = make_inputs("sssp", q, 2, tp.v_max,
+                               np.random.default_rng(q))
+    vs = torch.as_tensor(vstate)
+    vt = kfs.query_minor_state(vs)
+    qp = kfs.padded_queries(q)
+    assert qp % kfs.QUERY_ALIGN == 0 and q <= qp < q + kfs.QUERY_ALIGN
+    assert vt.shape == (2, 2, tp.v_max, qp) and vt.is_contiguous()
+    assert torch.equal(vt[..., :q], vs.permute(1, 2, 3, 0))
+    assert bool((vt[..., q:] == kfs.PAD).all())
+    view = kfs.stack_query_minor([vs[:, :, 0], vs[:, :, 1].double()])
+    assert view.shape == vs.shape and torch.equal(view, vs)
+    base = kfs.query_minor_state(view)
+    assert base.data_ptr() == view.data_ptr() and torch.equal(base, vt)
+    want = port_op(tprog, vstate, scal, blk, tp.fwd.dst_ext, tp.seg_count)
+    got = tops.fused_superstep_op(
+        tprog.edge_msg, view, torch.as_tensor(blk.weight),
+        torch.as_tensor(scal), torch.as_tensor(blk.src),
+        torch.as_tensor(blk.local), torch.as_tensor(blk.mask),
+        torch.as_tensor(blk.base), torch.as_tensor(tp.fwd.dst_ext),
+        num_segments=tp.seg_count, combine="min", block_e=128)
+    assert got.shape == (q, 2, tp.seg_count) and torch.equal(got, want)
+
+
+def _wrapper_args(case):
+    """Arguments of ``fused_superstep.fused_superstep`` on CPU tensors:
+    valid ones (BFS, Q=3, Pl=1, V=16, one 128-edge block) with one thing
+    the kernel does not take, by ``case``."""
+    kind, q, k, qp, block_e = "bfs", 3, 1, 4, 128
+    vt_dtype, src_dtype, weight = torch.float32, torch.int32, None
+    if case == "kind":
+        kind = "bellman_ford"
+    elif case == "block_e":
+        block_e = 100
+    elif case == "gathered":
+        k = 2
+    elif case == "query axis":
+        qp = 6
+    elif case == "too few lanes":
+        q = 5
+    elif case == "state dtype":
+        vt_dtype = torch.float64
+    elif case == "index dtype":
+        src_dtype = torch.int64
+    elif case == "weight":
+        kind, k = "sssp", 2
+    vt = torch.zeros((1, k, 16, qp), dtype=vt_dtype)
+    scal = torch.zeros((q, 1, 1))
+    src = torch.zeros((1, 128), dtype=src_dtype)
+    ints = torch.zeros((1, 128), dtype=torch.int32)
+    base = torch.zeros((1, 1), dtype=torch.int32)
+    return (kind, vt, scal, src, ints, ints, weight, base), dict(
+        num_segments=18, block_e=block_e)
+
+
+REFUSALS = {"kind": "unknown message kind", "block_e": "block_e",
+            "gathered": "gathered arrays", "query axis": "query axis",
+            "too few lanes": "query axis", "state dtype": "torch.float32",
+            "index dtype": "torch.int32", "weight": "needs edge weights",
+            "device": "must be a CUDA tensor"}
+
+
+@pytest.mark.parametrize("case", sorted(REFUSALS))
+def test_wrapper_refuses_before_it_launches(case):
+    """Bad kinds, shapes, dtypes and devices raise before the library is
+    loaded or the launch counted (a valid CPU call raises for its
+    device: only a CUDA tensor reaches the kernel)."""
+    args, kw = _wrapper_args(case)
+    before = kfs.fused_superstep.launches
+    with pytest.raises(ValueError, match=REFUSALS[case]):
+        kfs.fused_superstep(*args, **kw)
+    assert kfs.fused_superstep.launches == before
+    assert kfs.SOURCE not in _build._loaded

@@ -28,6 +28,7 @@ import torch
 from test_torch_jaxref import JG, jops
 
 from repro_torch.core import graph as TG
+from repro_torch.kernels import _build
 from repro_torch.kernels import dense_spmv as kds
 from repro_torch.kernels import ell_spmv as kell
 from repro_torch.kernels import ops as tops
@@ -168,6 +169,29 @@ def test_cpu_tensors_take_the_plain_versions():
                       kds.dense_spmv_minplus.launches)
     with pytest.raises(ValueError, match="semiring"):
         port_ell(*args, "max_times")
+
+
+DENSE_REFUSALS = {"shape": "do not match", "x dtype": "x must be",
+                  "a dtype": "a must be", "device": "must be a CUDA tensor"}
+
+
+@pytest.mark.parametrize("entry", ["dense_spmv", "dense_spmv_minplus"])
+@pytest.mark.parametrize("case", sorted(DENSE_REFUSALS))
+def test_dense_wrappers_refuse_before_they_launch(entry, case):
+    """Mismatched shapes, other dtypes and CPU tensors raise before the
+    library is loaded or the launch counted."""
+    x, a = torch.zeros(3, 5), torch.zeros(5, 7)
+    if case == "shape":
+        a = torch.zeros(6, 7)
+    elif case == "x dtype":
+        x = x.double()
+    elif case == "a dtype":
+        a = a.half()
+    fn = getattr(kds, entry)
+    before = fn.launches
+    with pytest.raises(ValueError, match=DENSE_REFUSALS[case]):
+        fn(x, a)
+    assert fn.launches == before and kds.SOURCE not in _build._loaded
 
 
 def _graphs(weighted):

@@ -175,17 +175,22 @@ def cuda():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("q", [1, 3, 8, 13])
 @pytest.mark.parametrize("parts,strategy,block_e", [
     (1, "rand", 128), (2, "high", 256), (3, "low", 1024)])
 @pytest.mark.parametrize("kind", KINDS)
-def test_kernel_matches_plain_on_card(cuda, kind, parts, strategy, block_e):
+def test_kernel_matches_plain_on_card(cuda, kind, parts, strategy, block_e,
+                                      q):
+    """Q below, at and above one 8-query group, ragged (1, 3, 13) and
+    whole (8); ``block_e`` 128, 256 and 1024 (1, 2 and 8 edges a
+    thread)."""
     tg = TG.rmat(10, 8, seed=5).with_uniform_weights(seed=2)
     tp = TPT.partition(tg, parts, strategy, include_reverse=True)
     ea = tp.rev if kind == "bc_bwd" else tp.fwd
     blk = TPT.build_block_metadata(ea, block_e=block_e)
     tprog = port_program(kind, tp.num_vertices)
-    vstate, scal = make_inputs(kind, 3, parts, tp.v_max,
-                               np.random.default_rng(1))
+    vstate, scal = make_inputs(kind, q, parts, tp.v_max,
+                               np.random.default_rng(q))
     seg = tp.seg_count
     before = kfs.fused_superstep.launches
     got = port_op(tprog, vstate, scal, blk, ea.dst_ext, seg, cuda)
@@ -195,6 +200,36 @@ def test_kernel_matches_plain_on_card(cuda, kind, parts, strategy, block_e):
     want = port_op(tprog, vstate, scal, blk, ea.dst_ext, seg).numpy()
     assert_parity(tprog.combine, got.cpu().numpy(), want)
     assert torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q", [1, 3, 13])
+@pytest.mark.parametrize("kind", ["bfs", "bc_bwd"])
+def test_kernel_never_writes_the_padded_queries_on_card(cuda, kind, q):
+    """The query-minor state's padded lanes are read and never written
+    out: NaN there leaves the accumulator as it is with the padding ``PAD``
+    (the op's own copy), bit for bit."""
+    tg = TG.rmat(10, 8, seed=5)
+    tp = TPT.partition(tg, 2, "high", include_reverse=True)
+    ea = tp.rev if kind == "bc_bwd" else tp.fwd
+    blk = TPT.build_block_metadata(ea, block_e=256)
+    vstate, scal = make_inputs(kind, q, 2, tp.v_max,
+                               np.random.default_rng(q))
+    vs = torch.as_tensor(vstate, device=cuda)
+    vt = kfs.query_minor_state(vs)
+    assert vt.shape[-1] == kfs.padded_queries(q) > q
+    nan = vt.clone()
+    nan[..., q:] = float("nan")
+    args = [torch.as_tensor(np.ascontiguousarray(a), dtype=torch.int32,
+                            device=cuda)
+            for a in (blk.src, blk.local, blk.mask)]
+    base = torch.as_tensor(blk.base, dtype=torch.int32, device=cuda)
+    sc = torch.as_tensor(scal, device=cuda)
+    got = [kfs.fused_superstep(kind, x, sc, *args, None, base,
+                               num_segments=tp.seg_count, block_e=256)
+           for x in (vt, nan)]
+    assert got[0].shape == (q, 2, tp.seg_count)
+    assert torch.equal(got[0], got[1])
 
 
 @pytest.mark.gpu
@@ -285,9 +320,10 @@ def ell_sum_depth(kmax):
 
 
 def dense_sum_depth(k):
-    """Roundings of ``dense_spmv``'s sum over ``k``: a slice of 128, the
-    pairwise tree over the slices and the product (``csrc/dense_spmv.cu``)."""
-    return 128 + math.ceil(math.log2(max(math.ceil(k / 128), 1))) + 1
+    """Roundings of ``dense_spmv``'s sum over ``k`` (``csrc/dense_spmv.cu``):
+    32 products in a lane, the 8 warps of a block in order, the
+    ``ceil(k / 256)`` slices in order, the product."""
+    return 32 + 8 + math.ceil(k / 256) + 1
 
 
 def within_f32_bound(got, exact, mag, depth):
@@ -366,8 +402,13 @@ def test_ell_kernel_without_slots_gives_the_identity_on_card(cuda, semiring):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("m,k,n", [(1, 100, 100), (3, 300, 257),
-                                   (8, 2816, 2816), (11, 129, 513)])
+                                   (8, 2816, 2816), (11, 129, 513),
+                                   (13, 301, 258), (8, 1027, 1030),
+                                   (1, 3, 5), (13, 2816, 2816)])
 def test_dense_kernels_match_plain_on_card(cuda, m, k, n):
+    """M of 1, 3, 8, 11 and 13 (one 8-query pass, ragged, two passes); K
+    and N multiples of 4 and not (N % 4 != 0 takes the scalar loads), K
+    below one 256-row slice and over 11 of them."""
     rng = np.random.default_rng(k)
     x = torch.as_tensor(rng.uniform(0, 1, (m, k)).astype(np.float32),
                         device=cuda)
