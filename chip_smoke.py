@@ -17,9 +17,11 @@ Phases (any failed check exits non-zero; nothing is caught and passed over):
    The fused superstep for all six message kinds: min kinds bit for bit,
    sum kinds against a float64 evaluation of the plain version within the
    kernel's own f32 error bound (below).  The bottom-up scan on the
-   engine's transposed rows in its three modes (BFS's early exit, CC's
-   min, SSSP's min_plus): bit for bit, counts included.  Two launches of
-   each bit-equal;
+   engine's transposed rows with their row plan, in its three modes (BFS's
+   early exit, CC's min, SSSP's min_plus): bit for bit, counts included,
+   on ``x`` and on the engine's query-minor view of it; timed as the op
+   with its own query-minor copy of ``x``, given the view, and the copy
+   alone.  Two launches of each bit-equal;
 3. the main path at that size through the user entry points, with the
    engine's defaults (min algorithms direction optimized), fused backend
    against the reference backend on the card: ``bfs_batched`` and
@@ -44,8 +46,10 @@ Phases (any failed check exits non-zero; nothing is caught and passed over):
    hybrid's real boundary arrays in every mode on the path (min for BFS
    and CC, min_plus for SSSP, plus_times for PageRank and BC forward and
    backward; min results bit for bit, sums within the kernel's f32 bound
-   of float64, two launches bit-equal, timed beside its bound, its plain
-   version and, for plus_times, ``torch.sparse.mm``); the sharded hybrid
+   of float64, two launches bit-equal, on ``x`` and on the engine's
+   query-minor view; timed as the op with its own copy of ``x``, given the
+   view, and the copy alone, beside its bound, its plain version and, for
+   plus_times, ``torch.sparse.mm``); the sharded hybrid
    backend through the same entry points, under the vote and without it,
    bit for bit with equal steps against the single-device hybrid runs
    (BFS, SSSP, CC) and within the fixed limits of the float64 runs
@@ -91,8 +95,10 @@ both and ``torch.matmul`` timed with the L2 flushed before each launch
 ``torch.matmul`` both ways.  The fused kernel is timed as the op (its
 query-minor copy of the state included), and the copy and the kernel
 apart; ``scripts/fused_ablation.py`` times variants of its source.  The
-``[build]`` lines give every fused and dense kernel's registers and spill
-stores, and check that the fused library spills no more than 40 bytes.
+``[build]`` lines give every fused, dense, outbox and scan kernel's
+registers and spill stores, and check that the fused library spills no
+more than 40 bytes and the outbox and scan libraries nothing;
+``scripts/scan_outbox_ablation.py`` times variants of those two sources.
 
 Why sums are held to float64 and not to the plain f32 version: at RMAT20 a
 hub sums ~10^4-10^5 messages, and two f32 summation orders (the kernel's
@@ -120,6 +126,7 @@ from __future__ import annotations
 import dataclasses
 import importlib
 import json
+import math
 import re
 import subprocess
 import sys
@@ -628,8 +635,6 @@ def lm_forward64(module, tokens):
     """The prefill's last-token logits in float64, assembled from the
     port's plain functions (``rms_norm``, ``rope``, ``flash_attention_ref``)
     and ``module``'s weights: the yardstick of the f32 prefill."""
-    import math
-
     import torch
     import torch.nn.functional as F
 
@@ -668,7 +673,6 @@ def lm_phase(dev, check):
     B=1, S=256 against a float64 run of the same forward.  Returns
     ``(flash row, max |err|, launches per prefill)``."""
     import dataclasses
-    import math
 
     import torch
     import torch.nn.functional as F
@@ -905,8 +909,11 @@ def main() -> int:
     check(spills[kfs.SOURCE] <= FUSED_SPILL_LIMIT, f"[build] the fused "
           f"library spills {spills[kfs.SOURCE]} bytes, no more than "
           f"{FUSED_SPILL_LIMIT}")
+    check(spills[kob.SOURCE] == 0 and spills[kbu.SOURCE] == 0,
+          f"[build] the outbox and scan libraries spill nothing "
+          f"({spills[kob.SOURCE]} and {spills[kbu.SOURCE]} bytes)")
     cufilt = Path(_build.nvcc()).parent / "cu++filt"
-    for lib in (kfs.SOURCE, kds.SOURCE):
+    for lib in (kfs.SOURCE, kds.SOURCE, kob.SOURCE, kbu.SOURCE):
         for name, regs, spill in ptxas_report(
                 built[lib][1], cufilt if cufilt.exists() else None):
             log(f"[build] {lib}: {name}: "
@@ -943,10 +950,15 @@ def main() -> int:
            "cc": PT.build_transposed_csc(pgs.fwd, pgs.v_max)}
     tc_graphs = {"fwd": pg, "cc": pgs}
     t_csc = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    scan_plans = {name: kell.row_plan(tc.row_ptr) for name, tc in tcs.items()}
+    t_scan_plan = time.perf_counter() - t0
     log(f"[host] {RMAT_MEDIUM.name}: V={g.num_vertices} E={g.num_edges}; "
         f"generate {t_gen:.2f} s, partition fwd+rev {t_part:.2f} s, "
         f"symmetrize+partition (CC) {t_cc:.2f} s, block metadata "
-        f"{t_blk:.2f} s, transposed rows (fwd + CC) {t_csc:.2f} s")
+        f"{t_blk:.2f} s, transposed rows (fwd + CC) {t_csc:.2f} s, their "
+        f"row plans (the scan's; an engine makes one with its pull layout) "
+        f"{t_scan_plan:.2f} s")
     log(f"[host] P=2 HIGH: v_max={pg.v_max} e_max={pg.fwd.e_max} "
         f"o_max={pg.fwd.o_max} seg={pg.seg_count} "
         f"nb={blks['fwd'].num_blocks} span(fwd)={blks['fwd'].span_req} "
@@ -1058,19 +1070,25 @@ def main() -> int:
         which = "cc" if mode == "cc" else "fwd"
         tc = tcs[which]
         x = scan_inputs(mode, tc_graphs[which], tc, rng, dev)
+        rows = scan_plans[which].to(dev)
+        xq = kell.query_minor_view(x["x"], math.inf)    # the engine's copy
 
-        def scan(skip=None):
-            return bottomup_scan_op(x["row_ptr"], x["col"], x["val"], x["x"],
+        def scan(skip=None, xs=x["x"], rows=rows):  # the op, its own copy
+            return bottomup_scan_op(x["row_ptr"], x["col"], x["val"], xs,
                                     semiring=semiring, early_exit=early,
-                                    skip=skip)
+                                    skip=skip, plan=rows)
 
         def plain():
             return bottomup_scan_ref(x["row_ptr"], x["col"], x["val"],
                                      x["x"], semiring=semiring,
                                      early_exit=early)
 
+        def copy(xs=x["x"]):
+            return kell.query_minor(xs, math.inf)
+
         (y, cnt), (y2, cnt2), (want_y, want_cnt) = scan(), scan(), plain()
         y_s, cnt_s = scan(x["skip"])
+        y_v, cnt_v = scan(xs=xq)
         torch.cuda.synchronize()
         err = max_abs_err(y, want_y)
         scan_err = max(scan_err, err)
@@ -1079,18 +1097,25 @@ def main() -> int:
               f"y and scanned bit-equal to the plain version (max |err| "
               f"{err}, scanned {int(cnt.sum())} of {Q * tc.nnz} slots)")
         check(torch.equal(y, y2) and torch.equal(cnt, cnt2)
+              and torch.equal(y_v, y) and torch.equal(cnt_v, cnt)
               and torch.equal(y_s, y) and torch.equal(
                   cnt_s, torch.where(x["skip"] & early, 0, cnt)),
-              f"[kernel] bottomup {mode}: two launches bit-equal; skip "
-              f"zeroes only the counts")
+              f"[kernel] bottomup {mode}: two launches bit-equal, on x and "
+              f"on the engine's query-minor view; skip zeroes only the "
+              f"counts")
         ms = cuda_ms(scan, 20)
+        view_ms = cuda_ms(lambda: scan(xs=xq), 20)
+        copy_ms = cuda_ms(copy, 20)
         plain_ms = cuda_ms(plain, 5)
         bms = scan_bound_ms(x["x"], cnt, semiring)
         scan_rows[mode] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms)
-        log(f"[kernel] bottomup {mode}: Q={Q} kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bound {bms:.4f} ms (bytes), "
-            f"{bms / ms:.1%} of bound")
-        del x, y, y2, want_y, cnt, cnt2, want_cnt, y_s, cnt_s
+        log(f"[kernel] bottomup {mode}: Q={Q} op {ms:.4f} ms (its own "
+            f"query-minor copy of x; given the engine's view {view_ms:.4f} "
+            f"ms, the copy alone {copy_ms:.4f} ms), plain {plain_ms:.4f} "
+            f"ms, bound {bms:.4f} ms (bytes), {bms / ms:.1%} of bound; row "
+            f"plan {rows.blocks.shape[0]} blocks, {rows.long_rows.shape[0]} "
+            f"long rows in {rows.num_partials} chunks")
+        del x, xq, y, y2, want_y, cnt, cnt2, want_cnt, y_s, cnt_s, y_v, cnt_v
     torch.cuda.empty_cache()
 
     # the hybrid kernels at the planner's split of RMAT20, Q=8
@@ -1482,9 +1507,17 @@ def main() -> int:
         w = (torch.as_tensor(b_w, device=dev) if wop is not None else None)
         x = ell_inputs(semiring, shd.n_max, rng, dev)
         kw = dict(num_slots=shd.num_slots, combine=combine, weight_op=wop)
+        # the engine's one query-minor copy of x per superstep
+        xq = kell.query_minor_view(x, SEMIRINGS[semiring][1])
 
-        def kern(x=x, src=src, flat=flat, w=w, kw=kw):
+        def kern(x=x, src=src, flat=flat, w=w, kw=kw):  # its own copy
             return outbox_reduce_op(x, src, flat, w, **kw)
+
+        def on_view(xq=xq, src=src, flat=flat, w=w, kw=kw):
+            return outbox_reduce_op(xq, src, flat, w, **kw)
+
+        def copy(x=x, fill=SEMIRINGS[semiring][1]):
+            return kell.query_minor(x, fill)
 
         def plain(x=x, src=src, flat=flat, w=w, kw=kw):
             return outbox_reduce_ref(x, src, flat, w, **kw)
@@ -1505,8 +1538,9 @@ def main() -> int:
                   f"({depth} roundings) of float64; max rel err kernel "
                   f"{max_rel_err(got.cpu(), exact.cpu()):.3e}, plain f32 "
                   f"{max_rel_err(want.cpu(), exact.cpu()):.3e}")
-        check(torch.equal(got, again), f"[shard] outbox_reduce {name}: two "
-              f"launches bit-equal")
+        check(torch.equal(got, again) and torch.equal(got, on_view()),
+              f"[shard] outbox_reduce {name}: two launches bit-equal, on x "
+              f"and on the engine's query-minor view")
         if combine == "min":
             # the vote's work count of the boundary leg: the engine weighs
             # each live vertex by its boundary out-degree instead of
@@ -1527,6 +1561,7 @@ def main() -> int:
                   f"gather {cuda_ms(by_edge, 20):.4f} ms")
             del b_deg
         ms, plain_ms = cuda_ms(kern, 20), cuda_ms(plain, 5)
+        view_ms, copy_ms = cuda_ms(on_view, 20), cuda_ms(copy, 20)
         lib_ms = None
         if combine == "sum":
             # the same function as one library call: a CSR matrix
@@ -1548,12 +1583,14 @@ def main() -> int:
         shard_rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
                                 library_ms=lib_ms)
         log(f"[shard] outbox_reduce {name}: Q={Q} edges={len(b_src)} slots="
-            f"{shd.num_slots} used={len(np.unique(b_flat))} kernel {ms:.4f}"
-            f" ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms (bytes), "
+            f"{shd.num_slots} used={len(np.unique(b_flat))} op {ms:.4f} ms "
+            f"(its own query-minor copy of x; given the engine's view "
+            f"{view_ms:.4f} ms, the copy alone {copy_ms:.4f} ms), plain "
+            f"{plain_ms:.4f} ms, bound {bms:.4f} ms (bytes), "
             f"{bms / ms:.1%} of bound"
             + ("" if lib_ms is None else
                f", torch.sparse.mm (CSR) {lib_ms:.4f} ms"))
-        del x, got, again, want, src, flat, w
+        del x, xq, got, again, want, src, flat, w
     torch.cuda.empty_cache()
 
     # the sharded hybrid through the entry points

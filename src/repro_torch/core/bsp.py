@@ -65,6 +65,7 @@ from repro_torch.core.partition import (BlockMetadata, EdgeArrays,
 from repro_torch.core.perf_model import fit_shard_pull_thresholds
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.distributed import ShardGroup
+from repro_torch.kernels.ell_spmv import EllPlan, query_minor_view, row_plan
 from repro_torch.kernels.fused_superstep import stack_query_minor
 from repro_torch.kernels.ops import (bottomup_scan_op, fused_superstep_op,
                                      outbox_reduce_op)
@@ -254,6 +255,7 @@ class _PullLayout:
     row_ptr: torch.Tensor          # [Pl * v_max + 1] int32
     col: torch.Tensor              # [nnz] int32 flat source index
     val: Optional[torch.Tensor]    # [nnz] f32 (min_plus) or None
+    plan: EllPlan                  # the scan kernel's row plan of row_ptr
     vmask: torch.Tensor            # [Pl, v_max] bool real vertices
     nreal: float                   # real vertices (>= 1)
     deg: torch.Tensor              # [Pl, v_max] int64 out-degree
@@ -303,8 +305,9 @@ def _compute_pull(dims: _Dims, cfg: _DoptCfg, pull: _PullLayout,
                   compute_push: Callable, state: State, xv: torch.Tensor,
                   first: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pull compute: the boundary leg pushes (its messages ride the outbox
-    either way), the local region comes from the bottom-up scan.  Returns
-    the accumulator and each query's scanned slots."""
+    either way), the local region comes from the bottom-up scan, which
+    reads the messages from one query-minor copy.  Returns the accumulator
+    and each query's scanned slots."""
     q, pl, v_max = xv.shape
     if pull.bnd_edges is not None:
         # intra edges masked out: outbox slots bit-equal to the full push's,
@@ -317,9 +320,10 @@ def _compute_pull(dims: _Dims, cfg: _DoptCfg, pull: _PullLayout,
     # sequential bottom-up pass skips it: it charges no scanned slots.
     skip = (first != math.inf).reshape(q, pl * v_max) if cfg.uniform else None
     val = pull.val if cfg.semiring == "min_plus" else None
+    xq = query_minor_view(xv.reshape(q, pl * v_max), math.inf)
     y, scanned = bottomup_scan_op(
-        pull.row_ptr, pull.col, val, xv.reshape(q, pl * v_max),
-        semiring=cfg.semiring, early_exit=cfg.uniform, skip=skip)
+        pull.row_ptr, pull.col, val, xq, semiring=cfg.semiring,
+        early_exit=cfg.uniform, skip=skip, plan=pull.plan)
     acc[:, :, :v_max] = torch.minimum(acc[:, :, :v_max],
                                       y.view(q, pl, v_max))
     return acc, scanned.sum(1, dtype=torch.int64)
@@ -455,10 +459,14 @@ def _hybrid_messages(program: VertexProgram, arrs: dict, state: State,
 
 def _hybrid_directed(cfg: _HybridCfg, arrs: dict, x: torch.Tensor,
                      first: torch.Tensor, dopt: Optional[dict],
-                     vmask: Optional[torch.Tensor] = None
+                     vmask: Optional[torch.Tensor] = None,
+                     xq: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
                                 Optional[torch.Tensor]]:
-    """The two-engine step over ``x [Q, n]``: ``(y, want, cnt)``.
+    """The two-engine step over ``x [Q, n]``: ``(y, want, cnt)``.  The
+    kernel ops read ``xq``, the superstep's one query-minor copy of ``x``
+    (``ell_spmv.query_minor_view``), made here when a kernel op runs and
+    the caller has none; the vote and the push read ``x``.
 
     Without direction leaves (``dopt`` None) it is the pull SpMV.  For min
     programs each query votes push (gather + segment min over the push
@@ -468,11 +476,13 @@ def _hybrid_directed(cfg: _HybridCfg, arrs: dict, x: torch.Tensor,
     has padding, which must hold the identity); ``cnt`` is each query's
     work-model charge.
     """
-    if dopt is None:
-        return hybrid_spmv(arrs["dense"], arrs["row_ptr"], arrs["col"],
-                           arrs["val"], x, semiring=cfg.semiring,
-                           k_dense=cfg.k_dense, plan=arrs["plan"]), None, None
     ident = add_identity(cfg.semiring)
+    if dopt is None:
+        if xq is None:
+            xq = query_minor_view(x, ident)
+        return hybrid_spmv(arrs["dense"], arrs["row_ptr"], arrs["col"],
+                           arrs["val"], xq, semiring=cfg.semiring,
+                           k_dense=cfg.k_dense, plan=arrs["plan"]), None, None
     nf = float(max(cfg.num_vertices, 1))
     density = (x != ident).sum(1, dtype=torch.float32) / nf
     unvisited = first == ident
@@ -492,9 +502,11 @@ def _hybrid_directed(cfg: _HybridCfg, arrs: dict, x: torch.Tensor,
         # Under the uniform licence a row already holding a value is
         # final: a sequential bottom-up pass skips it.
         skip = (first != ident) if cfg.uniform else None
+        if xq is None:
+            xq = query_minor_view(x, ident)
         y_pull, scanned = hybrid_spmv_scan(
-            arrs["dense"], arrs["row_ptr"], arrs["col"], arrs["val"], x,
-            semiring=cfg.semiring, k_dense=cfg.k_dense,
+            arrs["dense"], arrs["row_ptr"], arrs["col"], arrs["val"], xq,
+            semiring=cfg.semiring, k_dense=cfg.k_dense, plan=arrs["plan"],
             early_exit=cfg.uniform, skip=skip)
         cnt_pull = scanned + cfg.e_dense
     if picked == {_DIR_PUSH}:
@@ -580,8 +592,9 @@ def _superstep_hybrid_dist(program: VertexProgram, cfg: _ShardCfg,
     vals, x = _hybrid_messages(program, arrs, state, step)    # [Q, n_max]
     x = torch.where(arrs["vmask"], x, ident)    # pad ids never contribute
     q = x.shape[0]
+    xq = query_minor_view(x, ident)   # one copy for the SpMV and the outbox
     y, want, cnt = _hybrid_directed(cfg, arrs, x, vals[spec.gather[0]],
-                                    dopt, vmask=arrs["vmask"])
+                                    dopt, vmask=arrs["vmask"], xq=xq)
     y_ext = torch.cat([y, torch.full((q, 1), ident, dtype=y.dtype,
                                      device=y.device)], dim=1)
     acc = y_ext[:, arrs["hid"]]                          # [Q, pl, v_max]
@@ -594,7 +607,7 @@ def _superstep_hybrid_dist(program: VertexProgram, cfg: _ShardCfg,
                 # live vertex's count of boundary out-edges)
                 cnt = cnt + torch.where(x != ident, arrs["b_deg"], 0).sum(1)
             outbox = outbox_reduce_op(
-                x, arrs["b_src"], arrs["b_flat"], arrs.get("b_weight"),
+                xq, arrs["b_src"], arrs["b_flat"], arrs.get("b_weight"),
                 num_slots=cfg.num_slots, combine=cfg.combine,
                 weight_op=cfg.weight_op)                 # [Q, num_slots]
         else:   # this shard has no boundary edge
@@ -845,11 +858,13 @@ class BSPEngine:
                     torch.int32)
 
         put = self._put
+        row_ptr = tc.row_ptr[r0:r1 + 1] - s0
         return _PullLayout(
-            row_ptr=put(tc.row_ptr[r0:r1 + 1] - s0, torch.int32),
+            row_ptr=put(row_ptr, torch.int32),
             col=put(tc.col[s0:s1] - r0, torch.int32),
             val=(put(tc.val[s0:s1], torch.float32) if tc.val is not None
                  else None),
+            plan=row_plan(row_ptr).to(self.device),
             vmask=put(vmask, torch.bool),
             nreal=float(max(int(vmask.sum()), 1)),
             deg=put(deg, torch.int64), bnd=put(tc.deg_bnd[lo:hi], torch.int64),

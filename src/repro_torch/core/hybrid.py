@@ -717,22 +717,23 @@ def hybrid_spmv(dense: torch.Tensor, row_ptr: torch.Tensor,
 def hybrid_spmv_scan(dense: torch.Tensor, row_ptr: torch.Tensor,
                      col: torch.Tensor, val: Optional[torch.Tensor],
                      x: torch.Tensor, *, semiring: str, k_dense: int,
-                     early_exit: bool = False,
+                     plan: Optional[EllPlan] = None, early_exit: bool = False,
                      skip: Optional[torch.Tensor] = None):
     """``hybrid_spmv`` with the bottom-up scan kernel on the sparse stage,
     for the min semirings.  The remainder's CSR rows are exactly the scan's
-    input.  Returns ``(y, scanned)``: ``y`` equals ``hybrid_spmv``'s (a min
-    is exact), ``scanned [Q]`` sums the per-row early-exit work model (the
-    slots a sequential bottom-up scan examines).  ``skip [Q, n]`` marks
-    rows whose value is already final under the uniform-frontier licence;
-    they charge no scanned slots.
+    input, and ``plan`` their row plan, as for ``hybrid_spmv``.  Returns
+    ``(y, scanned)``: ``y`` equals ``hybrid_spmv``'s (a min is exact),
+    ``scanned [Q]`` sums the per-row early-exit work model (the slots a
+    sequential bottom-up scan examines).  ``skip [Q, n]`` marks rows whose
+    value is already final under the uniform-frontier licence; they charge
+    no scanned slots.
     """
     squeeze = x.dim() == 1
     if squeeze:
         x = x[None]
     y, scanned = bottomup_scan_op(
         row_ptr, col, val if semiring == MIN_PLUS else None, x,
-        semiring=semiring, early_exit=early_exit, skip=skip)
+        semiring=semiring, early_exit=early_exit, skip=skip, plan=plan)
     if k_dense:
         y[:, :k_dense] = torch.minimum(
             y[:, :k_dense], dense_spmv_minplus_op(x[:, :k_dense], dense))

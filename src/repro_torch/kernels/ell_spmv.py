@@ -13,8 +13,10 @@ split from ``row_ptr`` and kept beside it: runs of consecutive rows that
 fit ``BUDGET`` slots, staged whole into shared memory, and chunks of
 ``BUDGET`` slots of each longer row, whose partials a second pass adds in
 order.  ``x`` is read query-minor (:func:`query_minor`), so one slot's
-queries share one memory sector.  It is bound by bytes on the card (see the
-note in the source).
+queries share one memory sector; the engines copy ``x`` there once per
+superstep (:func:`query_minor_view`) for every kernel op that reads it.
+The bottom-up scan (``kernels/bottomup.py``) walks the same plan.  It is
+bound by bytes on the card (see the note in the source).
 
 This module builds nothing when imported; the library is built at the first
 launch (or by ``_build.build_all``), and only CUDA tensors reach it: the CPU
@@ -141,9 +143,26 @@ def row_plan(row_ptr: Array) -> EllPlan:
                    parts, v, int(rp[-1]))
 
 
+def query_minor_base(x: torch.Tensor) -> Optional[torch.Tensor]:
+    """The ``[x_len, Qp]`` f32 buffer behind ``x`` when ``x`` is the
+    ``[Q, x_len]`` view :func:`query_minor_view` returns, else None."""
+    q, n = x.shape
+    qp = -(-q // QUERY_ALIGN) * QUERY_ALIGN
+    if x.dtype != torch.float32 or q == 0 or x.stride() != (1, qp):
+        return None
+    if x.untyped_storage().nbytes() < (x.storage_offset() + n * qp) * 4:
+        return None
+    return x.as_strided((n, qp), (qp, 1))
+
+
 def query_minor(x: torch.Tensor, fill: float) -> torch.Tensor:
     """``x [Q, x_len]`` as ``[x_len, Qp]``, Qp = Q rounded up to a multiple
-    of ``QUERY_ALIGN``, the padding ``fill`` (the ⊕-identity)."""
+    of ``QUERY_ALIGN``, the padding ``fill`` (the ⊕-identity): one copy, or
+    none when ``x`` is already a view of such a buffer
+    (:func:`query_minor_view`)."""
+    base = query_minor_base(x)
+    if base is not None:
+        return base
     q, n = x.shape
     qp = -(-q // QUERY_ALIGN) * QUERY_ALIGN
     xt = torch.empty((n, qp), dtype=x.dtype, device=x.device)
@@ -151,6 +170,16 @@ def query_minor(x: torch.Tensor, fill: float) -> torch.Tensor:
     if qp > q:
         xt[:, q:] = fill
     return xt
+
+
+def query_minor_view(x: torch.Tensor, fill: float) -> torch.Tensor:
+    """``x [Q, x_len]`` copied once into a query-minor f32 buffer
+    ``[x_len, Qp]`` (padding ``fill``) and returned as the ``[Q, x_len]``
+    view of it.  The kernel ops (``ell_spmv_op``, ``bottomup_scan_op``,
+    ``outbox_reduce_op``) hand that buffer to their kernels without another
+    copy, so a superstep whose ops read one ``x`` copies it once; the plain
+    versions read the view like any tensor."""
+    return query_minor(x.float(), fill)[:, :x.shape[0]].t()
 
 
 def _library() -> ctypes.CDLL:

@@ -24,8 +24,8 @@ from repro_torch.kernels.outbox_reduce import WEIGHT_OPS, outbox_reduce
 from repro_torch.kernels.ref import (MIN, SEMIRINGS, SUM, bottomup_scan_ref,
                                      dense_spmv_minplus_ref, dense_spmv_ref,
                                      ell_spmv_ref, flash_attention_ref,
-                                     fused_superstep_ref, outbox_reduce_ref,
-                                     segment_reduce_ref)
+                                     fused_superstep_ref, identity,
+                                     outbox_reduce_ref, segment_reduce_ref)
 from repro_torch.kernels.segment_reduce import segment_reduce
 
 _COMBINE_ALIAS = {"sum": "plus_times", "min": "min_plus"}
@@ -78,7 +78,8 @@ def fused_superstep_op(msg, vstate: torch.Tensor,
 def bottomup_scan_op(row_ptr: torch.Tensor, col: torch.Tensor,
                      val: Optional[torch.Tensor], x: torch.Tensor, *,
                      semiring: str, early_exit: bool = False,
-                     skip: Optional[torch.Tensor] = None
+                     skip: Optional[torch.Tensor] = None,
+                     plan: Optional[EllPlan] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Bottom-up pull scan: ``(y [Q, V], scanned [Q, V] int32)``.
 
@@ -90,12 +91,18 @@ def bottomup_scan_op(row_ptr: torch.Tensor, col: torch.Tensor,
     slots up to the first live parent with ``early_exit``, else the row
     length.  ``early_exit`` is the caller's licence that every live message
     of a query holds one value (``EdgeMessage.frontier_uniform``): the
-    kernel then stops each row at its first live slot, whose value is the
-    minimum.  It needs the ``min`` semiring.
+    kernel then stops each row once every query has a live slot among those
+    read, whose value is the minimum.  It needs the ``min`` semiring.
 
     ``skip [Q, V]`` bool (with ``early_exit``) marks rows whose value is
     already final: a sequential bottom-up pass visits only unvisited rows,
     so they charge zero scanned slots.  ``y`` still covers them.
+
+    ``plan`` is the kernel's row plan of ``row_ptr`` (``ell_spmv.row_plan``
+    as tensors on ``x``'s device; a plan of other rows raises); the engines
+    keep one, and a direct call without it has it built here.  The kernel
+    reads ``x`` query-minor: the op copies it there, or passes the buffer
+    on when ``x`` is an ``ell_spmv.query_minor_view``.
 
     The JAX contract's ELL ``col [V, kmax]``/``kreal``, its sink column in
     ``x`` and ``block_v``/``interpret`` are TPU layout; CSR rows need none
@@ -109,13 +116,19 @@ def bottomup_scan_op(row_ptr: torch.Tensor, col: torch.Tensor,
                          "with frontier-uniform messages")
     if (val is not None) != (semiring == "min_plus"):
         raise ValueError("val is needed for min_plus and only there")
+    if plan is not None:
+        plan.check(row_ptr, col)
     if x.device.type == "cpu":
         y, scanned = bottomup_scan_ref(row_ptr, col, val, x,
                                        semiring=semiring,
                                        early_exit=early_exit)
     else:
-        y, scanned = bottomup_scan(row_ptr, col, val, x.contiguous(),
-                                   semiring=semiring, early_exit=early_exit)
+        if plan is None:
+            plan = row_plan(row_ptr).to(x.device)
+        y, scanned = bottomup_scan(row_ptr, col, val,
+                                   query_minor(x, math.inf), plan,
+                                   semiring=semiring, num_queries=x.shape[0],
+                                   early_exit=early_exit)
     if skip is not None and early_exit:
         scanned = torch.where(skip, torch.zeros_like(scanned), scanned)
     return y, scanned
@@ -135,7 +148,9 @@ def ell_spmv_op(row_ptr: torch.Tensor, col: torch.Tensor,
     plan of other rows raises); the hybrid split keeps one, and a direct
     call without it has it built here (one read of ``row_ptr`` to the
     host).  The kernel reads ``x`` query-minor, so the op moves it there
-    (a copy).  The JAX contract's ELL block, its sink column in ``x``,
+    (a copy), or passes the buffer on when ``x`` is an
+    ``ell_spmv.query_minor_view``.  The JAX contract's ELL block, its sink
+    column in ``x``,
     ``block_v`` and ``interpret`` are TPU layout; CSR rows need none of
     them.
     """
@@ -184,7 +199,9 @@ def outbox_reduce_op(x: torch.Tensor, src: torch.Tensor, flat: torch.Tensor,
     Returns the ``[Q, num_slots]`` outboxes, the ⊕-identity in unused
     slots.
 
-    The JAX contract's ``local``/``mask``/``base`` block arrays, ``span``,
+    The kernel reads ``x`` query-minor: the op copies it there, or passes
+    the buffer on when ``x`` is an ``ell_spmv.query_minor_view``.  The JAX
+    contract's ``local``/``mask``/``base`` block arrays, ``span``,
     ``max_span``, ``block_e``, ``gather_chunk`` and ``interpret`` are TPU
     geometry: the Hopper kernel reads the flat ids and has no span bound,
     so none of them exists here and nothing falls back.
@@ -200,10 +217,10 @@ def outbox_reduce_op(x: torch.Tensor, src: torch.Tensor, flat: torch.Tensor,
     if x.device.type == "cpu":
         return outbox_reduce_ref(x, src, flat, weight, num_slots=num_slots,
                                  combine=combine, weight_op=weight_op)
-    return outbox_reduce(x.contiguous(), src, flat,
+    return outbox_reduce(query_minor(x, identity(combine)), src, flat,
                          weight if weight_op is not None else None,
                          num_slots=num_slots, combine=combine,
-                         weight_op=weight_op)
+                         num_queries=x.shape[0], weight_op=weight_op)
 
 
 def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -8,8 +8,10 @@ gathers ``x[q, src]`` for every boundary edge, applies the weight inline
 (``add``, ``mul`` or none) and reduces the messages into the outbox slots
 ``out[q, flat]`` (sum or min), the edges sorted by flat slot id.  It
 reduces runs of equal ids as the fused superstep kernel does, so it has no
-span bound and no fallback.  It is bound by bytes on the card (see the note
-in the source).
+span bound and no fallback.  It reads ``x`` query-minor (``[x_len, Qp]``,
+``ell_spmv.query_minor``), so one edge's queries arrive in one or two
+16-byte loads, and it carries groups of 8 queries through one pass over the
+edges.  It is bound by bytes on the card (see the note in the source).
 
 This module builds nothing when imported.  The library is built at the
 first launch (or by ``_build.build_all``), and only CUDA tensors reach it:
@@ -23,13 +25,15 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.ell_spmv import QUERY_ALIGN
 from repro_torch.kernels.ref import MIN, SUM, identity
 
 SOURCE = "outbox_reduce"
 
 WEIGHT_OPS = {None: 0, "add": 1, "mul": 2}
 # Edges per thread block (8 per thread): one block stages them once for all
-# Q queries.
+# Q queries.  The sums' rounding depth depends on it (chip_smoke.py's
+# outbox_sum_depth).
 BLOCK_E = 1024
 
 _P = ctypes.c_void_p
@@ -40,25 +44,28 @@ _L = ctypes.c_longlong
 def _library() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     fn = lib.outbox_reduce_launch
-    fn.argtypes = [_I, _I] + [_P] * 7 + [_I, _L, _L, _I, _I, _I, _P]
+    fn.argtypes = [_I, _I] + [_P] * 7 + [_I, _I, _L, _I, _I, _I, _P]
     fn.restype = _I
     lib.outbox_reduce_error_string.argtypes = [_I]
     lib.outbox_reduce_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def outbox_reduce(x: torch.Tensor, src: torch.Tensor, flat: torch.Tensor,
+def outbox_reduce(xt: torch.Tensor, src: torch.Tensor, flat: torch.Tensor,
                   weight: Optional[torch.Tensor], *, num_slots: int,
-                  combine: str, weight_op: Optional[str] = None
-                  ) -> torch.Tensor:
-    """Launch the kernel; returns the outboxes ``[Q, num_slots]`` f32, the
-    combine identity in every slot no edge reaches.
+                  combine: str, num_queries: int,
+                  weight_op: Optional[str] = None) -> torch.Tensor:
+    """Launch the kernel; returns the outboxes ``[Q, num_slots]`` f32,
+    ``Q = num_queries``, the combine identity in every slot no edge
+    reaches.
 
-    ``x`` f32 ``[Q, x_len]``; ``src`` int32 ``[E]`` indices into its last
-    axis; ``flat`` int32 ``[E]`` slot ids, non-decreasing and below
-    ``num_slots``; ``weight`` f32 ``[E]`` (read only with a ``weight_op``);
-    all on one CUDA device and contiguous.  Raises on anything the kernel
-    does not take.
+    ``xt`` f32 ``[x_len, Qp]`` is the messages query-minor
+    (``ell_spmv.query_minor``; Qp a multiple of 4, at least Q, 16-byte
+    aligned); ``src`` int32 ``[E]`` indices into its first axis; ``flat``
+    int32 ``[E]`` slot ids, non-decreasing and below ``num_slots``;
+    ``weight`` f32 ``[E]`` (read only with a ``weight_op``); all on one
+    CUDA device and contiguous.  Raises on anything the kernel does not
+    take, before it launches: the shapes and types first, then the device.
     """
     if combine not in (SUM, MIN):
         raise ValueError(f"combine must be {SUM!r} or {MIN!r}, got "
@@ -66,12 +73,13 @@ def outbox_reduce(x: torch.Tensor, src: torch.Tensor, flat: torch.Tensor,
     if weight_op not in WEIGHT_OPS:
         raise ValueError(f"weight_op must be None, 'add' or 'mul', got "
                          f"{weight_op!r}")
-    dev = x.device
-    if dev.type != "cuda":
-        raise ValueError(f"x must be a CUDA tensor, got {dev}")
-    if x.dim() != 2:
-        raise ValueError(f"x must be [Q, x_len], got shape {tuple(x.shape)}")
-    _build.check_tensor("x", x, torch.float32, dev)
+    dev = xt.device
+    if xt.dim() != 2 or xt.shape[1] % QUERY_ALIGN != 0 or not (
+            0 <= num_queries <= xt.shape[1]):
+        raise ValueError(f"xt must be [x_len, Qp] with Qp a multiple of "
+                         f"{QUERY_ALIGN} holding {num_queries} queries, got "
+                         f"shape {tuple(xt.shape)}")
+    _build.check_tensor("xt", xt, torch.float32, dev)
     _build.check_tensor("src", src, torch.int32, dev)
     _build.check_tensor("flat", flat, torch.int32, dev)
     e = src.shape[0]
@@ -85,25 +93,28 @@ def outbox_reduce(x: torch.Tensor, src: torch.Tensor, flat: torch.Tensor,
         if weight.shape != src.shape:
             raise ValueError(f"weight {tuple(weight.shape)} and src "
                              f"{tuple(src.shape)} differ")
-    q, x_len = x.shape
-    if q > 65535:
-        raise ValueError(f"Q={q} exceeds the merge grid (65535)")
+    if dev.type != "cuda":
+        raise ValueError(f"xt must be a CUDA tensor, got {dev}")
+    if xt.data_ptr() % 16:
+        raise ValueError("xt must be 16-byte aligned (the kernel loads "
+                         "float4)")
+    q, qp = num_queries, xt.shape[1]
     out = torch.full((q, num_slots), identity(combine), dtype=torch.float32,
                      device=dev)
     if e == 0 or q == 0:
         return out
     nb = -(-e // BLOCK_E)
-    part_id = torch.empty((q, nb, 2), dtype=torch.int32, device=dev)
+    part_id = torch.empty((nb, 2), dtype=torch.int32, device=dev)
     part_val = torch.empty((q, nb, 2), dtype=torch.float32, device=dev)
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.outbox_reduce_launch(
-            int(combine == MIN), WEIGHT_OPS[weight_op], x.data_ptr(),
+            int(combine == MIN), WEIGHT_OPS[weight_op], xt.data_ptr(),
             src.data_ptr(), flat.data_ptr(),
             weight.data_ptr() if weight_op is not None else None,
-            out.data_ptr(), part_id.data_ptr(), part_val.data_ptr(), q,
-            x_len, e, nb, BLOCK_E, num_slots, stream)
+            out.data_ptr(), part_id.data_ptr(), part_val.data_ptr(), q, qp,
+            e, nb, BLOCK_E, num_slots, stream)
     if rc != 0:
         raise RuntimeError("outbox_reduce launch failed: "
                            + lib.outbox_reduce_error_string(rc).decode())

@@ -49,7 +49,8 @@ def test_every_module_imports_without_jax_or_repro():
 
 def test_sources_name_neither_jax_nor_repro():
     files = list((SRC / "repro_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py"]
+        ROOT / "chip_smoke.py"] + sorted(
+        (ROOT / "scripts").glob("*_ablation.py"))
     for path in files:
         for line in path.read_text().splitlines():
             words = line.split()

@@ -147,17 +147,52 @@ def scan_inputs(semiring, early_exit, q, rng, *, v=600, x_len=500):
 
 
 def port_scan(row_ptr, col, val, x, skip, semiring, early_exit,
-              device="cpu"):
-    """The port's ``bottomup_scan_op`` on numpy inputs, as numpy."""
+              device="cpu", view=False):
+    """The port's ``bottomup_scan_op`` on numpy inputs, as numpy; ``view``
+    hands it ``x`` as a query-minor view (``ell_spmv.query_minor_view``),
+    as the engines do."""
     def put(a, dtype):
         return (None if a is None else torch.as_tensor(
             np.ascontiguousarray(a), dtype=dtype, device=device))
 
+    xs = put(x, torch.float32)
+    if view:
+        xs = kell.query_minor_view(xs, math.inf)
     y, scanned = tops.bottomup_scan_op(
         put(row_ptr, torch.int32), put(col, torch.int32),
-        put(val, torch.float32), put(x, torch.float32), semiring=semiring,
+        put(val, torch.float32), xs, semiring=semiring,
         early_exit=early_exit, skip=put(skip, torch.bool))
     return y.cpu().numpy(), scanned.cpu().numpy()
+
+
+def long_row_inputs(semiring, early_exit, q, rng, x_len=700):
+    """CSR rows longer than the kernel's chunk (``ell_spmv.BUDGET``
+    slots) beside empty and short rows: a 5000-slot row whose sources are
+    dead (+inf for every query) for its first 3000 slots, so the first hit
+    lies in its second chunk; a 2049-slot row live only in its last slot;
+    a 4100-slot row with no live slot; empty rows between them.  Messages
+    and skip as in ``scan_inputs``."""
+    dead = np.arange(x_len // 2, dtype=np.int32)            # +inf sources
+    livec = np.arange(x_len // 2, x_len, dtype=np.int32)
+    rows = [rng.choice(dead, 3000), rng.choice(livec, 2000), [], [],
+            rng.choice(dead, 2048), rng.choice(livec, 1), [],
+            rng.choice(dead, 4100), rng.integers(0, x_len, 7), []]
+    rows = [np.concatenate(rows[:2]), rows[2], rows[3],
+            np.concatenate(rows[4:6]), rows[6], rows[7], rows[8], rows[9]]
+    lengths = [len(r) for r in rows]
+    row_ptr = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32)
+    col = np.concatenate(rows).astype(np.int32)
+    val = (rng.uniform(0.5, 2.0, size=col.shape).astype(np.float32)
+           if semiring == "min_plus" else None)
+    if early_exit:
+        live = rng.random((q, x_len)) < rng.choice([0.05, 0.5, 1.0], (q, 1))
+        x = np.where(live, 3.0, np.inf).astype(np.float32)
+    else:
+        x = rng.uniform(0, 100, (q, x_len)).astype(np.float32)
+        x[rng.random((q, x_len)) < 0.2] = np.inf
+    x[:, dead] = np.inf
+    skip = rng.random((q, len(rows))) < 0.3
+    return row_ptr, col, val, x, skip
 
 
 def assert_parity(combine, got, want):
@@ -260,20 +295,55 @@ def test_engine_fused_matches_reference_on_card(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("semiring,early_exit,skip", SCAN_MODES)
-@pytest.mark.parametrize("q", [1, 5])
+@pytest.mark.parametrize("q", [1, 3, 5, 8, 13])
 def test_bottomup_kernel_matches_plain_on_card(cuda, semiring, early_exit,
                                                skip, q):
+    """Bit for bit against the plain version, with ``x`` copied by the op
+    and given as a query-minor view; two launches bit-equal."""
     rng = np.random.default_rng(q)
     row_ptr, col, val, x, skip_mask = scan_inputs(semiring, early_exit, q,
                                                   rng)
     skip_mask = skip_mask if skip else None
+    args = (row_ptr, col, val, x, skip_mask, semiring, early_exit)
     before = kbu.bottomup_scan.launches
-    got = port_scan(row_ptr, col, val, x, skip_mask, semiring, early_exit,
-                    cuda)
-    assert kbu.bottomup_scan.launches == before + 1
-    want = port_scan(row_ptr, col, val, x, skip_mask, semiring, early_exit)
-    np.testing.assert_array_equal(got[0], want[0])
-    np.testing.assert_array_equal(got[1], want[1])
+    got = port_scan(*args, cuda)
+    again = port_scan(*args, cuda, view=True)
+    torch.cuda.synchronize()
+    assert kbu.bottomup_scan.launches == before + 2
+    want = port_scan(*args)
+    for a, b in zip(got + again, want + want):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("semiring,early_exit", [
+    ("min", False), ("min", True), ("min_plus", False)])
+@pytest.mark.parametrize("q", [1, 3, 8, 13])
+def test_bottomup_kernel_on_rows_longer_than_a_chunk_on_card(
+        cuda, semiring, early_exit, q):
+    """Rows cut into several chunks by the row plan, the first hit in a
+    later chunk, rows with no live slot, empty rows: bit for bit with the
+    plain version, two launches bit-equal, one launch each."""
+    rng = np.random.default_rng(100 + q)
+    row_ptr, col, val, x, skip = long_row_inputs(semiring, early_exit, q,
+                                                 rng)
+    plan = kell.row_plan(row_ptr)
+    assert plan.long_rows.shape[0] == 3 and plan.num_partials == 3 + 2 + 3
+    args = (row_ptr, col, val, x, skip if early_exit else None, semiring,
+            early_exit)
+    before = kbu.bottomup_scan.launches
+    got, again = port_scan(*args, cuda), port_scan(*args, cuda, view=True)
+    torch.cuda.synchronize()
+    assert kbu.bottomup_scan.launches == before + 2
+    want = port_scan(*args)
+    for a, b in zip(got + again, want + want):
+        np.testing.assert_array_equal(a, b)
+    if early_exit:   # a hit in the second chunk counts the whole first
+        first_live = np.argmax(np.isfinite(x[:, col[:5000]]), axis=1)
+        hit = np.isfinite(x[:, col[:5000]]).any(axis=1)
+        np.testing.assert_array_equal(
+            want[1][:, 0], np.where(skip[:, 0], 0,
+                                    np.where(hit, first_live + 1, 5000)))
 
 
 @pytest.mark.gpu
@@ -509,17 +579,22 @@ def outbox_sum_depth(flat, block_e=kob.BLOCK_E):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("combine,weight_op", OUTBOX_MODES)
-@pytest.mark.parametrize("q,e", [(1, 6001), (3, 20480), (8, 37777)])
+@pytest.mark.parametrize("q,e", [(1, 6001), (3, 20480), (8, 37777),
+                                 (13, 30001)])
 def test_outbox_kernel_matches_plain_on_card(cuda, combine, weight_op, q, e):
+    """Bit for bit against the plain version (dyadic sums are exact), with
+    ``x`` copied by the op and given as a query-minor view; two launches
+    bit-equal."""
     rng = np.random.default_rng(e + q)
     num_slots, x_len = 4000, 3001
     src, flat, x, w, dead = outbox_inputs(e, num_slots, q, x_len, combine,
                                           rng)
     args = [torch.as_tensor(a, device=cuda) for a in (x, src, flat, w)]
     kw = dict(num_slots=num_slots, combine=combine, weight_op=weight_op)
+    xq = kell.query_minor_view(args[0], tref.identity(combine))
     before = kob.outbox_reduce.launches
     got = tops.outbox_reduce_op(*args, **kw)
-    again = tops.outbox_reduce_op(*args, **kw)
+    again = tops.outbox_reduce_op(xq, *args[1:], **kw)
     want = tref.outbox_reduce_ref(*args, **kw)
     torch.cuda.synchronize()
     assert kob.outbox_reduce.launches == before + 2
@@ -549,22 +624,54 @@ def test_outbox_kernel_sums_within_f32_bound_on_card(cuda, weight_op):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("combine", ["sum", "min"])
+def test_outbox_kernel_one_slot_over_many_blocks_on_card(cuda, combine):
+    """One slot's run covering three whole edge blocks and the ends of two
+    more, a slot filling exactly one block, Q=13 (two query groups, the
+    second ragged): bit for bit with the plain version (dyadic messages),
+    two launches bit-equal."""
+    be = kob.BLOCK_E
+    flat = np.concatenate([np.full(be - 100, 3), np.full(3 * be + 200, 9),
+                           np.full(be - 100, 11), np.full(be, 12),
+                           np.arange(20, 20 + 333)]).astype(np.int32)
+    rng = np.random.default_rng(5)
+    x_len = 500
+    src = rng.integers(0, x_len, len(flat)).astype(np.int32)
+    x = (rng.integers(0, 64, (13, x_len)) * 2.0 ** -10).astype(np.float32)
+    x, src_t, flat_t = (torch.as_tensor(a, device=cuda)
+                        for a in (x, src, flat))
+    kw = dict(num_slots=400, combine=combine)
+    before = kob.outbox_reduce.launches
+    got = tops.outbox_reduce_op(x, src_t, flat_t, None, **kw)
+    again = tops.outbox_reduce_op(x, src_t, flat_t, None, **kw)
+    torch.cuda.synchronize()
+    assert kob.outbox_reduce.launches == before + 2
+    want = tref.outbox_reduce_ref(x, src_t, flat_t, None, **kw)
+    assert torch.equal(got, again) and torch.equal(got, want)
+
+
+@pytest.mark.gpu
 def test_outbox_kernel_refuses_what_it_does_not_take(cuda):
-    x = torch.zeros(2, 10, device=cuda)
+    xt = torch.zeros(10, 4, device=cuda)
     idx = torch.zeros(4, dtype=torch.int32, device=cuda)
+    kw = dict(num_slots=3, num_queries=2)
     with pytest.raises(ValueError, match="int32"):
-        kob.outbox_reduce(x, idx.long(), idx, None, num_slots=3,
-                          combine="sum")
+        kob.outbox_reduce(xt, idx.long(), idx, None, combine="sum", **kw)
     with pytest.raises(ValueError, match="needs weight"):
-        kob.outbox_reduce(x, idx, idx, None, num_slots=3, combine="min",
-                          weight_op="add")
+        kob.outbox_reduce(xt, idx, idx, None, combine="min",
+                          weight_op="add", **kw)
     with pytest.raises(ValueError, match="CUDA"):
-        kob.outbox_reduce(x.cpu(), idx, idx, None, num_slots=3,
-                          combine="sum")
+        kob.outbox_reduce(xt.cpu(), idx.cpu(), idx.cpu(), None,
+                          combine="sum", **kw)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        kob.outbox_reduce(torch.zeros(10, 6, device=cuda), idx, idx, None,
+                          combine="sum", **kw)
+    with pytest.raises(ValueError, match="aligned"):
+        kob.outbox_reduce(torch.zeros(41, device=cuda)[1:].view(10, 4), idx,
+                          idx, None, combine="sum", **kw)
     empty = torch.zeros(0, dtype=torch.int32, device=cuda)
     before = kob.outbox_reduce.launches
-    out = kob.outbox_reduce(x, empty, empty, None, num_slots=3,
-                            combine="min")
+    out = kob.outbox_reduce(xt, empty, empty, None, combine="min", **kw)
     assert bool((out == math.inf).all()) and out.shape == (2, 3)
     assert kob.outbox_reduce.launches == before
 
@@ -768,6 +875,8 @@ def test_cuda_tensors_never_reach_the_plain_versions(cuda, monkeypatch):
 
     for mod, name in ((tops, "flash_attention_ref"),
                       (tops, "segment_reduce_ref"),
+                      (tops, "bottomup_scan_ref"),
+                      (tops, "outbox_reduce_ref"),
                       (tattn, "flash_attention_ref")):
         monkeypatch.setattr(mod, name, refuse)
     q, k, v = attention_inputs(1, 70, 2, 2, 32, "bfloat16", cuda, seed=1)
@@ -779,6 +888,15 @@ def test_cuda_tensors_never_reach_the_plain_versions(cuda, monkeypatch):
                            torch.tensor([0, 0, 1, 3, 3], device=cuda), 4)
     assert kfa.flash_attention.launches == before[0] + 2
     assert ksr.segment_reduce.launches == before[1] + 1
+    idx = torch.tensor([0, 1, 1, 2], dtype=torch.int32, device=cuda)
+    xs = torch.ones(3, 3, device=cuda)
+    before = (kbu.bottomup_scan.launches, kob.outbox_reduce.launches)
+    tops.bottomup_scan_op(torch.tensor([0, 2, 4], dtype=torch.int32,
+                                       device=cuda), idx, None, xs,
+                          semiring="min")
+    tops.outbox_reduce_op(xs, idx, idx, None, num_slots=3, combine="sum")
+    assert (kbu.bottomup_scan.launches, kob.outbox_reduce.launches) == (
+        before[0] + 1, before[1] + 1)
 
 
 @pytest.mark.gpu

@@ -9,7 +9,10 @@ Tolerances: min results bit for bit (a min is order-free); sums
 ``rtol=1e-6, atol=0``: the messages are positive, and the two sides add
 the few messages of a slot in different orders (a one-hot contraction per
 block on the JAX side, a scatter in edge order here).  Every slot no edge
-reaches holds the combine identity on both sides.
+reaches holds the combine identity on both sides.  The op also reads the
+engine's query-minor view of ``x`` (Q in {1, 3, 8, 13}) bit for bit as it
+reads ``x``, and the kernel's wrapper refuses what it does not take before
+it launches.
 """
 import importlib
 
@@ -20,7 +23,9 @@ import torch
 from test_torch_jaxref import engine_case, jops
 
 from repro_torch import convert
+from repro_torch.kernels import ell_spmv as kell
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import outbox_reduce as kob
 
 JH = importlib.import_module("repro.core.hybrid")
 
@@ -108,3 +113,59 @@ def test_outbox_reduce_op_small_case_and_errors():
                               weight_op="max")
     with pytest.raises(ValueError, match="combine"):
         tops.outbox_reduce_op(x, src, flat, w, num_slots=3, combine="max")
+
+
+@pytest.mark.parametrize("combine,weight_op", MODES, ids=lambda m: str(m))
+@pytest.mark.parametrize("q", [1, 3, 8, 13])
+def test_outbox_op_reads_a_query_minor_view_as_it_reads_x(combine, weight_op,
+                                                          q):
+    """The op gives the same outboxes for ``x`` and for the engine's
+    query-minor view of it (``ell_spmv.query_minor_view``), whose buffer
+    the kernel path takes without another copy."""
+    rng = np.random.default_rng(q)
+    e, n, num_slots = 900, 120, 300
+    flat = torch.as_tensor(np.sort(rng.integers(0, num_slots, e)),
+                           dtype=torch.int32)
+    src = torch.as_tensor(rng.integers(0, n, e), dtype=torch.int32)
+    w = torch.as_tensor(rng.uniform(1.0, 2.0, e), dtype=torch.float32)
+    x = torch.as_tensor(_messages(combine, n - 1, q, rng))
+    xq = kell.query_minor_view(x, 0.0 if combine == "sum" else np.inf)
+    assert not xq.is_contiguous() or q == 1
+    base = kell.query_minor_base(xq)
+    assert base is not None and base.shape == (n, -(-q // 4) * 4)
+    assert kell.query_minor(xq, 0.0).data_ptr() == xq.data_ptr()
+    kw = dict(num_slots=num_slots, combine=combine, weight_op=weight_op)
+    want = tops.outbox_reduce_op(x, src, flat, w, **kw)
+    got = tops.outbox_reduce_op(xq, src, flat, w, **kw)
+    assert torch.equal(got, want) and got.shape == (q, num_slots)
+
+
+def test_outbox_kernel_wrapper_refuses_before_it_launches():
+    """``outbox_reduce.outbox_reduce`` checks shapes and types, then the
+    device, and raises before anything is built or launched."""
+    xt = torch.zeros(10, 4)
+    idx = torch.zeros(5, dtype=torch.int32)
+    w = torch.ones(5)
+    kw = dict(num_slots=3, num_queries=3)
+    before = kob.outbox_reduce.launches
+    cases = [
+        (dict(xt=xt.double()), "float32"),
+        (dict(xt=torch.zeros(10, 6)), "multiple of 4"),
+        (dict(xt=torch.zeros(10, 4, 2)), "x_len, Qp"),
+        (dict(xt=torch.zeros(4, 10).t()), "contiguous"),
+        (dict(src=idx.long()), "int32"),
+        (dict(flat=idx[:4]), "one \\[E\\] shape"),
+        (dict(weight=w[:4], weight_op="mul"), "differ"),
+        (dict(weight=None, weight_op="add"), "needs weight"),
+        (dict(combine="max"), "combine"),
+        (dict(num_queries=5), "holding 5 queries"),
+        ({}, "CUDA"),
+    ]
+    for change, match in cases:
+        args = dict(xt=xt, src=idx, flat=idx, weight=w, combine="sum",
+                    weight_op=None, **kw)
+        args.update(change)
+        with pytest.raises(ValueError, match=match):
+            kob.outbox_reduce(args.pop("xt"), args.pop("src"),
+                              args.pop("flat"), args.pop("weight"), **args)
+    assert kob.outbox_reduce.launches == before
