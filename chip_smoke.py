@@ -63,9 +63,12 @@ Phases (any failed check exits non-zero; nothing is caught and passed over):
    fused and the hybrid backends;
 6. ``[segment_reduce]``: the sorted segment reduce through its entry point
    (``ops.segment_reduce_op``) on partition 0's sorted forward ``dst_ext``
-   at RMAT20 / P=2 / HIGH with messages made from the seed, sum and min:
-   min bit for bit, sum within its f32 bound of float64, timed beside its
-   bytes bound, its plain version and ``torch.segment_reduce``;
+   at RMAT20 / P=2 / HIGH with messages made from the seed, one row and
+   Q=8 rows, sum and min: min bit for bit, sum within its f32 bound of
+   float64, two launches bit-equal, the identity in the empty segments;
+   the kernel timed cold (L2 flushed), warm with the host ahead and
+   host-paced, beside its bytes bound, its plain version and
+   ``torch.segment_reduce`` (one call a row);
 7. ``[lm]``: the LM serving path, tinyllama-1.1b at full width (22 layers,
    d_model 2048, GQA 32/4, random weights from a generator seeded 0, bf16
    compute) through ``models.api.build`` and the serve launcher's
@@ -95,10 +98,13 @@ both and ``torch.matmul`` timed with the L2 flushed before each launch
 ``torch.matmul`` both ways.  The fused kernel is timed as the op (its
 query-minor copy of the state included), and the copy and the kernel
 apart; ``scripts/fused_ablation.py`` times variants of its source.  The
-``[build]`` lines give every fused, dense, outbox and scan kernel's
-registers and spill stores, and check that the fused library spills no
-more than 40 bytes and the outbox and scan libraries nothing;
-``scripts/scan_outbox_ablation.py`` times variants of those two sources.
+``[build]`` lines give every fused, dense, outbox, scan and segment-reduce
+kernel's registers and spill stores (the dense kernel is one template,
+``dense_spmv_kernel<MODE, kVec>``, for both semirings), and check that
+the fused library spills no more than 40 bytes and the outbox, scan,
+dense and segment-reduce libraries nothing;
+``scripts/scan_outbox_ablation.py`` and
+``scripts/minplus_segment_ablation.py`` time variants of those sources.
 
 Why sums are held to float64 and not to the plain f32 version: at RMAT20 a
 hub sums ~10^4-10^5 messages, and two f32 summation orders (the kernel's
@@ -554,12 +560,15 @@ def within_f32_bound(got, exact, mag, depth) -> bool:
 def segment_reduce_phase(pg, rng, dev, check):
     """``[segment_reduce]``: the sorted segment reduce on partition 0's
     sorted ``dst_ext`` (its real forward edges) at RMAT20 / P=2 / HIGH,
-    messages made from the seed, through ``ops.segment_reduce_op`` (the
-    op's entry point, its only path), in sum and min.  Min bit for bit
-    against the plain version, sum within its f32 bound of float64, two
-    launches bit-equal, empty segments the identity; timed beside its bytes
-    bound, the plain version and ``torch.segment_reduce``.  Returns
-    ``(rows by combine, max |err|, launches on the path)``."""
+    messages made from the seed (one row, and Q rows over the same ids),
+    through ``ops.segment_reduce_op`` (the op's entry point, its only
+    path), in sum and min.  Min bit for bit against the plain version, sum
+    within its f32 bound of float64, two launches bit-equal, empty segments
+    the identity; the kernel (with the wrapper's identity pre-fill) timed
+    cold (L2 flushed), warm with the host ahead and host-paced, beside its
+    bytes bound, the plain version and ``torch.segment_reduce`` (one call
+    a row: a loop over the Q rows).  Returns ``(rows by (Q, combine), max
+    |err|, launches on the path)``."""
     import numpy as np
     import torch
 
@@ -572,62 +581,77 @@ def segment_reduce_phase(pg, rng, dev, check):
     seg = pg.seg_count
     ids = torch.as_tensor(ids_np, device=dev)
     ids64 = ids.long()
-    msgs = torch.as_tensor(rng.normal(size=n).astype(np.float32), device=dev)
+    msgs_by_q = {q: torch.as_tensor(rng.normal(size=(q, n)).astype(
+        np.float32), device=dev) for q in (1, Q)}
+    msgs_by_q[1] = msgs_by_q[1][0]          # the op's [E] form
     empty = torch.as_tensor(np.setdiff1d(np.arange(seg), ids_np), device=dev)
+    lengths = torch.bincount(ids64, minlength=seg)
+    depth = outbox_sum_depth(ids_np, ksr.BLOCK_E) - 1
+    scratch = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+
+    def flush():
+        scratch.fill_(1.0)
 
     ksr.segment_reduce.launches = 0
-    outs = {c: segment_reduce_op(msgs, ids, seg, combine=c)
-            for c in ("sum", "min")}
+    outs = {(q, c): segment_reduce_op(m, ids, seg, combine=c)
+            for q, m in msgs_by_q.items() for c in ("sum", "min")}
     torch.cuda.synchronize()
     launches = ksr.segment_reduce.launches
-    check(launches == 2, f"[segment_reduce] the op launched the kernel once "
-          f"per call ({launches} launches for sum and min)")
-    lengths = torch.bincount(ids64, minlength=seg)
+    check(launches == len(outs), f"[segment_reduce] the op launched the "
+          f"kernel once per call ({launches} launches for sum and min at "
+          f"Q=1 and Q={Q})")
     rows, worst = {}, 0.0
-    for combine, got in outs.items():
-        def kern(c=combine):
-            return ksr.segment_reduce(msgs[None], ids, num_segments=seg,
-                                      combine=c)
+    for (q, combine), got in outs.items():
+        msgs = msgs_by_q[q]
+        m2 = msgs.reshape(-1, n)
 
-        def plain(c=combine):
+        def kern(c=combine, m2=m2):
+            return ksr.segment_reduce(m2, ids, num_segments=seg, combine=c)
+
+        def plain(c=combine, msgs=msgs):
             return segment_reduce_ref(msgs, ids64, seg, c)
 
-        def library(c=combine):
-            return torch.segment_reduce(msgs, c, lengths=lengths,
-                                        unsafe=True, initial=identity(c))
+        def library(c=combine, m2=m2):
+            return torch.stack([torch.segment_reduce(
+                row, c, lengths=lengths, unsafe=True, initial=identity(c))
+                for row in m2])
 
-        again, want = kern()[0], plain()
+        again, want = kern().reshape(got.shape), plain()
         torch.cuda.synchronize()
         err = max_abs_err(got, want)
         worst = max(worst, err)
+        what = f"[segment_reduce] Q={q} {combine}"
         if combine == "min":
-            check(torch.equal(got, want), f"[segment_reduce] min: bit-equal "
-                  f"to the plain version (max |err| {err})")
+            check(torch.equal(got, want), f"{what}: bit-equal to the plain "
+                  f"version (max |err| {err})")
         else:
             exact = segment_reduce_ref(msgs.double(), ids64, seg, "sum")
             mag = segment_reduce_ref(msgs.double().abs(), ids64, seg, "sum")
-            depth = outbox_sum_depth(ids_np, ksr.BLOCK_E) - 1
             check(within_f32_bound(got, exact, mag, depth),
-                  f"[segment_reduce] sum: within its f32 bound ({depth} "
-                  f"roundings x 2^-24 x sum|msg|) of float64; max |err| vs "
-                  f"float64 kernel {max_abs_err(got, exact):.3e}, plain f32 "
+                  f"{what}: within its f32 bound ({depth} roundings x 2^-24 "
+                  f"x sum|msg|) of float64; max |err| vs float64 kernel "
+                  f"{max_abs_err(got, exact):.3e}, plain f32 "
                   f"{max_abs_err(want, exact):.3e}")
             del exact, mag
         check(torch.equal(got, again) and bool(
-            (got[empty] == identity(combine)).all()),
-            f"[segment_reduce] {combine}: two launches bit-equal; the "
-            f"{len(empty)} empty segments hold the identity")
-        lib_err = max_abs_err(library(), got)
-        ms, plain_ms = cuda_ms(kern, 20), cuda_ms(plain, 5)
-        lib_ms = cuda_ms(library, 20)
-        bms = 1e3 * (4 * n + 4 * n + 4 * seg) / HBM_BYTES_PER_S
-        rows[combine] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                             library_ms=lib_ms, bound_by="bytes")
-        log(f"[segment_reduce] {combine}: E={n} segments={seg} (used "
-            f"{seg - len(empty)}) kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-            f"ms, bound {bms:.4f} ms (bytes), {bms / ms:.1%} of bound, "
-            f"torch.segment_reduce {lib_ms:.4f} ms (max |diff| vs kernel "
-            f"{lib_err:.3e})")
+            (got[..., empty] == identity(combine)).all()),
+            f"{what}: two launches bit-equal; the {len(empty)} empty "
+            f"segments hold the identity")
+        lib_err = max_abs_err(library().reshape(got.shape), got)
+        cold = cuda_ms_cold(kern, 20, flush)
+        ahead, paced = cuda_ms_ahead(kern, 50), cuda_ms(kern, 20)
+        plain_ms, lib_ms = cuda_ms(plain, 5), cuda_ms(library, 20)
+        bms = 1e3 * (4 * n + 4 * q * n + 4 * q * seg) / HBM_BYTES_PER_S
+        rows[q, combine] = dict(ms=cold, plain_ms=plain_ms, bound_ms=bms,
+                                library_ms=lib_ms, bound_by="bytes")
+        log(f"{what}: E={n} segments={seg} (used {seg - len(empty)}) "
+            f"kernel {cold:.4f} ms cold, {ahead:.4f} ms warm with the host "
+            f"ahead, {paced:.4f} ms host-paced (the wrapper's allocations "
+            f"and ctypes call included); plain {plain_ms:.4f} ms; bound "
+            f"{bms:.4f} ms (bytes), {bms / cold:.1%} of bound cold, "
+            f"{bms / ahead:.1%} warm; torch.segment_reduce (one call a row) "
+            f"{lib_ms:.4f} ms (max |diff| vs kernel {lib_err:.3e})")
+    del scratch
     return rows, worst, launches
 
 
@@ -909,11 +933,12 @@ def main() -> int:
     check(spills[kfs.SOURCE] <= FUSED_SPILL_LIMIT, f"[build] the fused "
           f"library spills {spills[kfs.SOURCE]} bytes, no more than "
           f"{FUSED_SPILL_LIMIT}")
-    check(spills[kob.SOURCE] == 0 and spills[kbu.SOURCE] == 0,
-          f"[build] the outbox and scan libraries spill nothing "
-          f"({spills[kob.SOURCE]} and {spills[kbu.SOURCE]} bytes)")
+    clean = (kob.SOURCE, kbu.SOURCE, kds.SOURCE, ksr.SOURCE)
+    check(all(spills[lib] == 0 for lib in clean),
+          f"[build] the outbox, scan, dense and segment-reduce libraries "
+          f"spill nothing ({[spills[lib] for lib in clean]} bytes)")
     cufilt = Path(_build.nvcc()).parent / "cu++filt"
-    for lib in (kfs.SOURCE, kds.SOURCE, kob.SOURCE, kbu.SOURCE):
+    for lib in (kfs.SOURCE, *clean):
         for name, regs, spill in ptxas_report(
                 built[lib][1], cufilt if cufilt.exists() else None):
             log(f"[build] {lib}: {name}: "
@@ -1734,7 +1759,7 @@ def main() -> int:
             "dense_spmv_minplus": (hyb_rows["dense_spmv_minplus"],
                                    hyb_rows["dense_spmv_minplus"]["err"]),
             "outbox_reduce": (shard_rows["pagerank"], shard_err),
-            "segment_reduce": (seg_rows["sum"], seg_err),
+            "segment_reduce": (seg_rows[1, "sum"], seg_err),
             "flash_attention": (lm_row, lm_err)}
     launches.update(
         (name, hyb_launches[name]) for name in ("ell_spmv", "dense_spmv",

@@ -96,28 +96,25 @@ def _ok(rc: int, out: torch.Tensor) -> torch.Tensor:
 
 def launchers(lib, x, a, xi, ai):
     """``(plus_times, min_plus)`` launches of ``lib`` through its own C
-    interface: this tree's (one launch with tickets) or the first design's
-    (a partial per 128-row slice and a tree kernel)."""
+    interface.  Plus-times is one launch with tickets; min-plus is the same
+    (this tree) or, where the library has ``dense_spmv_minplus_slices``
+    (the design before), a partial per 128-row slice and a tree kernel."""
     dev = x.device
     stream = torch.cuda.current_stream().cuda_stream
     y, ym = torch.empty(M, N, device=dev), torch.empty(M, N, device=dev)
     ptr, cint = ctypes.c_void_p, ctypes.c_int
-    ticketed = hasattr(lib, "dense_spmv_partials")
-    lib.dense_spmv_launch.argtypes = ([ptr] * (5 if ticketed else 4)
-                                      + [cint] * 3 + [ptr])
-    lib.dense_spmv_minplus_launch.argtypes = [ptr] * 4 + [cint] * 3 + [ptr]
-    slices = (lib.dense_spmv_minplus_slices if ticketed
-              else lib.dense_spmv_slices)
-    slices.argtypes = [cint]
-    mpart = torch.empty(slices(K) * M * N, device=dev)
-    if ticketed:
-        lib.dense_spmv_partials.argtypes = [cint] * 3
-        lib.dense_spmv_partials.restype = ctypes.c_longlong
-        part = torch.empty(lib.dense_spmv_partials(M, K, N), device=dev)
-        tickets = torch.zeros(64, dtype=torch.int32, device=dev)
-        scratch = (part, tickets)
-    else:
-        scratch = (mpart,)
+    lib.dense_spmv_partials.argtypes = [cint] * 3
+    lib.dense_spmv_partials.restype = ctypes.c_longlong
+    scratch = (torch.empty(lib.dense_spmv_partials(M, K, N), device=dev),
+               torch.zeros(64, dtype=torch.int32, device=dev))
+    mscratch = scratch
+    if hasattr(lib, "dense_spmv_minplus_slices"):
+        lib.dense_spmv_minplus_slices.argtypes = [cint]
+        mscratch = (torch.empty(lib.dense_spmv_minplus_slices(K) * M * N,
+                                device=dev),)
+    for fn, held in ((lib.dense_spmv_launch, scratch),
+                     (lib.dense_spmv_minplus_launch, mscratch)):
+        fn.argtypes = [ptr] * (3 + len(held)) + [cint] * 3 + [ptr]
 
     def plus():    # the closure holds the scratch tensors the kernel writes
         return _ok(lib.dense_spmv_launch(
@@ -126,9 +123,15 @@ def launchers(lib, x, a, xi, ai):
 
     def minplus():
         return _ok(lib.dense_spmv_minplus_launch(
-            xi.data_ptr(), ai.data_ptr(), mpart.data_ptr(), ym.data_ptr(), M,
-            K, N, stream), ym)
+            xi.data_ptr(), ai.data_ptr(), *(t.data_ptr() for t in mscratch),
+            ym.data_ptr(), M, K, N, stream), ym)
     return plus, minplus
+
+
+def plus_depth(rows=32) -> int:
+    """Roundings of the plus-times sum at K: ``rows`` products in a lane,
+    the 8 warps, the 256-row slices in order and the product."""
+    return rows + 8 + -(-K // (8 * rows)) + 1
 
 
 def main() -> int:
@@ -162,9 +165,7 @@ def main() -> int:
     runs, ok = {}, True
     for name, lib in libs.items():
         plus, minplus = launchers(lib, x, a, xi, ai)
-        rows = VARIANTS.get(name, 16)          # the first design: 128 rows,
-        depth = (rows + 8 + -(-K // (8 * rows)) + 1 if name != "parent"
-                 else 128 + (-(-K // 128) - 1).bit_length() + 1)  # a tree
+        depth = plus_depth(VARIANTS.get(name, 32))
         good = within_f32_bound(plus(), exact, exact, depth)
         runs[name] = (plus, dict(within_bound=good, bound_roundings=depth))
         if name in ("kernel", "parent"):

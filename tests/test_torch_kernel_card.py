@@ -474,11 +474,16 @@ def test_ell_kernel_without_slots_gives_the_identity_on_card(cuda, semiring):
 @pytest.mark.parametrize("m,k,n", [(1, 100, 100), (3, 300, 257),
                                    (8, 2816, 2816), (11, 129, 513),
                                    (13, 301, 258), (8, 1027, 1030),
-                                   (1, 3, 5), (13, 2816, 2816)])
+                                   (1, 3, 5), (13, 2816, 2816),
+                                   (9, 257, 129), (13, 511, 2817),
+                                   (9, 2816, 2817), (13, 257, 129)])
 def test_dense_kernels_match_plain_on_card(cuda, m, k, n):
-    """M of 1, 3, 8, 11 and 13 (one 8-query pass, ragged, two passes); K
+    """M of 1, 3, 8, 9, 11 and 13 (one 8-query pass, ragged, two passes); K
     and N multiples of 4 and not (N % 4 != 0 takes the scalar loads), K
-    below one 256-row slice and over 11 of them."""
+    below one 256-row slice, just past one (257) and two (511), and over 11
+    of them, N just past a 128-column tile (129) and past 22 (2817).  The
+    min-plus inputs hold a row and a column of +inf in ``a`` and a query
+    of +inf in ``x``."""
     rng = np.random.default_rng(k)
     x = torch.as_tensor(rng.uniform(0, 1, (m, k)).astype(np.float32),
                         device=cuda)
@@ -491,12 +496,43 @@ def test_dense_kernels_match_plain_on_card(cuda, m, k, n):
     assert within_f32_bound(got, exact, exact, dense_sum_depth(k))
     assert torch.equal(got, again)
     a_inf = torch.where(a == 0, torch.inf, a)
+    a_inf[k // 2] = torch.inf
+    a_inf[:, n // 2] = torch.inf
     x_inf = torch.where(x < 0.2, torch.inf, x)
+    x_inf[m // 2] = torch.inf
     got = tops.dense_spmv_minplus_op(x_inf, a_inf)
     assert torch.equal(got, tref.dense_spmv_minplus_ref(x_inf, a_inf))
+    assert torch.equal(got, tops.dense_spmv_minplus_op(x_inf, a_inf))
     torch.cuda.synchronize()
     assert (kds.dense_spmv.launches, kds.dense_spmv_minplus.launches) == (
-        before[0] + 2, before[1] + 1)
+        before[0] + 2, before[1] + 2)
+
+
+@pytest.mark.gpu
+def test_dense_kernels_share_their_tickets_on_card(cuda):
+    """Both semirings take one tickets array per device and stream, and
+    every launch leaves it 0: launches of the two in turns on one stream
+    give the results of each alone."""
+    rng = np.random.default_rng(6)
+    x = torch.as_tensor(rng.uniform(0, 1, (8, 2816)).astype(np.float32),
+                        device=cuda)
+    a = rng.uniform(0, 2, (2816, 2817)).astype(np.float32)
+    a[rng.random(a.shape) < 0.7] = 0.0
+    a = torch.as_tensor(a, device=cuda)
+    a_inf = torch.where(a == 0, torch.inf, a)
+    plus, minplus = tops.dense_spmv_op(x, a), tops.dense_spmv_minplus_op(
+        x, a_inf)
+    torch.cuda.synchronize()
+    key = (x.device, torch.cuda.current_stream(x.device).cuda_stream)
+    tickets = kds._TICKETS[key]
+    assert int(tickets.abs().sum()) == 0
+    turns = [f(x, b) for _ in range(3) for f, b in (
+        (tops.dense_spmv_op, a), (tops.dense_spmv_minplus_op, a_inf))]
+    torch.cuda.synchronize()
+    assert kds._TICKETS[key] is tickets
+    assert int(tickets.abs().sum()) == 0
+    for i, y in enumerate(turns):
+        assert torch.equal(y, minplus if i % 2 else plus)
 
 
 @pytest.mark.gpu
@@ -731,12 +767,20 @@ def segment_sum_depth(ids, block_e=ksr.BLOCK_E):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["mixed", "one segment"])
 @pytest.mark.parametrize("combine", ["sum", "min"])
-@pytest.mark.parametrize("q,e", [(1, 7001), (3, 20480), (5, 50001)])
-def test_segment_kernel_matches_plain_on_card(cuda, combine, q, e):
+@pytest.mark.parametrize("q,e", [(1, 7001), (3, 20480), (5, 50001),
+                                 (8, 20480), (13, 7001), (8, 6003)])
+def test_segment_kernel_matches_plain_on_card(cuda, combine, q, e, layout):
+    """Q of 1 (the one-row instance), 3, 5, 8 and 13 (a group of 8 and a
+    ragged one); E % 4 != 0 (7001, 50001, 6003: scalar loads) and == 0
+    (16-byte loads); a hub run over more than two 1024-edge blocks, or
+    every id one segment; the first and last segments empty."""
     rng = np.random.default_rng(e + q)
     num_segments = 3000
     ids, msgs = segment_inputs(e, num_segments, q, combine, rng)
+    if layout == "one segment":
+        ids = np.full(e, num_segments // 2, np.int32)
     m, i = torch.as_tensor(msgs, device=cuda), torch.as_tensor(ids,
                                                                 device=cuda)
     before = ksr.segment_reduce.launches

@@ -10,7 +10,8 @@ sorted ``dst_ext``, and a leading batch axis.  Tolerances: min bit for bit
 that cancel to near zero (the JAX kernel adds a block's messages by a
 one-hot contraction, the plain version by a scatter in edge order).  The
 CUDA kernel is held against the same plain version on the card in
-``test_torch_kernel_card.py``.
+``test_torch_kernel_card.py``; here its wrapper's partials layout and its
+refusals before a launch.
 """
 import numpy as np
 import pytest
@@ -18,7 +19,9 @@ import torch
 
 from test_torch_jaxref import JG, JPT, jops
 
+from repro_torch.kernels import _build
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import segment_reduce as ksr
 
 
 def messages(combine, e, rng):
@@ -109,3 +112,26 @@ def test_segment_reduce_refuses_ids_it_cannot_reduce():
     out = tops.segment_reduce_op(torch.zeros(0), np.zeros(0, np.int32), 3,
                                  combine="min")
     assert out.tolist() == [np.inf] * 3
+
+
+@pytest.mark.parametrize("q,e,nb", [(1, 1, 1), (8, 1024, 1), (8, 1025, 2),
+                                    (13, 8388560, 8192)])
+def test_segment_kernel_partials_share_their_ids(q, e, nb):
+    """The kernel's block partials: one pair of run ids per 1024-edge
+    block, shared by the Q rows, beside a pair of values per row."""
+    assert ksr.partial_shapes(q, e) == ((nb, 2), (q, nb, 2))
+
+
+@pytest.mark.parametrize("case,match", [("combine", "combine must be"),
+                                        ("device", "CUDA tensor")])
+def test_segment_kernel_refuses_before_it_launches(case, match):
+    """A bad combine or CPU tensors raise before the library is loaded or
+    the launch counted."""
+    msgs = torch.zeros(2, 6)
+    ids = torch.tensor([0, 0, 1, 1, 2, 4], dtype=torch.int32)
+    before = ksr.segment_reduce.launches
+    with pytest.raises(ValueError, match=match):
+        ksr.segment_reduce(msgs, ids, num_segments=5,
+                           combine="max" if case == "combine" else "sum")
+    assert ksr.segment_reduce.launches == before
+    assert ksr.SOURCE not in _build._loaded
