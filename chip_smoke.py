@@ -40,6 +40,27 @@ Phases (any failed check exits non-zero; nothing is caught and passed over):
    equal steps against plain push, under the vote, without it
    (``direction_switch=False``) and forced to pull; PageRank and BC against
    the float64 runs within the same limits.  Its three kernels must launch;
+   Then ``[tiered]``: the same entry points on engines built with
+   ``tiered=`` (``partition.build_tier_plan``'s ``table[1]`` budget, the
+   denser partition hot and the other streamed from pinned host memory;
+   ``table[0]``, all cold, where row 1's windows would keep both hot, as
+   on the symmetrized CC graph), ``win_blocks`` the least power of two
+   that plans, printed with the longest destination run.  The five
+   algorithms on the fused and hybrid backends bit for bit against
+   resident engines of the same backend with equal steps, sums included,
+   each called twice (the first call builds host layouts); BFS on the
+   reference backend bit for bit and PageRank there within the f32
+   rounding bound of a float64 run (``pagerank_f32_bound``: its compute
+   scatter sums with atomics); BFS on the fused backend with every
+   partition cold.  Checked: ``TierPlan.hbm_bytes`` equal to the engine's
+   device arena bytes, the peak device memory of the tiered engines and
+   runs below the resident ones', and the fused, ``ell_spmv``,
+   ``dense_spmv`` and ``dense_spmv_minplus`` kernels launched on the
+   windows or hot rows.  Printed: windows, streamed bytes, the copy and
+   window-compute time per superstep and their overlap (CUDA events of
+   ``core/tiered.py::WindowStream.timing`` over one PageRank call), the
+   host-to-device rate of the pinned copies through the two buffers and
+   in one call, and the walls;
 4. the sharded engine (``DistributedBSPEngine``) as a world of one on the
    same card, holding both partitions of the same graphs (``[shard]``
    lines): the outbox kernel against its plain version on the sharded
@@ -854,6 +875,295 @@ def lm_phase(dev, check):
     return row, worst, launches
 
 
+def planning_win_blocks(pg, row: int, fused: bool):
+    """The least power-of-two ``win_blocks`` whose tier plan at table row
+    ``row`` (the ``row`` densest partitions hot) exists, and that plan."""
+    from repro_torch.core import partition as PT
+    wb = 1
+    while True:
+        try:
+            probe = PT.build_tier_plan(pg, 1 << 62, block_e=BLOCK_E,
+                                       win_blocks=wb, fused=fused)
+            return wb, PT.build_tier_plan(
+                pg, int(probe.table[row]["hbm_bytes"]), block_e=BLOCK_E,
+                win_blocks=wb, fused=fused)
+        except ValueError:
+            wb *= 2
+
+
+def streaming_plan(pg, fused: bool):
+    """``(row, win_blocks, plan)``: table row 1 (the denser partition hot),
+    or row 0 (all cold) where row 1's windows are so large that its budget
+    holds every partition (the plan then keeps all hot)."""
+    wb, plan = planning_win_blocks(pg, 1, fused)
+    if len(plan.cold):
+        return 1, wb, plan
+    return (0,) + planning_win_blocks(pg, 0, fused)
+
+
+def longest_runs(ea):
+    """Each partition's longest run of one destination in ``dst_ext``."""
+    import numpy as np
+    return [int(np.bincount(ea.dst_ext[p][:int(ea.num_edges[p])]).max(
+        initial=0)) for p in range(ea.src.shape[0])]
+
+
+def pagerank_f32_bound(g, iters, dev, damping=0.85):
+    """A float64 PageRank of ``g`` (the port's rounds: ``rank * inv_deg``
+    pushed along every edge, ``delta + damping * sum``) and a bound on the
+    error of any float32 run of it, whatever order each vertex's sum takes:
+    per round, the error carried in (``A (inv * e)``), the rounding of each
+    message and of ``inv_deg`` (2u), the sum of a vertex's ``n_v`` messages
+    in any order (``gamma_{n_v} = n_v u / (1 - n_v u)`` times the sum of
+    their magnitudes), and the roundings of ``damping``, ``delta`` and the
+    update (3u, u), with 8u of slack on the whole."""
+    import torch
+    n = g.num_vertices
+    src = torch.as_tensor(g.edge_sources(), device=dev)
+    dst = torch.as_tensor(g.col, device=dev).long()
+    a = torch.sparse_coo_tensor(
+        torch.stack([dst, src]), torch.ones(len(src), dtype=torch.float64,
+                                            device=dev),
+        (n, n)).coalesce().to_sparse_csr()
+
+    def mv(x):
+        return (a @ x[:, None]).squeeze(1)
+
+    out_deg = torch.bincount(src, minlength=n).double()
+    in_deg = torch.bincount(dst, minlength=n).double()
+    inv = torch.where(out_deg > 0, 1.0 / out_deg.clamp(min=1.0), 0.0)
+    u = UNIT_ROUNDOFF
+    gamma = in_deg * u / (1.0 - in_deg * u)
+    delta = (1.0 - damping) / n
+    r = torch.full((n,), 1.0 / n, dtype=torch.float64, device=dev)
+    e = torch.full((n,), u / n, dtype=torch.float64, device=dev)
+    for _ in range(iters):
+        carried, mag = mv(inv * e), mv(inv * (r + e))
+        r_next = delta + damping * mv(inv * r)
+        e = (1.0 + 8 * u) * (damping * (carried + (gamma + 3 * u)
+                                        * (1.0 + 2 * u) * mag)
+                             + 3 * u * (damping * mag + delta) + u * r_next)
+        r = r_next
+    return r.cpu().numpy(), e.cpu().numpy()
+
+
+def tiered_phase(g, pg, pgs, runs, dev, check):
+    """``[tiered]``: the five algorithms with one of the two partitions
+    streamed from pinned host memory, on the fused and hybrid backends
+    against resident engines of the same backend (bit for bit, equal
+    steps, lower peak device memory), BFS and PageRank on the reference
+    backend, and the all-cold fused BFS.  Returns each tiered-path
+    kernel's launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.bsp import BSPEngine
+    from repro_torch.core.tiered import stream_times
+    from repro_torch.kernels import dense_spmv as kds
+    from repro_torch.kernels import ell_spmv as kell
+    from repro_torch.kernels import fused_superstep as kfs
+
+    counters = (kfs.fused_superstep, kell.ell_spmv, kds.dense_spmv,
+                kds.dense_spmv_minplus)
+    card = torch.cuda.get_device_name(0)
+    t0 = time.perf_counter()
+    plans, rows = {}, {}
+    for fused in (True, False):
+        for name, graph in (("pg", pg), ("pgs", pgs)):
+            rows[fused, name], *plans[fused, name] = streaming_plan(graph,
+                                                                    fused)
+    wb0, plan0 = planning_win_blocks(pg, 0, True)
+    log(f"[tiered] plans {time.perf_counter() - t0:.2f} s; longest "
+        f"destination run per partition (fwd) {longest_runs(pg.fwd)}, (rev) "
+        f"{longest_runs(pg.rev)}, (CC) {longest_runs(pgs.fwd)}; block_e="
+        f"{BLOCK_E}")
+    for (fused, name), (wb, plan) in plans.items():
+        log(f"[tiered] plan {name} {'fused' if fused else 'edge'} arrays, "
+            f"table[{rows[fused, name]}]: win_blocks={wb} (the least power "
+            f"of two that plans), hot "
+            f"{plan.hot.tolist()} cold {plan.cold.tolist()}, windows fwd "
+            f"{plan.fwd.num_windows}"
+            + ("" if plan.rev is None else f" rev {plan.rev.num_windows}")
+            + f", hbm_bytes {plan.hbm_bytes} (budget "
+            f"{plan.hbm_budget_bytes}), host_bytes {plan.host_bytes}, window "
+            f"buffers {plan.stream_buffer_bytes}")
+        check(len(plan.cold) >= 1 and plan.fwd.num_windows > 1,
+              f"[tiered] plan {name}: {len(plan.cold)} partition(s) stream, "
+              f"in {plan.fwd.num_windows} windows")
+    log(f"[tiered] all-cold plan (table[0], fused arrays): win_blocks={wb0},"
+        f" windows fwd {plan0.fwd.num_windows}, hbm_bytes {plan0.hbm_bytes}"
+        f", host_bytes {plan0.host_bytes}")
+
+    names = ("bfs_batched", "sssp_batched", "pagerank",
+             "betweenness_centrality", "connected_components")
+    launches = {fn.__name__: 0 for fn in counters}
+
+    def drive(backend, tiered, algs):
+        """Build the engines of one side and run ``algs``: results, steps,
+        walls, the peak device bytes over the engine's own baseline, the
+        engines and the launches of the tiered-path kernels."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fused = backend == "fused"
+        engines = []
+        for name in ("pg", "pgs"):
+            if name == "pgs" and "connected_components" not in algs:
+                engines.append(None)
+                continue
+            extra = {}
+            if tiered:
+                wb, plan = plans[fused, name]
+                extra = dict(tiered=plan, win_blocks=wb)
+            engines.append(BSPEngine(pg if name == "pg" else pgs,
+                                     backend=backend, block_e=BLOCK_E,
+                                     **extra))
+        out, walls = {}, {}
+        before = [fn.launches for fn in counters]
+        for name in algs:
+            got = []
+            for _ in range(2):      # the first call builds host layouts
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                res, steps = runs[name](*engines)
+                torch.cuda.synchronize()
+                got.append((time.perf_counter() - t, np.asarray(res),
+                            None if steps is None else np.asarray(steps)))
+            walls[name] = (got[0][0], got[1][0])
+            out[name] = got[0][1:]
+            if backend != "reference":
+                side = "tiered" if tiered else "resident"
+                check(np.array_equal(got[0][1], got[1][1], equal_nan=True),
+                      f"[tiered] {name} {backend} ({side}): two calls "
+                      f"bit-equal")
+        used = {fn.__name__: fn.launches - b
+                for fn, b in zip(counters, before)}
+        peak = torch.cuda.max_memory_allocated() - base
+        return out, walls, peak, engines, used
+
+    for backend in ("fused", "hybrid"):
+        res, res_walls, res_peak, res_engs, _ = drive(backend, False, names)
+        del res_engs
+        tie, tie_walls, tie_peak, engs, used = drive(backend, True, names)
+        for k, v in used.items():
+            launches[k] += v
+        eng = engs[0]
+        stats = eng.tiered_stats()
+        for name in names:
+            (a, sa), (b, sb) = res[name], tie[name]
+            same = np.array_equal(a, b, equal_nan=True) and (
+                sa is None or np.array_equal(sa, sb))
+            check(same, f"[tiered] {name} {backend}: tiered bit-equal to "
+                  f"resident, equal steps (wall, first call / second: "
+                  f"tiered {tie_walls[name][0]:.3f} / "
+                  f"{tie_walls[name][1]:.3f} s, resident "
+                  f"{res_walls[name][0]:.3f} / {res_walls[name][1]:.3f} s)")
+        check(stats["device_arena_bytes"] == eng.tier_plan.hbm_bytes,
+              f"[tiered] {backend}: TierPlan.hbm_bytes "
+              f"{eng.tier_plan.hbm_bytes} == the engine's device arena "
+              f"bytes {stats['device_arena_bytes']}")
+        check(tie_peak < res_peak, f"[tiered] {backend}: peak device memory "
+              f"of the engines and runs, tiered {tie_peak / 2**20:.1f} MiB < "
+              f"resident {res_peak / 2**20:.1f} MiB")
+        log(f"[tiered] {backend}: stats {stats}; launches on the tiered "
+            f"runs {used}")
+        want = (("fused_superstep",) if backend == "fused" else
+                ("ell_spmv", "dense_spmv", "dense_spmv_minplus"))
+        check(all(used[k] > 0 for k in want), f"[tiered] {backend}: "
+              f"{', '.join(want)} launched on windows or hot rows")
+
+        # the stream, timed by events: one PageRank call (20 supersteps)
+        if backend == "fused":
+            stream, arena = eng._tier_stream, eng._tier[False].arena
+        else:
+            ht = next(iter(v for k, v in eng._hyb_tier_cache.items()
+                           if k[0] == "plus_times" and not k[1]))
+            stream, arena = ht.stream, ht.arena
+        stream.timing = []
+        runs["pagerank"](*engs)
+        torch.cuda.synchronize()
+        nw = arena.num_windows
+        per = [stream_times(stream.timing[i:i + nw])
+               for i in range(0, len(stream.timing), nw)]
+        stream.timing = None
+        copy_ms = float(np.mean([x["copy_ms"] for x in per]))
+        comp_ms = float(np.mean([x["compute_ms"] for x in per]))
+        wall_ms = float(np.mean([x["wall_ms"] for x in per]))
+        overlap = float(np.mean([x["overlap"] for x in per]))
+        log(f"[tiered] {backend} pagerank stream, per superstep over "
+            f"{len(per)}: {nw} windows, {arena.nbytes} bytes streamed, copy "
+            f"{copy_ms:.4f} ms ({arena.nbytes / copy_ms / 1e6:.2f} GB/s), "
+            f"window compute {comp_ms:.4f} ms, copy+compute wall "
+            f"{wall_ms:.4f} ms, overlap {overlap:.3f} of the shorter; "
+            f"{card}")
+
+        # the pinned copies alone, through the two buffers, and in one call
+        def copies(stream=stream, arena=arena):
+            for _ in stream.windows(arena):
+                pass
+        ms = cuda_ms(copies, 5)
+        big = max(arena.tensors.values(), key=lambda t: t.nbytes)
+        dst = torch.empty_like(big, device=dev)
+        one_ms = cuda_ms(lambda: dst.copy_(big, non_blocking=True), 5)
+        log(f"[tiered] {backend} host-to-device copies from pinned memory: "
+            f"the {nw} windows through the buffers {ms:.4f} ms "
+            f"({arena.nbytes / ms / 1e6:.2f} GB/s), one {big.nbytes}-byte "
+            f"copy {one_ms:.4f} ms ({big.nbytes / one_ms / 1e6:.2f} GB/s); "
+            f"{card}")
+        del engs, eng, stream, arena, dst, big
+        if backend == "hybrid":
+            del ht
+
+    # the reference backend: BFS bit for bit, PageRank within its f32 bound
+    res, res_walls, _, engs, _ = drive("reference", False,
+                                       ("bfs_batched", "pagerank"))
+    del engs
+    tie, tie_walls, _, engs, _ = drive("reference", True,
+                                       ("bfs_batched", "pagerank"))
+    del engs
+    (a, sa), (b, sb) = res["bfs_batched"], tie["bfs_batched"]
+    check(np.array_equal(a, b) and np.array_equal(sa, sb),
+          f"[tiered] bfs_batched reference: tiered bit-equal to resident, "
+          f"equal steps (second call's wall: tiered "
+          f"{tie_walls['bfs_batched'][1]:.3f} s, resident "
+          f"{res_walls['bfs_batched'][1]:.3f} s)")
+    r64, bound = pagerank_f32_bound(g, PR_ITERS, dev)
+    a, b = res["pagerank"][0], tie["pagerank"][0]
+    slack_res = float(np.max(np.abs(a - r64) - bound))
+    slack_tie = float(np.max(np.abs(b - r64) - bound))
+    check(slack_res <= 0 and slack_tie <= 0,
+          f"[tiered] pagerank reference: tiered and resident within the f32 "
+          f"rounding bound of float64 (any summation order); max rel err "
+          f"tiered {max_rel_err(b, r64):.3e}, resident "
+          f"{max_rel_err(a, r64):.3e}, bound's max rel "
+          f"{float(np.max(bound / np.maximum(r64, 1e-30))):.3e}; tiered vs "
+          f"resident max |diff| {float(np.max(np.abs(a - b))):.3e} "
+          f"(second call's wall: tiered {tie_walls['pagerank'][1]:.3f} s, "
+          f"resident {res_walls['pagerank'][1]:.3f} s)")
+
+    # every partition cold: fused BFS
+    before = kfs.fused_superstep.launches
+    eng = BSPEngine(pg, backend="fused", block_e=BLOCK_E, tiered=plan0,
+                    win_blocks=wb0)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    b, sb = runs["bfs_batched"](eng, None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches["fused_superstep"] += kfs.fused_superstep.launches - before
+    (a, sa) = res["bfs_batched"]
+    check(len(eng.tier_plan.hot) == 0 and np.array_equal(a, b)
+          and np.array_equal(sa, np.asarray(sb)),
+          f"[tiered] bfs_batched fused, all partitions cold: bit-equal to "
+          f"the resident reference run, equal steps ({wall:.3f} s wall, "
+          f"{eng.tiered_stats()['device_arena_bytes']} device arena bytes, "
+          f"{eng.tiered_stats()['host_arena_bytes']} pinned)")
+    del eng
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1481,6 +1791,13 @@ def main() -> int:
               f"hybrid path ({hyb_launches[name]} times)")
     del hybrids, hyb, splits
     torch.cuda.empty_cache()
+
+    # -- phase 3, tiered: one partition streamed from pinned host memory ---
+    for fn in (kfs.fused_superstep, kell.ell_spmv, kds.dense_spmv,
+               kds.dense_spmv_minplus):
+        fn.launches = 0
+    tiered_launches = tiered_phase(g, pg, pgs, runs, dev, check)
+    log(f"[tiered] launches on the tiered path: {tiered_launches}")
 
     # -- phase 4: the sharded engine, a world of one ------------------------
     graphs = {"pg": pg, "pgs": pgs}

@@ -58,18 +58,23 @@ import torch
 
 from repro_torch.core import perf_model
 from repro_torch.core.hybrid import (MIN_PLUS, PLUS_TIMES, add_identity,
-                                     hybrid_spmv, hybrid_spmv_scan, splits_of)
+                                     dense_stage, hybrid_spmv,
+                                     hybrid_spmv_scan, splits_of)
 from repro_torch.core.partition import (BlockMetadata, EdgeArrays,
-                                        PartitionedGraph, build_block_metadata,
-                                        build_transposed_csc, slice_parts)
+                                        PartitionedGraph, TierPlan,
+                                        build_block_metadata, build_tier_plan,
+                                        build_transposed_csc,
+                                        memory_residency_bytes, slice_parts)
 from repro_torch.core.perf_model import fit_shard_pull_thresholds
+from repro_torch.core.tiered import HostArena, WindowStream
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.distributed import ShardGroup
-from repro_torch.kernels.ell_spmv import EllPlan, query_minor_view, row_plan
+from repro_torch.kernels.ell_spmv import (EllPlan, plan_lanes,
+                                          query_minor_view, row_plan)
 from repro_torch.kernels.fused_superstep import stack_query_minor
-from repro_torch.kernels.ops import (bottomup_scan_op, fused_superstep_op,
-                                     outbox_reduce_op)
-from repro_torch.kernels.ref import MIN, SUM, segment_reduce_ref
+from repro_torch.kernels.ops import (bottomup_scan_op, ell_spmv_op,
+                                     fused_superstep_op, outbox_reduce_op)
+from repro_torch.kernels.ref import MIN, SUM, identity, segment_reduce_ref
 
 State = Dict[str, torch.Tensor]  # batched: leaves [Q, Pl, ...]
 
@@ -196,20 +201,26 @@ def _require_f32(spec: EdgeMessage, state: State, backend: str) -> None:
                 f"precisions)")
 
 
-def _compute_fused(dims: _Dims, program: VertexProgram, edges: dict,
-                   block_e: int, state: State, step: int) -> torch.Tensor:
-    """Fused compute: one kernel launch per superstep on the card, no
-    [Q, Pl, e_max] message array (kernels/fused_superstep.py).  The
-    gathered state is stacked straight into the kernel's query-minor
-    layout: one copy per superstep."""
-    spec = program.edge_msg
+def _fused_inputs(spec: EdgeMessage, state: State,
+                  step: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fused kernel's state ``[Q, Pl, K, v_max]`` (a view of its
+    query-minor buffer: one copy per superstep) and scalars
+    ``[Q, Pl, 1 + consts]`` (the superstep, then the consts)."""
     _require_f32(spec, state, FUSED)
     vstate = stack_query_minor([state[k] for k in spec.gather])
     q, pl = vstate.shape[:2]
     cols = [torch.full((q, pl), float(step), dtype=torch.float32,
                        device=vstate.device)]
     cols += [state[c].float() for c in spec.consts]
-    scal = torch.stack(cols, dim=2)                       # [Q, Pl, 1+consts]
+    return vstate, torch.stack(cols, dim=2)
+
+
+def _compute_fused(dims: _Dims, program: VertexProgram, edges: dict,
+                   block_e: int, state: State, step: int) -> torch.Tensor:
+    """Fused compute: one kernel launch per superstep on the card, no
+    [Q, Pl, e_max] message array (kernels/fused_superstep.py)."""
+    spec = program.edge_msg
+    vstate, scal = _fused_inputs(spec, state, step)
     weight = edges.get("weight_blk") if spec.use_weight else None
     return fused_superstep_op(
         spec, vstate, weight, scal, edges["blk_src"], edges["blk_local"],
@@ -377,7 +388,6 @@ def _superstep(dims: _Dims, program: VertexProgram, edges: dict,
     the same shape (a transpose on one device, an ``all_to_all`` across
     shards); ``all_finished`` turns the local votes ``[Q]`` into global
     ones."""
-    combine = program.combine
     state, dopt = _dopt_strip(state)
 
     def compute_push(st, e=edges):
@@ -390,6 +400,20 @@ def _superstep(dims: _Dims, program: VertexProgram, edges: dict,
                                       compute_push, state, step, dopt)
     else:
         acc = compute_push(state)
+    return _finish_superstep(dims, program, edges["inbox_dst"], exchange,
+                             all_finished, acc, state, step, dopt)
+
+
+def _finish_superstep(dims: _Dims, program: VertexProgram,
+                      inbox_dst: torch.Tensor,
+                      exchange: Callable[[torch.Tensor], torch.Tensor],
+                      all_finished: Callable[[torch.Tensor], torch.Tensor],
+                      acc: torch.Tensor, state: State, step: int,
+                      dopt: Optional[dict]) -> Tuple[State, torch.Tensor]:
+    """The superstep after its compute phase, on the accumulator
+    ``acc [Q, pl, seg]``: exchange, inbox scatter, apply and vote.  The
+    resident and the tiered superstep both end here."""
+    combine = program.combine
     q, pl = acc.shape[:2]
     v_max = dims.v_max
     local_acc = acc[:, :, :v_max]
@@ -403,7 +427,7 @@ def _superstep(dims: _Dims, program: VertexProgram, edges: dict,
     # order is fixed (the peer order) on every device.
     racc = None
     for r in range(dims.num_parts):
-        part = segment_reduce_ref(inbox[:, :, r], edges["inbox_dst"][:, r],
+        part = segment_reduce_ref(inbox[:, :, r], inbox_dst[:, r],
                                   v_max + 1, combine)
         racc = part if racc is None else _combine(combine, racc, part)
     total = _combine(combine, local_acc, racc[:, :, :v_max])
@@ -529,15 +553,26 @@ def _superstep_hybrid(program: VertexProgram, cfg: _HybridCfg, arrs: dict,
     as the JAX engine runs it.
     """
     _require_f32(program.edge_msg, state, HYBRID)
-    ident = add_identity(cfg.semiring)
     state, dopt = _dopt_strip(state)
     vals, x = _hybrid_messages(program, arrs, state, step)     # [Q, n]
-    q = x.shape[0]
     y, want, cnt = _hybrid_directed(cfg, arrs, x,
                                     vals[program.edge_msg.gather[0]], dopt)
-    y_ext = torch.cat([y, torch.full((q, 1), ident, dtype=y.dtype,
-                                     device=y.device)], dim=1)
-    acc = y_ext[:, arrs["hid"]]               # back to [Q, Pl, v_max]
+    return _hybrid_finish(program, cfg, arrs["hid"], state, y, step, dopt,
+                          want, cnt)
+
+
+def _hybrid_finish(program: VertexProgram, cfg: _HybridCfg,
+                   hid: torch.Tensor, state: State, y: torch.Tensor,
+                   step: int, dopt: Optional[dict],
+                   want: Optional[torch.Tensor],
+                   cnt: Optional[torch.Tensor]) -> Tuple[State, torch.Tensor]:
+    """The hybrid superstep after its SpMV ``y [Q, n]``: back to the
+    ``[Q, Pl, v_max]`` layout (the sink ``n`` serving padding slots), apply
+    and vote.  The resident and the tiered hybrid both end here."""
+    q = y.shape[0]
+    y_ext = torch.cat([y, torch.full((q, 1), add_identity(cfg.semiring),
+                                     dtype=y.dtype, device=y.device)], dim=1)
+    acc = y_ext[:, hid]                       # back to [Q, Pl, v_max]
     new_state, finished = program.apply_fn(state, acc, float(step))
     if dopt is not None:
         new_state = dict(new_state, **_dopt_fold(dopt, want, cnt))
@@ -677,6 +712,49 @@ def _run_batched_loop(step_fn: Callable, max_steps: int, state: State,
     return state, steps_q
 
 
+# ---------------------------------------------------------------------------
+# Tiered (out-of-core) execution: cold partitions' edge arenas in pinned host
+# memory, streamed through the superstep window by window (core/tiered.py)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class _TierDir:
+    """One direction of a tiered engine: the hot partitions' edge arrays
+    on the device (None when every partition is cold), the cold windows'
+    host arena (None when none is cold) and each window's ``(partition,
+    first segment, segments)``."""
+
+    dims: _Dims
+    inbox_dst: torch.Tensor                 # [P, P, o_max] int64
+    hot: Optional[Dict[str, torch.Tensor]]
+    arena: Optional[HostArena]
+    meta: Tuple[Tuple[int, int, int], ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class _HybridTier:
+    """One program's row-tiered degree split: ``arrs`` holds ``slot``,
+    ``hid``, the resident ``dense`` block and the hot rows' compacted CSR
+    (``row_ptr``/``col``/``val``/``plan`` and their ids ``rows``; absent
+    when no row is hot); the cold rows stream as windows of ``arena``,
+    each with ``(rows, slots, partials)`` in ``meta``."""
+
+    cfg: _HybridCfg
+    arrs: dict
+    arena: Optional[HostArena]
+    stream: Optional[WindowStream]
+    meta: Tuple[Tuple[int, int, int], ...]
+
+
+def _identity_acc(program: VertexProgram, state: State, dims: _Dims,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """The ``[Q, P, seg]`` accumulator filled with the combine identity."""
+    first = next(iter(state.values()))
+    return torch.full((first.shape[0], dims.num_parts, dims.seg),
+                      identity(program.combine), dtype=dtype,
+                      device=first.device)
+
+
 def _not_in_slice(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet; ROADMAP.md Queue 1 item {item} brings it")
@@ -715,8 +793,27 @@ class BSPEngine:
     ``EdgeMessage`` run the reference compute; eligible ones take float32
     state only, as on the fused backend.
 
-    Not ported yet (each raises ``NotImplementedError``): ``tiered=`` and
-    dynamic graphs.
+    ``tiered=<device byte budget>`` (or a prebuilt
+    ``partition.TierPlan``) keeps only the densest partitions' edge arenas
+    on the device (``partition.build_tier_plan``, ``tier_plan``); the cold
+    partitions' arenas live in pinned host memory and stream through every
+    superstep in clean-cut windows of at most ``win_blocks`` edge blocks,
+    copied on a side stream into two device buffers
+    (``core/tiered.py``).  On the reference and fused backends each window
+    is one compute over the window's edges (one kernel launch on the fused
+    backend), written into its own segment range of the accumulator; the
+    hybrid backend tiers the degree split by rows: the hot rows stay on
+    the device, the cold rows stream in windows of rows, each with a row
+    plan that keeps every row's lane count, and the dense block stays
+    resident.  A tiered run is push only on the reference and fused
+    backends and pull only on the hybrid, and gives the resident engine's
+    results bit for bit wherever the sums have a fixed order (everywhere
+    but the reference backend's scatter on the card).  The engine makes
+    its host arenas and window buffers before the first superstep and
+    none after (``tiered_stats()["buffers_made"]``).  ``residency_bytes``
+    and ``tiered_stats`` report the split.
+
+    Not ported yet: dynamic graphs raise ``NotImplementedError``.
     """
 
     def __init__(self, pg: PartitionedGraph, *, backend: Optional[str] = None,
@@ -724,7 +821,8 @@ class BSPEngine:
                  device: DeviceLike = None, direction: str = "auto",
                  direction_switch: bool = True,
                  pull_threshold: Optional[float] = None,
-                 hybrid_k_dense: Optional[int] = None, tiered=None):
+                 hybrid_k_dense: Optional[int] = None, tiered=None,
+                 win_blocks: int = 8):
         if backend is None:
             backend = FUSED if fused else REFERENCE
         if backend not in BACKENDS:
@@ -733,8 +831,8 @@ class BSPEngine:
         if direction not in _DIRECTIONS:
             raise ValueError(f"direction must be one of {sorted(_DIRECTIONS)}"
                              f", got {direction!r}")
-        if tiered is not None:
-            raise _not_in_slice("tiered=", "12")
+        if tiered is not None and not isinstance(pg, PartitionedGraph):
+            raise _not_in_slice("tiered= on a dynamic graph", "11")
         if not isinstance(pg, PartitionedGraph):
             raise _not_in_slice(
                 f"an engine over {type(pg).__name__} (dynamic graphs)", "11")
@@ -752,16 +850,22 @@ class BSPEngine:
         self.dims = _Dims(pg.num_parts, pg.v_max, pg.fwd.e_max, pg.fwd.o_max)
         # this engine's partitions (all of them on one device): the edge,
         # block and pull arrays it puts on its device
-        local = [slice_parts(ea, *self._parts) if ea is not None else None
-                 for ea in (pg.fwd, pg.rev)]
-        blks = [build_block_metadata(ea, block_e=block_e)
-                if self.fused and ea is not None else None for ea in local]
-        self._fwd, self._rev = (
-            _edges_dict(ea, blk, self.device) if ea is not None else None
-            for ea, blk in zip(local, blks))
+        self.tier_plan: Optional[TierPlan] = None
+        self.tiered_buffers_made = 0
+        self._fwd = self._rev = None
+        if tiered is None:
+            local = [slice_parts(ea, *self._parts) if ea is not None
+                     else None for ea in (pg.fwd, pg.rev)]
+            blks = [build_block_metadata(ea, block_e=block_e)
+                    if self.fused and ea is not None else None
+                    for ea in local]
+            self._fwd, self._rev = (
+                _edges_dict(ea, blk, self.device) if ea is not None else None
+                for ea, blk in zip(local, blks))
         self._hybrid_plan: Optional[dict] = None
         self._hybrid_cache: dict = {}
         self._hybrid_layouts: dict = {}
+        self._hyb_tier_cache: dict = {}
         if backend == HYBRID:
             if pg.source is None:
                 raise ValueError(
@@ -769,8 +873,10 @@ class BSPEngine:
                     "partition with core.partition.partition()")
             self._splits = splits_of(pg)
             self._hybrid_plan = self._plan_hybrid(hybrid_k_dense, block_e)
-        elif direction_switch:
+        elif direction_switch and tiered is None:
             self._pull = self._build_pull_layout()
+        if tiered is not None:
+            self._bind_tiered(tiered, win_blocks)
 
     def _shard_parts(self, pg: PartitionedGraph) -> Tuple[int, int]:
         """The partitions ``[lo, hi)`` this engine holds: all of them."""
@@ -781,6 +887,12 @@ class BSPEngine:
         return self._splits.plan(k_dense, block_e)
 
     def edges_for(self, program: VertexProgram) -> dict:
+        if self.tier_plan is not None:
+            raise ValueError(
+                "engine is tiered (out-of-core): cold partitions' edges "
+                "live in host window arenas, not one resident edges dict; "
+                "run through execute() (the streaming path) or rebuild the "
+                "engine without tiered=")
         if program.use_reverse:
             if self._rev is None:
                 raise ValueError("program needs reverse edges; partition with "
@@ -923,13 +1035,7 @@ class BSPEngine:
             return hit
         g = self._splits.graph(reverse)
         layout = self._splits.layout(self._hybrid_plan["k_dense"], reverse)
-        asg = self.pg.assignment
-        slot = (asg.part_of[layout.perm].astype(np.int64) * self.pg.v_max
-                + asg.local_id[layout.perm])
-        hid = np.full((self.pg.num_parts, self.pg.v_max), g.num_vertices,
-                      dtype=np.int64)
-        for p, l2g in enumerate(asg.l2g):
-            hid[p, : len(l2g)] = layout.inv_perm[l2g]
+        slot, hid = self._slot_hid(layout, g.num_vertices)
         shared = dict(row_ptr=self._put(layout.row_ptr, torch.int32),
                       plan=layout.plan.to(self.device),
                       col=self._put(layout.src[layout.rest], torch.int32),
@@ -937,6 +1043,30 @@ class BSPEngine:
                       hid=self._put(hid, torch.int64))
         self._hybrid_layouts[reverse] = (g, layout, shared)
         return g, layout, shared
+
+    def _slot_hid(self, layout, n: int) -> Tuple[np.ndarray, np.ndarray]:
+        """``slot [n]``: each hybrid id's flat ``[Pl * v_max]`` position;
+        ``hid [P, v_max]``: each position's hybrid id (``n`` for padding)."""
+        asg = self.pg.assignment
+        slot = (asg.part_of[layout.perm].astype(np.int64) * self.pg.v_max
+                + asg.local_id[layout.perm])
+        hid = np.full((self.pg.num_parts, self.pg.v_max), n, dtype=np.int64)
+        for p, l2g in enumerate(asg.l2g):
+            hid[p, : len(l2g)] = layout.inv_perm[l2g]
+        return slot, hid
+
+    def _hybrid_cfg(self, program: VertexProgram, g, hg) -> _HybridCfg:
+        n = g.num_vertices
+        thr = self._pull_threshold
+        if thr is None:
+            thr = perf_model.fit_pull_threshold(g.num_edges / max(n, 1),
+                                                hg.kmax, backend=HYBRID)
+        return _HybridCfg(semiring=self._hybrid_semiring(program),
+                          k_dense=hg.k_dense, num_vertices=n, kmax=hg.kmax,
+                          pull_threshold=float(thr),
+                          forced=_DIRECTIONS[self.direction],
+                          uniform=program.edge_msg.frontier_uniform,
+                          e_dense=int(hg.k_dense) ** 2)
 
     def _build_hybrid(self, program: VertexProgram) -> Tuple[_HybridCfg,
                                                              dict]:
@@ -953,18 +1083,7 @@ class BSPEngine:
             arrs["push_dst"] = self._put(layout.dst, torch.int64)
             if semiring == MIN_PLUS and g.weights is not None:
                 arrs["push_w"] = self._put(g.weights, torch.float32)
-        n = g.num_vertices
-        thr = self._pull_threshold
-        if thr is None:
-            thr = perf_model.fit_pull_threshold(g.num_edges / max(n, 1),
-                                                hg.kmax, backend=HYBRID)
-        cfg = _HybridCfg(semiring=semiring, k_dense=hg.k_dense,
-                         num_vertices=n, kmax=hg.kmax,
-                         pull_threshold=float(thr),
-                         forced=_DIRECTIONS[self.direction],
-                         uniform=program.edge_msg.frontier_uniform,
-                         e_dense=int(hg.k_dense) ** 2)
-        return cfg, arrs
+        return self._hybrid_cfg(program, g, hg), arrs
 
     def hybrid_for(self, program: VertexProgram) -> Tuple[_HybridCfg, dict]:
         """The split ``program`` runs on: its static cfg and device tensors
@@ -980,7 +1099,10 @@ class BSPEngine:
                            state: State) -> bool:
         """Does ``execute`` carry the direction leaves through ``program``?
         On the hybrid backend every eligible min program votes (its push
-        edges come with the split); elsewhere see ``_dopt_cfg_for``."""
+        edges come with the split); elsewhere see ``_dopt_cfg_for``.  A
+        tiered engine runs one direction only."""
+        if self.tier_plan is not None:
+            return False
         if self._uses_hybrid(program):
             return self._direction_switch and program.combine == MIN
         return self._dopt_cfg_for(program, state) is not None
@@ -1002,6 +1124,10 @@ class BSPEngine:
 
     def _step_fn(self, program: VertexProgram,
                  dopt_cfg: Optional[_DoptCfg] = None) -> Callable:
+        if self.tier_plan is not None:
+            if self._uses_hybrid(program):
+                return self._tiered_hybrid_step_fn(program)
+            return self._tiered_step_fn(program)
         if self._uses_hybrid(program):
             return self._hybrid_step_fn(program)
         edges = self.edges_for(program)
@@ -1014,6 +1140,307 @@ class BSPEngine:
                               self._all_finished, block_e, state, step,
                               dopt_cfg, pull)
         return step_fn
+
+    # ---------------------- tiered (out-of-core) ----------------------------
+
+    def _bind_tiered(self, tiered, win_blocks: int) -> None:
+        """Split the partitions over the device and host tiers.
+
+        The hot partitions' arrays go on the device once; each cold
+        partition's become clean-cut windows in one pinned host arena per
+        direction, and one pair of device window buffers serves every
+        window of both directions.  The fused backend keeps the block
+        arrays its kernel reads; a window holds its blocks, their bases
+        less the window's first segment, so the kernel reduces it into an
+        accumulator of the window's segments only (its runs depend on id
+        equality alone).  The reference and hybrid backends keep the
+        reference compute's ``src``/``dst_ext``/``weight`` (the hybrid
+        streams them for programs it cannot split; its split tiers by
+        rows, ``_hybrid_tiered_for``).
+        """
+        pg, block_e, dev = self.pg, self._block_e, self.device
+        plan = tiered if isinstance(tiered, TierPlan) else build_tier_plan(
+            pg, int(tiered), block_e=block_e, win_blocks=win_blocks,
+            fused=self.fused)
+        if plan.fwd.block_e != block_e:
+            raise ValueError(f"the tier plan cuts windows at block_e="
+                             f"{plan.fwd.block_e}, the engine's is {block_e}")
+        self.tier_plan = plan
+        hot = [int(p) for p in plan.hot]
+        if hot and hot == list(range(hot[0], hot[-1] + 1)):
+            self._tier_hot = slice(hot[0], hot[-1] + 1)     # views
+        else:
+            self._tier_hot = torch.as_tensor(hot, dtype=torch.int64,
+                                             device=dev)
+        i32, i64, f32 = torch.int32, torch.int64, torch.float32
+        win_e = plan.fwd.win_e
+        self._tier: Dict[bool, _TierDir] = {}
+        sizes: dict = {}
+        for use_rev, ea, sched in ((False, pg.fwd, plan.fwd),
+                                   (True, pg.rev, plan.rev)):
+            if ea is None or sched is None:
+                continue
+            if self.fused:
+                blk = build_block_metadata(ea, block_e=block_e)
+                arrays = dict(blk_src=(blk.src, i32),
+                              blk_local=(blk.local, i32),
+                              blk_mask=(blk.mask, i32),
+                              blk_base=(blk.base, i32))
+                if blk.weight is not None:
+                    arrays["weight_blk"] = (blk.weight, f32)
+            else:
+                arrays = dict(src=(ea.src, i64), dst_ext=(ea.dst_ext, i64))
+                if ea.weight is not None:
+                    arrays["weight"] = (ea.weight, f32)
+            hot_dev = ({k: self._put(a[hot], dt)
+                        for k, (a, dt) in arrays.items()} if hot else None)
+            windows, meta = [], []
+            for p, st, cnt in zip(sched.part, sched.start, sched.count):
+                p, st, cnt = int(p), int(st), int(cnt)
+                lo = int(ea.dst_ext[p, st])
+                nseg = int(ea.dst_ext[p, st + cnt - 1]) - lo + 1
+                if self.fused:
+                    nb = -(-cnt // block_e)
+                    end = st + nb * block_e
+                    w = {k: a[p, st:end] for k, (a, _) in arrays.items()
+                         if k != "blk_base"}
+                    b0 = st // block_e
+                    w["blk_base"] = blk.base[p, b0:b0 + nb] - lo
+                else:
+                    w = {k: a[p, st:st + cnt].astype(
+                        np.float32 if dt == f32 else np.int64)
+                        for k, (a, dt) in arrays.items()}
+                    w["dst_ext"] = w["dst_ext"] - lo
+                windows.append(w)
+                meta.append((p, lo, nseg))
+            arena = None
+            if windows:
+                arena = HostArena(windows, pin=dev.type == "cuda")
+                self.tiered_buffers_made += 1
+                for k, (_, dt) in arrays.items():
+                    sizes[k] = (dt, sched.win_blocks if k == "blk_base"
+                                else win_e)
+            self._tier[use_rev] = _TierDir(
+                dims=_Dims(pg.num_parts, pg.v_max, ea.e_max, ea.o_max),
+                inbox_dst=self._put(ea.inbox_dst, i64), hot=hot_dev,
+                arena=arena, meta=tuple(meta))
+        self._tier_stream = None
+        if sizes:
+            self._tier_stream = WindowStream(sizes, dev)
+            self.tiered_buffers_made += 1
+
+    def _tiered_step_fn(self, program: VertexProgram) -> Callable:
+        """One tiered superstep (reference and fused backends): the hot
+        partitions' compute into the identity-filled ``[Q, P, seg]``
+        accumulator, each streamed window's compute written over its own
+        segment range of row ``p`` (clean cuts: no other window has an edge
+        there), then the resident superstep's tail."""
+        td = self._tier.get(bool(program.use_reverse))
+        if td is None:
+            raise ValueError("program needs reverse edges; partition with "
+                             "include_reverse=True")
+        spec = program.edge_msg
+        fused = self.fused and spec is not None
+        dims, hot, stream = td.dims, self._tier_hot, self._tier_stream
+
+        def step_fn(state, step):
+            if fused:
+                vstate, scal = _fused_inputs(spec, state, step)
+
+                def compute(e, sel, nseg):
+                    return fused_superstep_op(
+                        spec, vstate[:, sel],
+                        e.get("weight_blk") if spec.use_weight else None,
+                        scal[:, sel], e["blk_src"], e["blk_local"],
+                        e["blk_mask"], e["blk_base"], None,
+                        num_segments=nseg, combine=program.combine,
+                        block_e=self._block_e)
+            else:
+                def compute(e, sel, nseg):
+                    msgs = program.edge_fn({k: v[:, sel]
+                                            for k, v in state.items()},
+                                           e["src"], e.get("weight"),
+                                           float(step))
+                    return segment_reduce_ref(msgs, e["dst_ext"], nseg,
+                                              program.combine)
+
+            wins = (stream.windows(td.arena) if td.arena is not None
+                    else iter(()))
+            acc = None
+            if td.hot is not None:
+                acc_h = compute(td.hot, hot, dims.seg)
+                acc = _identity_acc(program, state, dims, acc_h.dtype)
+                acc[:, hot] = acc_h
+            for w, views in wins:
+                p, lo, nseg = td.meta[w]
+                acc_w = compute({k: v[None] for k, v in views.items()},
+                                slice(p, p + 1), nseg)
+                if acc is None:
+                    acc = _identity_acc(program, state, dims, acc_w.dtype)
+                acc[:, p, lo:lo + nseg] = acc_w[:, 0]
+            if acc is None:
+                acc = _identity_acc(program, state, dims, torch.float32)
+            return _finish_superstep(dims, program, td.inbox_dst,
+                                     self._exchange, self._all_finished, acc,
+                                     state, step, None)
+        return step_fn
+
+    def _hybrid_tiered_for(self, program: VertexProgram) -> _HybridTier:
+        """The row-tiered degree split ``program`` runs on, built at its
+        first run and cached like ``hybrid_for``.
+
+        Rows whose vertex lies in a hot partition stay on the device as a
+        compacted CSR; the cold rows stream in windows of ``max(8,
+        min(n_cold, block_e))`` rows, as in the JAX package.  Each cut
+        gets its own row plan with every row's lane count taken from the
+        split's plan (``row_plan(lanes=)``), so every row reduces as in
+        the resident engine.  The dense block stays resident.
+        """
+        key = self._hybrid_key(program)
+        hit = self._hyb_tier_cache.get(key)
+        if hit is not None:
+            return hit
+        semiring = self._hybrid_semiring(program)
+        rev, k = program.use_reverse, self._hybrid_plan["k_dense"]
+        g = self._splits.graph(rev)
+        layout = self._splits.layout(k, rev)
+        hg = self._splits.split(k, rev, semiring, program.edge_msg.use_weight)
+        n = g.num_vertices
+        slot, hid = self._slot_hid(layout, n)
+        rp = layout.row_ptr.astype(np.int64)
+        lens = np.diff(rp)
+        col_all = layout.src[layout.rest]
+        lanes = plan_lanes(layout.plan)
+        with_val = semiring != "min"        # min reads no edge values
+
+        def cut(sel):
+            ptr = np.zeros(len(sel) + 1, dtype=np.int64)
+            np.cumsum(lens[sel], out=ptr[1:])
+            idx = np.repeat(rp[sel] - ptr[:-1], lens[sel]) + np.arange(
+                ptr[-1])
+            return (ptr, col_all[idx], hg.ell_val[idx],
+                    row_plan(ptr, lanes=lanes[sel]))
+
+        cold = np.isin(slot // self.pg.v_max, self.tier_plan.cold)
+        hot_rows, cold_rows = np.flatnonzero(~cold), np.flatnonzero(cold)
+        put = self._put
+        arrs = dict(slot=put(slot, torch.int64), hid=put(hid, torch.int64),
+                    dense=put(hg.dense_block, torch.float32))
+        if len(hot_rows):
+            ptr, col, val, plan = cut(hot_rows)
+            arrs.update(row_ptr=put(ptr, torch.int32),
+                        col=put(col, torch.int32), plan=plan.to(self.device),
+                        rows=put(hot_rows, torch.int64))
+            if with_val:
+                arrs["val"] = put(val, torch.float32)
+        windows, meta = [], []
+        if len(cold_rows):
+            win_rows = max(8, min(len(cold_rows), self._block_e))
+            for s0 in range(0, len(cold_rows), win_rows):
+                sel = cold_rows[s0:s0 + win_rows]
+                ptr, col, val, plan = cut(sel)
+                w = dict(row_ptr=ptr.astype(np.int32),
+                         col=col.astype(np.int32), rows=sel,
+                         blocks=np.asarray(plan.blocks, np.int32),
+                         long_rows=np.asarray(plan.long_rows, np.int32))
+                if with_val:
+                    w["val"] = val.astype(np.float32)
+                windows.append(w)
+                meta.append((len(sel), len(col), plan.num_partials))
+        arena = stream = None
+        if windows:
+            arena = HostArena(windows, pin=self.device.type == "cuda")
+            stream = WindowStream(
+                {k: (t.dtype, arena.max_length(k))
+                 for k, t in arena.tensors.items()}, self.device)
+            self.tiered_buffers_made += 2
+        ent = _HybridTier(cfg=self._hybrid_cfg(program, g, hg), arrs=arrs,
+                          arena=arena, stream=stream, meta=tuple(meta))
+        self._hyb_tier_cache[key] = ent
+        return ent
+
+    def _tiered_hybrid_step_fn(self, program: VertexProgram) -> Callable:
+        """One row-tiered hybrid superstep, pull only: the sparse stage on
+        the hot rows, then on each streamed row window, each result set
+        into its rows of ``y``; then the resident dense stage and the
+        resident superstep's tail (``hybrid_spmv``'s stage order)."""
+        ht = self._hybrid_tiered_for(program)
+        cfg, arrs = ht.cfg, ht.arrs
+        ident = add_identity(cfg.semiring)
+
+        def step_fn(state, step):
+            _require_f32(program.edge_msg, state, HYBRID)
+            _, x = _hybrid_messages(program, arrs, state, step)   # [Q, n]
+            xq = query_minor_view(x, ident)
+            wins = (ht.stream.windows(ht.arena) if ht.arena is not None
+                    else iter(()))
+            y = torch.full((x.shape[0], cfg.num_vertices), ident,
+                           dtype=torch.float32, device=x.device)
+            if "rows" in arrs:
+                y[:, arrs["rows"]] = ell_spmv_op(
+                    arrs["row_ptr"], arrs["col"], arrs.get("val"), xq,
+                    semiring=cfg.semiring, plan=arrs["plan"])
+            for w, v in wins:
+                rows, slots, parts = ht.meta[w]
+                plan = EllPlan(v["blocks"].view(-1, 3),
+                               v["long_rows"].view(-1, 2), parts, rows, slots)
+                y[:, v["rows"]] = ell_spmv_op(
+                    v["row_ptr"], v["col"], v.get("val"), xq,
+                    semiring=cfg.semiring, plan=plan)
+            dense_stage(y, xq, arrs["dense"], semiring=cfg.semiring,
+                        k_dense=cfg.k_dense)
+            return _hybrid_finish(program, cfg, arrs["hid"], state, y, step,
+                                  None, None, None)
+        return step_fn
+
+    def residency_bytes(self, state_bytes: int = 4) -> dict:
+        """``{"hbm_bytes", "host_bytes", "total_bytes"}`` of the layout under
+        this engine's tier plan (all on the device without one): the paper's
+        Table 5 measure (``partition.memory_residency_bytes``)."""
+        return memory_residency_bytes(self.pg, tier_plan=self.tier_plan,
+                                      state_bytes=state_bytes)
+
+    def tiered_stats(self) -> Optional[dict]:
+        """The tier split's counters, or None on an all-resident engine.
+
+        Beside the plan's figures: ``device_arena_bytes``, the bytes of the
+        hot arenas and the window buffers the engine holds (equal to
+        ``tier_plan.hbm_bytes``), ``host_arena_bytes``, the pinned arenas'
+        bytes, ``row_tier_device_bytes``/``row_tier_host_bytes``, those of
+        the hybrid's row-tiered splits built so far, and ``buffers_made``,
+        the host arenas and window buffer pairs made so far.  The JAX
+        package's compile-cache count (``tiered_cache_entries``) has no
+        counterpart: eager PyTorch compiles nothing, and what stays fixed
+        across supersteps is ``buffers_made``."""
+        if self.tier_plan is None:
+            return None
+        plan = self.tier_plan
+        dev_bytes = sum(t.nbytes for td in self._tier.values()
+                        if td.hot is not None for t in td.hot.values())
+        if self._tier_stream is not None:
+            dev_bytes += self._tier_stream.nbytes
+        host = sum(td.arena.nbytes for td in self._tier.values()
+                   if td.arena is not None)
+        row_dev = row_host = 0
+        for ht in self._hyb_tier_cache.values():
+            row_dev += sum(t.nbytes for t in ht.arrs.values()
+                           if isinstance(t, torch.Tensor))
+            if "plan" in ht.arrs:
+                row_dev += sum(t.nbytes for t in ht.arrs["plan"][:2])
+            if ht.arena is not None:
+                row_dev += ht.stream.nbytes
+                row_host += ht.arena.nbytes
+        return dict(hbm_resident_bytes=int(plan.hbm_bytes),
+                    host_bytes=int(plan.host_bytes),
+                    streamed_bytes_per_superstep=int(
+                        plan.streamed_bytes_per_superstep),
+                    window_count=int(plan.window_count),
+                    num_hot=len(plan.hot), num_cold=len(plan.cold),
+                    device_arena_bytes=int(dev_bytes),
+                    host_arena_bytes=int(host),
+                    row_tier_device_bytes=int(row_dev),
+                    row_tier_host_bytes=int(row_host),
+                    buffers_made=self.tiered_buffers_made)
 
     def _local(self, state: State) -> State:
         """The engine's part of a global ``[Q, P, ...]`` state: all of it."""

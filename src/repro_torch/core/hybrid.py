@@ -704,6 +704,16 @@ def hybrid_spmv(dense: torch.Tensor, row_ptr: torch.Tensor,
     if squeeze:
         x = x[None]
     y = ell_spmv_op(row_ptr, col, val, x, semiring=semiring, plan=plan)
+    dense_stage(y, x, dense, semiring=semiring, k_dense=k_dense)
+    return y[0] if squeeze else y
+
+
+def dense_stage(y: torch.Tensor, x: torch.Tensor, dense: torch.Tensor, *,
+                semiring: str, k_dense: int) -> torch.Tensor:
+    """The dense stage of :func:`hybrid_spmv`, in place on the sparse
+    stage's ``y [Q, n]``: ``y[:, :k] ⊕= x[:, :k] ⊗ dense``.  The tiered
+    engine runs it after its streamed sparse stage, so both paths share
+    the stage order."""
     if k_dense:
         xd = x[:, :k_dense]
         if semiring == PLUS_TIMES:
@@ -711,7 +721,7 @@ def hybrid_spmv(dense: torch.Tensor, row_ptr: torch.Tensor,
         else:
             y[:, :k_dense] = torch.minimum(y[:, :k_dense],
                                            dense_spmv_minplus_op(xd, dense))
-    return y[0] if squeeze else y
+    return y
 
 
 def hybrid_spmv_scan(dense: torch.Tensor, row_ptr: torch.Tensor,

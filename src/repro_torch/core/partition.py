@@ -519,3 +519,231 @@ def build_transposed_csc(ea: EdgeArrays, v_max: int) -> TransposedCsc:
         kreal=kreal, deg_out=deg_out, deg_bnd=deg_bnd,
         kmax=max(1, int(kreal.max(initial=0))))
 
+
+
+# ---------------------------------------------------------------------------
+# Memory footprint (paper Table 5) and the tiered memory plan
+# ---------------------------------------------------------------------------
+
+def memory_footprint_bytes(pg: PartitionedGraph, state_bytes: int = 4,
+                           vid_bytes: int = 4, eid_bytes: int = 4,
+                           tier_plan=None) -> dict:
+    """Per-partition memory footprint, the analogue of paper Table 5.
+
+    The actual-size formula of §4.3.3:
+    ``eid*|Vp| + vid*|Ep| (+ w*|Ep|) + (vid+s)*|Vi| + (vid+s)*|Vo|``, kept
+    equal to the JAX package's (it models the paper's layout, not the
+    port's tensors).  Each record splits ``total`` by tier: ``tier``
+    (``"hbm"``, or ``"host"`` for a cold partition of ``tier_plan``),
+    ``hbm`` and ``host`` with ``hbm + host == total``.  A cold partition
+    keeps its graph bytes on the host; its state and outbox/inbox slots
+    stay on the device.  The JAX package's dynamic-graph overlay terms come
+    with dynamic graphs (ROADMAP Queue 1 item 11).
+    """
+    P = pg.num_parts
+    res = {}
+    cold = set() if tier_plan is None else set(int(p)
+                                               for p in tier_plan.cold)
+    w_bytes = 4 if pg.fwd.weight is not None else 0
+    for p in range(P):
+        vp = int(pg.assignment.part_sizes[p])
+        ep = int(pg.fwd.num_edges[p])
+        vo = int(pg.fwd.outbox_mask[p].sum())          # remote vertices we msg
+        vi = int(pg.fwd.outbox_mask[:, p].sum())       # local verts msg'd to
+        res[p] = dict(
+            graph=eid_bytes * vp + (vid_bytes + w_bytes) * ep,
+            outbox=(vid_bytes + state_bytes) * vo,
+            inbox=(vid_bytes + state_bytes) * vi,
+            state=state_bytes * vp,
+        )
+        res[p]["total"] = sum(res[p].values())
+        host = res[p]["graph"] if p in cold else 0
+        res[p]["tier"] = "host" if p in cold else "hbm"
+        res[p]["hbm"] = res[p]["total"] - host
+        res[p]["host"] = host
+    return res
+
+
+def memory_residency_bytes(pg: PartitionedGraph, tier_plan=None,
+                           state_bytes: int = 4) -> dict:
+    """Device and host residency of a (possibly tiered) layout: the sums of
+    :func:`memory_footprint_bytes`'s tiers, the device side with the two
+    window buffers added.  ``hbm_bytes`` is what occupies device memory,
+    ``host_bytes`` what lives in pinned host memory, ``total_bytes`` both.
+    """
+    per = memory_footprint_bytes(pg, state_bytes=state_bytes,
+                                 tier_plan=tier_plan)
+    hbm = sum(rec["hbm"] for rec in per.values())
+    host = sum(rec["host"] for rec in per.values())
+    if tier_plan is not None:
+        hbm += int(tier_plan.stream_buffer_bytes)
+    return dict(hbm_bytes=int(hbm), host_bytes=int(host),
+                total_bytes=int(hbm + host))
+
+
+@dataclasses.dataclass
+class WindowSchedule:
+    """One direction's clean-cut streaming windows over the cold partitions.
+
+    Every window is a run of at most ``win_blocks`` edge blocks of one cold
+    partition, cut only at block boundaries that no destination run
+    straddles.  Edges are ``dst_ext``-sorted per partition, so each
+    extended segment receives its real edges from exactly one window, and
+    a window's segments form the range ``[dst_ext[start],
+    dst_ext[start + count - 1]]``.  A window holds at most
+    ``win_e = win_blocks * block_e`` edge slots.
+    """
+
+    block_e: int
+    win_blocks: int
+    part: np.ndarray     # [W] int32 partition id of each window
+    start: np.ndarray    # [W] int64 first edge slot covered
+    count: np.ndarray    # [W] int64 real edge slots covered (<= win_e)
+
+    @property
+    def win_e(self) -> int:
+        return self.win_blocks * self.block_e
+
+    @property
+    def num_windows(self) -> int:
+        return len(self.part)
+
+
+def _clean_cut_windows(ea: EdgeArrays, cold, block_e: int,
+                       win_blocks: int) -> WindowSchedule:
+    """Greedy clean-cut schedule: per cold partition, walk the blocks and
+    cut each window at the latest clean boundary within ``win_blocks``."""
+    part, start, count = [], [], []
+    for p in cold:
+        p = int(p)
+        k = int(ea.num_edges[p])
+        if k == 0:
+            continue
+        nb_used = -(-k // block_e)
+        dst = ea.dst_ext[p]
+        cur = 0
+        while cur < nb_used:
+            want = min(cur + win_blocks, nb_used)
+            b = want
+            while b > cur:
+                i = b * block_e
+                if i >= k or dst[i - 1] != dst[i]:
+                    break                        # clean boundary
+                b -= 1
+            if b == cur:
+                run = int(np.max(np.bincount(
+                    dst[cur * block_e: min(k, want * block_e)])))
+                raise ValueError(
+                    f"partition {p}: a destination run of {run} edges "
+                    f"spans more than win_blocks*block_e = "
+                    f"{win_blocks * block_e} edge slots, so no clean "
+                    f"window cut exists; raise win_blocks (or block_e) "
+                    f"past the longest destination run")
+            part.append(p)
+            start.append(cur * block_e)
+            count.append(min(k, b * block_e) - cur * block_e)
+            cur = b
+    return WindowSchedule(
+        block_e=block_e, win_blocks=win_blocks,
+        part=np.asarray(part, dtype=np.int32),
+        start=np.asarray(start, dtype=np.int64),
+        count=np.asarray(count, dtype=np.int64))
+
+
+@dataclasses.dataclass
+class TierPlan:
+    """The device/host residency that ``perf_model.choose_tier_split``
+    picked for one partitioned graph.
+
+    ``hot`` partitions keep their edge arenas on the device; ``cold``
+    partitions' arenas live in pinned host memory and stream through the
+    superstep in the windows of ``fwd``/``rev``.  ``hbm_bytes`` (the hot
+    arenas plus ``stream_buffer_bytes``, the two window buffers) is the
+    device bytes the tiered engine's arenas take, counted in its own
+    dtypes (:func:`_arena_bytes_per_edge`), and at most
+    ``hbm_budget_bytes``.  ``host_bytes`` is the same measure of the cold
+    arenas.
+    """
+
+    hbm_budget_bytes: int
+    hot: np.ndarray                      # sorted int32, device-resident
+    cold: np.ndarray                     # sorted int32, host-resident
+    fwd: WindowSchedule
+    rev: Optional[WindowSchedule]
+    hbm_bytes: int                       # hot arenas + stream_buffer_bytes
+    host_bytes: int                      # cold arenas (pinned host memory)
+    streamed_bytes_per_superstep: int
+    stream_buffer_bytes: int             # the two in-flight window buffers
+    table: List[dict]                    # perf_model.rank_tier_split table
+
+    @property
+    def window_count(self) -> int:
+        return self.fwd.num_windows + (self.rev.num_windows
+                                       if self.rev is not None else 0)
+
+
+def _arena_bytes_per_edge(weighted: bool, fused: bool) -> int:
+    """Device bytes per edge slot of the tiered engine's arenas, the arrays
+    its compute reads in their dtypes: the fused kernel's block arrays
+    (``blk_src``/``blk_local``/``blk_mask`` int32, ``weight_blk`` f32), or
+    the reference compute's ``src``/``dst_ext`` (int64, the index dtype of
+    ``torch.gather`` and ``scatter_reduce``) and ``weight`` (f32).  The
+    JAX package counts 4-byte ids and both flavors' arrays on the fused
+    backend."""
+    w = 4 if weighted else 0
+    return 12 + w if fused else 16 + w
+
+
+def build_tier_plan(pg: PartitionedGraph, hbm_budget_bytes: int, *,
+                    block_e: int = 1024, win_blocks: int = 8,
+                    fused: bool = True) -> TierPlan:
+    """The :class:`TierPlan` of ``pg`` under a device byte budget.
+
+    ``perf_model.choose_tier_split`` picks the hot partitions (densest
+    first); this adds the clean-cut window schedules of both directions
+    and the byte accounting of the arenas the tiered engine puts on the
+    card: ``fused=True`` the fused backend's block arrays (``[P, e_pad]``
+    and a base per block), ``fused=False`` the reference compute's edge
+    arrays (``[P, e_max]``).  The hot/cold choice and the schedules equal
+    the JAX package's for the same table row; the bytes differ by dtype.
+    """
+    from repro_torch.core import perf_model
+
+    P = pg.num_parts
+    weighted = pg.fwd.weight is not None
+    per_edge = _arena_bytes_per_edge(weighted, fused)
+    win_e = win_blocks * block_e
+
+    def _dir_bytes(ea: EdgeArrays) -> int:
+        if not fused:
+            return per_edge * ea.e_max
+        e_pad = max(_round_up(ea.e_max, block_e), block_e)
+        return per_edge * e_pad + 4 * (e_pad // block_e)
+
+    part_bytes = np.full(P, _dir_bytes(pg.fwd), dtype=np.int64)
+    if pg.rev is not None:
+        part_bytes += _dir_bytes(pg.rev)
+    window_bytes = per_edge * win_e + (4 * win_blocks if fused else 0)
+
+    part_edges = np.asarray(pg.fwd.num_edges, dtype=np.int64).copy()
+    if pg.rev is not None:
+        part_edges += np.asarray(pg.rev.num_edges, dtype=np.int64)
+    hot, table = perf_model.choose_tier_split(
+        part_bytes, int(hbm_budget_bytes), part_edges=part_edges,
+        window_bytes=window_bytes)
+    hot = np.asarray(sorted(hot), dtype=np.int32)
+    cold = np.asarray([p for p in range(P) if p not in set(hot.tolist())],
+                      dtype=np.int32)
+
+    fwd_sched = _clean_cut_windows(pg.fwd, cold, block_e, win_blocks)
+    rev_sched = (_clean_cut_windows(pg.rev, cold, block_e, win_blocks)
+                 if pg.rev is not None else None)
+    buffers = 0 if len(cold) == 0 else 2 * window_bytes
+    hot_bytes = int(part_bytes[hot].sum()) if len(hot) else 0
+    host_bytes = int(part_bytes[cold].sum()) if len(cold) else 0
+    return TierPlan(
+        hbm_budget_bytes=int(hbm_budget_bytes), hot=hot, cold=cold,
+        fwd=fwd_sched, rev=rev_sched,
+        hbm_bytes=hot_bytes + buffers, host_bytes=host_bytes,
+        streamed_bytes_per_superstep=host_bytes,
+        stream_buffer_bytes=buffers, table=table)

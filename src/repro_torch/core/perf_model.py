@@ -1,9 +1,18 @@
-"""The push/pull crossover of direction-optimized traversal and the hybrid
-backend's degree-split planner.
+"""The paper's performance model (§3), the push/pull crossover of
+direction-optimized traversal, the hybrid backend's degree-split planner
+and the tiered-memory split.
 
-A copy of the JAX package's ``repro.core.perf_model`` (its direction and
-degree-split parts), so an engine of the port votes for the same direction
-and picks the same dense block |H| as the JAX package's on the same graph.
+Equations (paper §3.2):
+
+  t(G_p)   = |E_p^b| / c + |E_p| / r_p                         (Eq. 1)
+  makespan = max_p t(G_p)                                      (Eq. 2)
+  speedup  = t_cpu(G) / makespan                               (Eq. 3)
+           = c / (beta * r_cpu + alpha * c)                    (Eq. 4)
+
+A copy of the JAX package's ``repro.core.perf_model`` (all of it but the
+dynamic graphs' ``should_resplit``), so an engine of the port votes for the
+same direction, picks the same dense block |H| and keeps the same
+partitions on the device as the JAX package's on the same graph.
 
 Every constant below is that package's model of its own accelerator, kept
 under the package's names; none was fitted on a GPU.  ``DIRECTION_GAMMA``
@@ -17,9 +26,18 @@ model of the card's own rates, fitted from measurement, is later work.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 
 DIRECTION_GAMMA = {"hybrid": 1.0, "fused": 1.5, "reference": 2.0}
+
+# The paper's Figure 1 values (2013 commodity parts).
+PAPER_PCIE_GBPS = 12.0e9            # measured PCI-E gen3 bandwidth, B/s
+PAPER_BYTES_PER_EDGE_MSG = 4.0      # 4-byte update per boundary edge
+PAPER_C = PAPER_PCIE_GBPS / PAPER_BYTES_PER_EDGE_MSG   # 3 BE/s (paper)
+PAPER_R_CPU = 1.0e9                 # ~1 BE/s (Nguyen et al. 2013 bests)
+PAPER_R_GPU = 3.0e9
 
 # The JAX package's accelerator model (see the module docstring).
 TPU_PEAK_FLOPS = 197e12
@@ -27,6 +45,76 @@ TPU_HBM_BW = 819e9
 TPU_ICI_LINK_BW = 50e9
 TPU_ICI_LINKS = 4
 TPU_VMEM_BYTES = 128 * 1024 * 1024
+# Its pinned-host-to-device streaming rate, the host-link term of the tier
+# split (:func:`host_stream_time`).  It sets only the predicted times:
+# the split itself is the longest densest-first prefix that fits the
+# budget, whatever the rates.
+HOST_STREAM_BW = 16.0e9
+
+
+@dataclasses.dataclass
+class ModelParams:
+    """Parameters of Eq. 1-4."""
+
+    r_bottleneck: float   # edges/s of the bottleneck element ("CPU")
+    r_fast: float         # edges/s of the offload target ("GPU")
+    c: float              # boundary edges/s over the interconnect
+
+    @classmethod
+    def paper_defaults(cls) -> "ModelParams":
+        return cls(r_bottleneck=PAPER_R_CPU, r_fast=PAPER_R_GPU, c=PAPER_C)
+
+    @classmethod
+    def tpu_defaults(cls, bytes_per_edge: float = 8.0,
+                     msg_bytes: float = 4.0) -> "ModelParams":
+        """The JAX package's accelerator rates from first principles: the
+        gather path moves ``bytes_per_edge`` per edge from memory, a dense
+        edge costs 2 operations at peak, and the interconnect carries
+        ``msg_bytes`` per boundary edge over all links."""
+        return cls(r_bottleneck=TPU_HBM_BW / bytes_per_edge,
+                   r_fast=TPU_PEAK_FLOPS / 2.0,
+                   c=TPU_ICI_LINK_BW * TPU_ICI_LINKS / msg_bytes)
+
+
+def partition_time(num_edges: float, num_boundary: float, rate: float,
+                   c: float) -> float:
+    """Eq. 1: time to process one partition."""
+    return num_boundary / c + num_edges / rate
+
+
+def makespan(edge_counts, boundary_counts, rates, c: float) -> float:
+    """Eq. 2: the slowest element bounds the system."""
+    return max(partition_time(e, b, r, c)
+               for e, b, r in zip(edge_counts, boundary_counts, rates))
+
+
+def speedup(alpha: float, beta: float, r_cpu: float, c: float) -> float:
+    """Eq. 4: predicted hybrid speedup over bottleneck-only processing."""
+    return c / (beta * r_cpu + alpha * c)
+
+
+def speedup_curve(alphas, beta: float, r_cpu: float, c: float) -> np.ndarray:
+    return np.array([speedup(a, beta, r_cpu, c)
+                     for a in np.atleast_1d(alphas)])
+
+
+def mxu_crossover_density(bytes_per_edge: float = 8.0,
+                          peak_flops: float = TPU_PEAK_FLOPS,
+                          hbm_bw: float = TPU_HBM_BW) -> float:
+    """Density above which the dense path beats the memory-bound gather
+    path: gather rate ``hbm_bw / bytes_per_edge`` against dense rate
+    ``peak / 2 * density`` cross at ``2 * hbm_bw / (bytes_per_edge *
+    peak)``."""
+    return 2.0 * hbm_bw / (bytes_per_edge * peak_flops)
+
+
+def predicted_vs_measured(pred: np.ndarray, meas: np.ndarray) -> dict:
+    """Pearson correlation and average error (paper Table 3's metrics)."""
+    pred = np.asarray(pred, dtype=np.float64)
+    meas = np.asarray(meas, dtype=np.float64)
+    corr = float(np.corrcoef(pred, meas)[0, 1]) if len(pred) > 1 else 1.0
+    avg_err = float(np.mean((pred - meas) / meas))
+    return dict(correlation=corr, avg_error=avg_err)
 
 
 def fit_pull_threshold(avg_degree: float, kmax: int | None = None, *,
@@ -214,3 +302,79 @@ def split_mode(k_dense: int, num_vertices: int, e_sparse: int) -> str:
     if e_sparse == 0 or k_dense >= num_vertices:
         return "dense"
     return "hybrid"
+
+
+# ---------------------------------------------------------------------------
+# Tiered-memory split selection (out-of-core, ``core/partition.py::
+# build_tier_plan``)
+# ---------------------------------------------------------------------------
+
+def host_stream_time(streamed_bytes: float,
+                     stream_bw: float = HOST_STREAM_BW) -> float:
+    """The host-link term: seconds to stream ``streamed_bytes`` of cold
+    edge arenas from pinned host memory per superstep.  It sits beside
+    Eq. 1's ``|E_p^b| / c``: one more bandwidth term of the same shape."""
+    return float(streamed_bytes) / max(stream_bw, 1e-30)
+
+
+def rank_tier_split(part_bytes, hbm_budget_bytes: int, *,
+                    part_edges=None, window_bytes: int = 0,
+                    stream_bw: float = HOST_STREAM_BW,
+                    bytes_per_edge: float = 8.0) -> list:
+    """Predict the superstep time of every device/host cut (Eq. 1 + the
+    stream).
+
+    ``part_bytes[p]`` is partition ``p``'s device edge-arena bytes.
+    Partitions rank densest-first (most real edges, ties by id) and the
+    candidate ``h`` keeps the first ``h`` of that order on the device.  A
+    cut is feasible when the hot arenas plus the two window buffers
+    (``2 * window_bytes``; the all-resident cut needs none) fit the budget.
+    One record per candidate: the compute term (``edges / gather rate``),
+    the stream term (:func:`host_stream_time` of the cold bytes) and their
+    sum, the makespan.
+    """
+    part_bytes = np.asarray(part_bytes, dtype=np.int64)
+    P = len(part_bytes)
+    if part_edges is None:
+        part_edges = part_bytes / max(bytes_per_edge, 1e-30)
+    part_edges = np.asarray(part_edges, dtype=np.float64)
+    order = np.lexsort((np.arange(P), -part_edges))
+    r_gather = TPU_HBM_BW / bytes_per_edge
+    total_edges = float(part_edges.sum())
+    table = []
+    for h in range(P + 1):
+        hot, cold = order[:h], order[h:]
+        hot_bytes = int(part_bytes[hot].sum())
+        host_bytes = int(part_bytes[cold].sum())
+        buffers = 0 if h == P else 2 * int(window_bytes)
+        t_stream = host_stream_time(host_bytes, stream_bw)
+        t_compute = total_edges / r_gather
+        table.append(dict(
+            num_hot=h, hot=tuple(int(p) for p in np.sort(hot)),
+            hbm_bytes=hot_bytes + buffers, host_bytes=host_bytes,
+            streamed_bytes_per_superstep=host_bytes,
+            t_stream=t_stream, t_compute=t_compute,
+            makespan=t_compute + t_stream,
+            feasible=hot_bytes + buffers <= hbm_budget_bytes))
+    return table
+
+
+def choose_tier_split(part_bytes, hbm_budget_bytes: int,
+                      **kwargs) -> "tuple[tuple, list]":
+    """Pick the device/host boundary: the feasible cut of least makespan.
+
+    Streaming only adds time, so that is the longest densest-first prefix
+    whose arenas fit, and a larger budget keeps a superset hot.  Returns
+    ``(hot_ids, table)``; raises when even the all-cold cut (the two
+    window buffers) does not fit.
+    """
+    table = rank_tier_split(part_bytes, hbm_budget_bytes, **kwargs)
+    feasible = [rec for rec in table if rec["feasible"]]
+    if not feasible:
+        need = min(rec["hbm_bytes"] for rec in table)
+        raise ValueError(
+            f"hbm_budget_bytes={hbm_budget_bytes} cannot hold even the "
+            f"streaming double-buffer (needs >= {need} bytes); raise the "
+            f"budget or shrink the window (smaller win_blocks/block_e)")
+    best = min(feasible, key=lambda rec: (rec["makespan"], -rec["num_hot"]))
+    return best["hot"], table

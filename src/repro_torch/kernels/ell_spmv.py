@@ -92,7 +92,7 @@ def _pow2_ceil(n: np.ndarray) -> np.ndarray:
         np.int64))
 
 
-def row_plan(row_ptr: Array) -> EllPlan:
+def row_plan(row_ptr: Array, lanes: Optional[np.ndarray] = None) -> EllPlan:
     """Cut CSR rows into the kernel's blocks, in row order.
 
     Consecutive rows form a run while their slots fit ``BUDGET`` and they
@@ -101,11 +101,23 @@ def row_plan(row_ptr: Array) -> EllPlan:
     larger of the power of two at or below its mean row length (at most
     32) and the least power of two that keeps every lane's share of its
     longest row within ``LANE_RUN`` slots.  Every row lies in exactly one
-    run or in its chunks."""
+    run or in its chunks.
+
+    ``lanes [V]`` (:func:`plan_lanes` of another plan, at these rows)
+    prescribes each row's ``L`` instead: runs also end where it changes.
+    A row's sum depends only on its slots, its ``L`` and whether it is
+    chunked (its length), so rows cut out of a planned split and planned
+    again this way reduce bit for bit as they did there."""
     rp = np.asarray(torch.as_tensor(row_ptr).cpu() if isinstance(
         row_ptr, torch.Tensor) else row_ptr, dtype=np.int64)
     v = len(rp) - 1
     lens = np.diff(rp)
+    if lanes is not None:
+        lanes = np.asarray(lanes, dtype=np.int64)
+        if lanes.shape != (v,):
+            raise ValueError(f"lanes must give each of the {v} rows its "
+                             f"lane count, got shape {lanes.shape}")
+        changes = np.flatnonzero(np.diff(lanes)) + 1
     runs, chunks, long_rows = [], [], []
     parts = 0
     r = 0
@@ -120,10 +132,23 @@ def row_plan(row_ptr: Array) -> EllPlan:
             continue
         end = int(np.searchsorted(rp, rp[r] + BUDGET, side="right")) - 1
         end = min(end, r + RUN_ROWS, v)
+        if lanes is not None:
+            i = np.searchsorted(changes, r, side="right")
+            if i < len(changes):
+                end = min(end, int(changes[i]))
         runs.append((r, end))
         r = end
     blocks = np.zeros((len(runs) + len(chunks), 3), dtype=np.int32)
-    if runs:
+    if runs and lanes is not None:
+        run = np.asarray(runs, dtype=np.int64)
+        got = lanes[run[:, 0]]
+        if not np.all((got >= 1) & (got <= 32) & ((got & (got - 1)) == 0)):
+            raise ValueError("a run's prescribed lane count is not a power "
+                             "of two in [1, 32]: the lanes belong to other "
+                             "rows")
+        blocks[:len(runs), :2] = run
+        blocks[:len(runs), 2] = got
+    elif runs:
         run = np.asarray(runs, dtype=np.int64)
         starts, ends = run[:, 0], run[:, 1]
         # only long rows lie between runs: zeroed, they leave each run's
@@ -141,6 +166,20 @@ def row_plan(row_ptr: Array) -> EllPlan:
     return EllPlan(blocks,
                    np.asarray(long_rows, dtype=np.int32).reshape(-1, 2),
                    parts, v, int(rp[-1]))
+
+
+def plan_lanes(plan: EllPlan) -> np.ndarray:
+    """Each row's lanes ``L`` in ``plan`` (a host plan), 0 for a chunked
+    row: the ``lanes`` that make :func:`row_plan` give rows cut out of
+    these the same reduction."""
+    blocks = np.asarray(plan.blocks, dtype=np.int64).reshape(-1, 3)
+    runs = blocks[blocks[:, 2] > 0]
+    lens = runs[:, 1] - runs[:, 0]
+    rows = np.repeat(runs[:, 0] - np.concatenate([[0], np.cumsum(lens)[:-1]]),
+                     lens) + np.arange(int(lens.sum()))
+    out = np.zeros(plan.num_rows, dtype=np.int32)
+    out[rows] = np.repeat(runs[:, 2], lens)
+    return out
 
 
 def query_minor_base(x: torch.Tensor) -> Optional[torch.Tensor]:

@@ -35,8 +35,9 @@ def fused_superstep_op(msg, vstate: torch.Tensor,
                        weight: Optional[torch.Tensor], scal: torch.Tensor,
                        src: torch.Tensor, local: torch.Tensor,
                        mask: torch.Tensor, base: torch.Tensor,
-                       dst_ext: torch.Tensor, *, num_segments: int,
-                       combine: str, block_e: int) -> torch.Tensor:
+                       dst_ext: Optional[torch.Tensor], *,
+                       num_segments: int, combine: str,
+                       block_e: int) -> torch.Tensor:
     """Fused compute phase: per-query accumulator ``[Q, Pl, num_segments]``.
 
     Inputs follow ``partition.build_block_metadata``: ``vstate`` is the
@@ -44,7 +45,10 @@ def fused_superstep_op(msg, vstate: torch.Tensor,
     carries (step, *per-query per-partition consts), ``src``/``local``/
     ``mask``/``weight`` are the ``[Pl, e_pad]`` block arrays shared across
     the query batch, ``base [Pl, nb]`` the per-block segment bases and
-    ``dst_ext [Pl, e_max]`` the extended destinations.  ``msg`` is the
+    ``dst_ext [Pl, e_max]`` the extended destinations, read by the plain
+    version only (the kernel reads ``base + local``); None makes the plain
+    version take ``base + local`` too, as a tiered window, which carries
+    no ``dst_ext``, does.  ``msg`` is the
     program's ``EdgeMessage``: its ``fn`` is the plain form, its ``kind``
     names the kernel's device form.
 
@@ -57,6 +61,9 @@ def fused_superstep_op(msg, vstate: torch.Tensor,
     makes it, is a view of that layout already and is not copied again.
     """
     if vstate.device.type == "cpu":
+        if dst_ext is None:
+            # masked slots carry the identity to the id of their block
+            dst_ext = base.repeat_interleave(block_e, dim=1) + local
         return fused_superstep_ref(msg, vstate, weight, scal, src, mask,
                                    dst_ext, num_segments=num_segments,
                                    combine=combine)

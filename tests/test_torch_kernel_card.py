@@ -573,6 +573,121 @@ def test_engine_hybrid_matches_reference_on_card(cuda):
     assert all(fn.launches > 0 for fn in counters)
 
 
+def _tiered_engines(pg, backend, cuda, **kw):
+    """A resident engine and a tiered one with a partition streamed (the
+    plan's table row 1, or row 0 where row 1's windows keep every partition
+    hot, at the least power-of-two ``win_blocks`` that plans)."""
+    from repro_torch.core.bsp import BSPEngine
+
+    fused = backend == "fused"
+    for row in (1, 0):      # row 0 (all cold) where row 1 keeps all hot
+        wb = 1
+        while True:
+            try:
+                probe = TPT.build_tier_plan(pg, 1 << 60, block_e=256,
+                                            win_blocks=wb, fused=fused)
+                plan = TPT.build_tier_plan(pg, probe.table[row]["hbm_bytes"],
+                                           block_e=256, win_blocks=wb,
+                                           fused=fused)
+                break
+            except ValueError:
+                wb *= 2
+        if len(plan.cold):
+            break
+    res = BSPEngine(pg, backend=backend, block_e=256, device=cuda, **kw)
+    tie = BSPEngine(pg, backend=backend, block_e=256, device=cuda,
+                    tiered=plan, win_blocks=wb, **kw)
+    return res, tie
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["fused", "hybrid"])
+def test_engine_tiered_matches_resident_on_card(cuda, backend):
+    """Tiered (one of two partitions streamed from pinned host memory)
+    against resident on the same backend: all five algorithms bit for
+    bit, sums included, with equal steps; the path's kernels launch; the
+    plan's device bytes are the engine's; no arena or buffer is made after
+    the first run."""
+    from repro_torch.algorithms import (betweenness_centrality_batched,
+                                        bfs_batched, connected_components,
+                                        pagerank, sssp_batched, symmetrize)
+
+    g = TG.rmat(13, 8, seed=4).with_uniform_weights(seed=3)
+    pg = TPT.partition(g, 2, TPT.HIGH, include_reverse=True)
+    pgs = TPT.partition(symmetrize(g), 2, TPT.HIGH)
+    kw = dict(hybrid_k_dense=256) if backend == "hybrid" else {}
+    res, tie = _tiered_engines(pg, backend, cuda, **kw)
+    res_cc, tie_cc = _tiered_engines(pgs, backend, cuda, **kw)
+    assert len(tie.tier_plan.cold) == 1
+    assert tie.tier_plan.fwd.num_windows >= 2 and len(tie_cc.tier_plan.cold)
+    stats = tie.tiered_stats()
+    assert stats["device_arena_bytes"] == tie.tier_plan.hbm_bytes
+    assert all(td.arena.tensors[k].is_pinned() for td in tie._tier.values()
+               for k in td.arena.names)
+    runs = [lambda e, _: bfs_batched(e, [0, 9, 99]),
+            lambda e, _: sssp_batched(e, [0, 9]),
+            lambda _, c: connected_components(c),
+            lambda e, _: (pagerank(e, 10), None),
+            lambda e, _: betweenness_centrality_batched(e, [0, 9])]
+    counters = ((kfs.fused_superstep,) if backend == "fused" else
+                (kell.ell_spmv, kds.dense_spmv, kds.dense_spmv_minplus))
+    for fn in counters:
+        fn.launches = 0
+    for run in runs:
+        a, sa = run(res, res_cc)
+        b, sb = run(tie, tie_cc)
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+        if sa is not None:
+            np.testing.assert_array_equal(np.asarray(sa), np.asarray(sb))
+    made = tie.tiered_stats()["buffers_made"]
+    bfs_batched(tie, [1, 2])
+    pagerank(tie, 3)
+    assert tie.tiered_stats()["buffers_made"] == made
+    assert all(fn.launches > 0 for fn in counters)
+
+
+@pytest.mark.gpu
+def test_ell_window_plan_keeps_each_rows_lanes_on_card(cuda):
+    """Rows cut out of a split and planned with the split plan's lane
+    counts (``row_plan(lanes=)``, as the tiered hybrid's windows are) sum
+    bit for bit as in the whole split; planned afresh, some row gets
+    another lane count and another last bit."""
+    rng = np.random.default_rng(11)
+    short, wide = rng.integers(1, 6, 3000), rng.integers(70, 400, 900)
+    lens = np.concatenate([short[:1500], wide[:500], [kell.BUDGET * 2 + 7],
+                           short[1500:], wide[500:]])
+    rp = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    x_len, q = 5000, 8
+    col = rng.integers(0, x_len, rp[-1]).astype(np.int32)
+    val = rng.random(rp[-1]).astype(np.float32)
+    x = torch.as_tensor(rng.random((q, x_len)).astype(np.float32),
+                        device=cuda)
+    full = kell.row_plan(rp)
+    lanes = kell.plan_lanes(full)
+
+    def put(a, dt):
+        return torch.as_tensor(a, dtype=dt, device=cuda)
+
+    def spmv(ptr, c, v, plan):
+        return tops.ell_spmv_op(put(ptr, torch.int32), put(c, torch.int32),
+                                put(v, torch.float32), x,
+                                semiring="plus_times", plan=plan.to(cuda))
+
+    y_full = spmv(rp, col, val, full).cpu()
+    # every third row: the runs around each kept row change
+    sel = np.arange(0, len(lens), 3)
+    ptr = np.concatenate([[0], np.cumsum(lens[sel])])
+    idx = np.repeat(rp[sel] - ptr[:-1], lens[sel]) + np.arange(ptr[-1])
+    kept = kell.row_plan(ptr, lanes=lanes[sel])
+    fresh = kell.row_plan(ptr)
+    assert np.array_equal(kell.plan_lanes(kept), lanes[sel])
+    assert not np.array_equal(kell.plan_lanes(fresh), lanes[sel])
+    y_kept = spmv(ptr, col[idx], val[idx], kept).cpu()
+    y_fresh = spmv(ptr, col[idx], val[idx], fresh).cpu()
+    assert torch.equal(y_kept, y_full[:, sel])
+    assert not torch.equal(y_fresh, y_full[:, sel])
+
+
 # (combine, weight_op) modes of the outbox kernel on the sharded path
 OUTBOX_MODES = [("sum", None), ("sum", "mul"), ("min", None), ("min", "add")]
 
