@@ -80,6 +80,15 @@ Phases (any failed check exits non-zero; nothing is caught and passed over):
    ``BSPEngine``.  One card is enough: NCCL refuses two ranks on one
    card, so the wire between ranks is tested by the gloo tests on the CPU
    and by ``launch/hybrid_selftest.py --device cuda`` on several cards;
+   then ``[serve]`` (``serve_phase``): ``execute(chunk=2)`` on the fused
+   and hybrid engines bit for bit against phase 3's resident BFS and SSSP
+   runs with equal steps; one boundary's host costs; the continuous
+   serving path (``graph_serve.serve_continuous``, 8 slots, chunk 2, 32
+   queries) for {fused, hybrid} x {bfs, sssp}: every completion bit for
+   bit and with equal steps against drain batches of 8, 24 refills, zero
+   retraces, the kernels launched in a session timed with the counts set
+   to 0 just before it; and a BFS session on the sharded hybrid (world of
+   one) against the single-device drain rows, ``outbox_reduce`` launched;
 5. the numpy oracles at RMAT12 on the card, all five algorithms, on the
    fused and the hybrid backends;
 6. ``[segment_reduce]``: the sorted segment reduce through its entry point
@@ -1164,6 +1173,196 @@ def tiered_phase(g, pg, pgs, runs, dev, check):
     return launches
 
 
+def host_ms(fn, reps: int) -> float:
+    """Mean host-clock time of ``fn`` ending in a synchronize, warmed: the
+    cost the serving loop pays between windows, host work included."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def serve_phase(g, pg, sources, resident, check):
+    """``[serve]``: the chunked loop and continuous batching at RMAT20.
+
+    ``execute(chunk=2)`` on the fused and hybrid engines against phase 3's
+    resident runs of the same sources (``resident[backend, alg]``: results
+    and steps, bit for bit); one boundary's host costs beside a window's
+    device time; ``graph_serve.serve_continuous`` (8 slots, chunk 2, a
+    stream of 32: the max- and min-out-degree vertices and 30 seeded ones)
+    for {fused, hybrid} x {bfs, sssp} with parity against drain batches,
+    then a session of the same stream with the counts set to 0 just before
+    its ``drain()``; and one BFS session on the sharded hybrid, a world of
+    one, against the single-device drain rows.  Returns the launches of
+    the timed sessions."""
+    import numpy as np
+    import torch
+
+    from repro_torch.algorithms.continuous import continuous_form
+    from repro_torch.core.bsp import (BSPEngine, DistributedBSPEngine,
+                                      _slot_swap)
+    from repro_torch.kernels import dense_spmv as kds
+    from repro_torch.kernels import ell_spmv as kell
+    from repro_torch.kernels import fused_superstep as kfs
+    from repro_torch.kernels import outbox_reduce as kob
+    from repro_torch.launch.graph_serve import ServeConfig, serve_continuous
+    from repro_torch.runtime import ServeSession, drain_reference
+
+    card = torch.cuda.get_device_name(0)
+    leaf = {"bfs": "level", "sssp": "dist"}
+    engines = {"fused": BSPEngine(pg, backend="fused", block_e=BLOCK_E),
+               "hybrid": BSPEngine(pg, backend="hybrid")}
+    for backend, eng in engines.items():
+        for alg in ("bfs", "sssp"):
+            form = continuous_form(alg)
+            state = form.make_slot_state(pg, sources, np.zeros(Q, np.int64))
+            for _ in range(2):      # the first call builds the split's tensors
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                st, steps_q, info = eng.execute(form.program, state, chunk=2)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            res = form.harvest(pg, st, np.zeros(Q, np.int64))
+            want, want_steps = resident[backend, alg]
+            check(np.array_equal(res, want)
+                  and np.array_equal(steps_q.cpu().numpy(), want_steps),
+                  f"[serve] {alg} {backend} execute(chunk=2): bit-equal to "
+                  f"the resident run, equal steps {want_steps.tolist()} "
+                  f"({info['chunks']} windows, {wall:.3f} s wall, second "
+                  f"call)")
+
+    # one boundary's host costs at Q=8 (BFS on the fused engine): the
+    # window's first two supersteps; the slot states made on the host and
+    # swapped in (their host-to-device copy included), against made on
+    # the card (the session's way); one finished row harvested, gathered
+    # on the card (the session's way) against on the host; the vote read
+    eng, form = engines["fused"], continuous_form("bfs")
+    dev = eng.device
+    state = form.make_slot_state(pg, sources, np.zeros(Q), device=dev)
+    fin = torch.zeros(Q, dtype=torch.bool, device=dev)
+    steps_q = torch.zeros(Q, dtype=torch.int32, device=dev)
+    admit = torch.zeros(Q, dtype=torch.bool, device=dev)
+    admit[0] = True
+    one = torch.as_tensor([0], device=dev)
+    rows = {}
+
+    def make(where):
+        return lambda: rows.update({where: form.make_slot_state(
+            pg, sources, np.full(Q, 2), device=dev if where else None)})
+
+    costs = dict(
+        window=host_ms(lambda: eng._chunk_call(form.program, 2, state, 0,
+                                               fin, steps_q), 3),
+        make_host=host_ms(make(False), 3),
+        swap_host=host_ms(lambda: _slot_swap(state, rows[False], admit,
+                                             fin, steps_q), 5),
+        make_card=host_ms(make(True), 5),
+        swap_card=host_ms(lambda: _slot_swap(state, rows[True], admit,
+                                             fin, steps_q), 5),
+        harvest_card=host_ms(lambda: form.harvest(
+            pg, {"level": state["level"][one]}, np.zeros(1)), 5),
+        harvest_host=host_ms(lambda: np.stack([pg.gather_global(r) for r in
+                                               state["level"][one].cpu()
+                                               .numpy()]), 5),
+        vote=host_ms(lambda: fin.cpu().numpy(), 20))
+    log(f"[serve] one boundary at Q=8 (BFS, fused, RMAT20; {card}; host "
+        f"clock after a synchronize, ms): a 2-superstep window "
+        f"{costs['window']:.3f}; slot states made on the host "
+        f"{costs['make_host']:.3f} + swap with its copy "
+        f"{costs['swap_host']:.3f}, made on the card {costs['make_card']:.3f}"
+        f" + swap {costs['swap_card']:.3f}; one row harvested, gathered on "
+        f"the card {costs['harvest_card']:.3f}, on the host "
+        f"{costs['harvest_host']:.3f}; vote to host {costs['vote']:.4f}")
+    del state, rows
+
+    deg = g.out_degrees()
+    stream = np.concatenate([
+        [int(np.argmax(deg)), int(np.argmin(deg))],
+        np.random.default_rng(SEED).integers(0, g.num_vertices, size=30)])
+    counters = {"fused": (kfs.fused_superstep,),
+                "hybrid": (kell.ell_spmv, kds.dense_spmv_minplus)}
+    launches = {}
+    for backend, eng in engines.items():
+        for alg in ("bfs", "sssp"):
+            cfg = ServeConfig(alg=alg, batch=Q, chunk=2).validate()
+            rep = serve_continuous(eng, g, cfg, stream, parity=True)
+            check(rep["parity_checked"] == len(stream)
+                  and rep["parity_mismatches"] == 0,
+                  f"[serve] {alg} {backend}: {rep['parity_checked']} "
+                  f"completions bit-equal to their drain rows with equal "
+                  f"steps ({rep['parity_mismatches']} mismatches)")
+            check(rep["refills"] == len(stream) - Q
+                  and rep["min_slot_refills"] >= 1 and rep["retraces"] == 0,
+                  f"[serve] {alg} {backend}: refills {rep['refills']} == "
+                  f"{len(stream) - Q}, min per slot "
+                  f"{rep['min_slot_refills']} >= 1, retraces "
+                  f"{rep['retraces']} == 0")
+            log(f"[serve] {alg} {backend} ({card}): continuous "
+                f"{rep['continuous_qps']:.2f} q/s, p50 "
+                f"{rep['continuous_p50_ms']:.1f} ms, p99 "
+                f"{rep['continuous_p99_ms']:.1f} ms, {rep['windows']} "
+                f"windows, {rep['refills']} refills; drain "
+                f"{rep['drain_qps']:.2f} q/s, p50 {rep['drain_p50_ms']:.1f} "
+                f"ms, p99 {rep['drain_p99_ms']:.1f} ms")
+            # the timed session again, counts set to 0 just before it
+            session = ServeSession(eng, alg, slots=Q, chunk=2)
+            session.submit(stream)
+            for fn in counters[backend]:
+                fn.launches = 0
+            torch.cuda.synchronize()
+            mem0 = torch.cuda.memory_reserved()
+            t0 = time.perf_counter()
+            srep = session.drain()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            mem1 = torch.cuda.memory_reserved()
+            used = {fn.__name__: fn.launches for fn in counters[backend]}
+            for name, n in used.items():
+                launches[name] = launches.get(name, 0) + n
+            check(all(n > 0 for n in used.values())
+                  and srep["retraces"] == 0,
+                  f"[serve] {alg} {backend} session: launches {used}, "
+                  f"{srep['windows']} windows in {wall:.3f} s, retraces "
+                  f"{srep['retraces']}; memory reserved "
+                  f"{mem0 / 2**20:.1f} -> {mem1 / 2**20:.1f} MiB")
+    want = drain_reference(engines["fused"], "bfs", stream, Q)
+    del engines
+    torch.cuda.empty_cache()
+
+    shard = DistributedBSPEngine(pg, backend="hybrid")
+    warm = ServeSession(shard, "bfs", slots=Q, chunk=2)
+    warm.submit(stream[:2 * Q])
+    warm.drain()
+    session = ServeSession(shard, "bfs", slots=Q, chunk=2)
+    qids = session.submit(stream)
+    kob.outbox_reduce.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep = session.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {r["query"]: r["result"] for r in session.poll()}
+    launches["outbox_reduce"] = kob.outbox_reduce.launches
+    check(len(got) == len(stream)
+          and all(np.array_equal(got[q], want[j])
+                  for j, q in enumerate(qids))
+          and kob.outbox_reduce.launches > 0 and rep["retraces"] == 0
+          and rep["refills"] == len(stream) - Q,
+          f"[serve] bfs on the sharded hybrid (world of one): {len(got)} "
+          f"completions bit-equal to the single-device drain rows, "
+          f"outbox_reduce launches {kob.outbox_reduce.launches}, "
+          f"{rep['windows']} windows, {rep['refills']} refills, retraces "
+          f"{rep['retraces']}, {len(stream) / wall:.2f} q/s, p99 "
+          f"{rep['latency_p99_ms']:.1f} ms ({wall:.3f} s wall)")
+    del shard, warm, session
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2010,6 +2209,15 @@ def main() -> int:
               f"{used} fused launches)")
         del eng
     torch.cuda.empty_cache()
+
+    # -- phase 4b: [serve], the chunked loop and continuous batching ---------
+    resident = {(b, alg): (outs[key]["fused"] if b == "fused"
+                           else hyb_out["vote", key])
+                for b in ("fused", "hybrid")
+                for alg, key in (("bfs", "bfs_batched"),
+                                 ("sssp", "sssp_batched"))}
+    serve_launches = serve_phase(g, pg, sources, resident, check)
+    log(f"[serve] launches in the timed sessions: {serve_launches}")
 
     # -- phase 5: numpy oracles at RMAT12 on the card ------------------------
     small = G.rmat(12, 16, seed=SEED)

@@ -9,6 +9,9 @@ from repro_torch.algorithms.cc import (cc_reference, connected_components,
                                        symmetrize)
 from repro_torch.algorithms.bc import (bc_reference, betweenness_centrality,
                                        betweenness_centrality_batched)
+from repro_torch.algorithms.continuous import (CONTINUOUS_FORMS,
+                                               ContinuousForm,
+                                               continuous_form)
 
 __all__ = [
     "bfs", "bfs_batched", "bfs_reference", "gather_batch",
@@ -17,5 +20,6 @@ __all__ = [
     "personalized_pagerank", "personalized_pagerank_reference", "sssp",
     "sssp_batched", "sssp_reference", "connected_components",
     "cc_reference", "symmetrize", "betweenness_centrality",
-    "betweenness_centrality_batched", "bc_reference",
+    "betweenness_centrality_batched", "bc_reference", "CONTINUOUS_FORMS",
+    "ContinuousForm", "continuous_form",
 ]

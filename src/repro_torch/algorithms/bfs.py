@@ -19,25 +19,38 @@ from repro_torch.core.partition import PartitionedGraph
 
 
 def multi_source_state(pg: PartitionedGraph, sources: Sequence[int],
-                       fill=np.inf, value=0.0) -> np.ndarray:
-    """[Q, P, v_max] per-query state with ``value`` at each query's source.
+                       fill=np.inf, value=0.0, device=None):
+    """[Q, P, v_max] float32 per-query state with ``value`` (a scalar or
+    one per query) at each query's source.
 
     The shared multi-source constructor: one row per query, ``fill``
     elsewhere — BFS levels, SSSP distances, and BC's dist/sigma all start
-    from this shape.
+    from this shape.  Host numpy, or with ``device`` a tensor made there
+    (only the sources' ids and values cross).
     """
     sources = np.asarray(sources, dtype=np.int64).reshape(-1)
-    out = np.full((len(sources), pg.num_parts, pg.v_max), fill,
-                  dtype=np.float32)
-    out[np.arange(len(sources)), pg.assignment.part_of[sources],
-        pg.assignment.local_id[sources]] = value
+    q = len(sources)
+    ids = (np.arange(q), pg.assignment.part_of[sources],
+           pg.assignment.local_id[sources])
+    if device is None:
+        out = np.full((q, pg.num_parts, pg.v_max), fill, dtype=np.float32)
+        out[ids] = value
+        return out
+    out = torch.full((q, pg.num_parts, pg.v_max), float(fill),
+                     dtype=torch.float32, device=device)
+    vals = np.broadcast_to(np.asarray(value, np.float32), (q,))
+    out[tuple(torch.as_tensor(i, device=device) for i in ids)] = (
+        torch.as_tensor(vals.copy(), device=device))
     return out
 
 
 def gather_batch(pg: PartitionedGraph, per_part) -> np.ndarray:
-    """Collect a [Q, P, v_max] batched state into global [Q, n] order."""
+    """Collect a [Q, P, v_max] batched state into global [Q, n] order.  A
+    tensor is gathered where it lies (``PartitionedGraph.flat_index``) and
+    only the [Q, n] result is copied to the host."""
     if isinstance(per_part, torch.Tensor):
-        per_part = per_part.cpu().numpy()
+        flat = per_part.reshape(per_part.shape[0], -1)
+        return flat[:, pg.flat_index(per_part.device)].cpu().numpy()
     return np.stack([pg.gather_global(row) for row in np.asarray(per_part)])
 
 
@@ -76,7 +89,7 @@ def bfs_batched(engine: BSPEngine,
     Returns (levels [Q, n], per-query supersteps [Q]).
     """
     pg = engine.pg
-    level0 = multi_source_state(pg, sources)
+    level0 = multi_source_state(pg, sources, device=engine.device)
     state, steps = engine.execute(BFS_PROGRAM, {"level": level0})
     return gather_batch(pg, state["level"]), steps.cpu().numpy()
 

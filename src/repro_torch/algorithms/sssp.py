@@ -56,9 +56,9 @@ def sssp_batched(engine: BSPEngine,
     if pg.fwd.weight is None:
         raise ValueError("SSSP needs edge weights "
                          "(graph.with_uniform_weights)")
-    dist0 = multi_source_state(pg, sources)
+    dist0 = multi_source_state(pg, sources, device=engine.device)
     state, steps = engine.execute(SSSP_PROGRAM, {
-        "dist": dist0, "active": np.isfinite(dist0)})
+        "dist": dist0, "active": torch.isfinite(dist0)})
     return gather_batch(pg, state["dist"]), steps.cpu().numpy()
 
 

@@ -690,26 +690,61 @@ def _edges_dict(ea: EdgeArrays, blk: Optional[BlockMetadata],
     return d
 
 
-def _run_batched_loop(step_fn: Callable, max_steps: int, state: State,
-                      q: int) -> Tuple[State, torch.Tensor]:
-    """Advance all Q queries together until every query votes finish.
+def _run_chunked_loop(step_fn: Callable, chunk: int, max_steps: int,
+                      state: State, step0: int, fin0: torch.Tensor,
+                      steps_q0: torch.Tensor
+                      ) -> Tuple[State, int, torch.Tensor, torch.Tensor]:
+    """Advance the query batch from a mid-run carry ``(state, step0, fin0,
+    steps_q0)`` until every query votes finish, ``max_steps`` or ``step0 +
+    chunk``; returns the carry.
 
     A converged query is masked out of the apply step — its state freezes
-    bitwise — while unfinished queries continue.  Returns the final state
-    and per-query executed superstep counts ``steps [Q]``.
+    bitwise — while unfinished queries continue; ``steps_q [Q]`` counts
+    each query's executed supersteps.  Windows chained end to end run the
+    superstep sequence of one unbounded window, which is the resident loop
+    (``_run_batched_loop``).
     """
-    dev = next(iter(state.values())).device
-    fin = torch.zeros(q, dtype=torch.bool, device=dev)
-    steps_q = torch.zeros(q, dtype=torch.int32, device=dev)
-    step = 0
-    while step < max_steps and not bool(fin.all()):
+    step, fin, steps_q = int(step0), fin0, steps_q0
+    stop = min(max_steps, step + chunk)
+    while step < stop and not bool(fin.all()):
         new, vote = step_fn(state, step)
         state = {k: torch.where(fin.view((-1,) + (1,) * (v.dim() - 1)),
                                 state[k], v) for k, v in new.items()}
-        steps_q += (~fin).to(torch.int32)
+        steps_q = steps_q + (~fin).to(torch.int32)
         fin = fin | vote
         step += 1
+    return state, step, fin, steps_q
+
+
+def _run_batched_loop(step_fn: Callable, max_steps: int, state: State,
+                      q: int) -> Tuple[State, torch.Tensor]:
+    """Advance all Q queries together until every query votes finish:
+    one window from step 0 with no chunk bound.  Returns the final state
+    and per-query executed superstep counts ``steps [Q]``."""
+    dev = next(iter(state.values())).device
+    state, _, _, steps_q = _run_chunked_loop(
+        step_fn, max_steps, max_steps, state, 0,
+        torch.zeros(q, dtype=torch.bool, device=dev),
+        torch.zeros(q, dtype=torch.int32, device=dev))
     return state, steps_q
+
+
+def _slot_swap(state: State, new_rows: State, admit: torch.Tensor,
+               fin: torch.Tensor, steps_q: torch.Tensor
+               ) -> Tuple[State, torch.Tensor, torch.Tensor]:
+    """Refill the slots of the ``[Q]`` bool mask ``admit`` for continuous
+    batching: their state rows become ``new_rows``' (a full-Q state whose
+    other rows are ignored), their votes clear and their superstep
+    counters restart at 0.  Every other row passes through bitwise
+    unchanged, and no shape changes."""
+    def swap(k, old):
+        new = torch.as_tensor(new_rows[k], dtype=old.dtype, device=old.device)
+        return torch.where(admit.view((-1,) + (1,) * (old.dim() - 1)),
+                           new, old)
+
+    state = {k: swap(k, v) for k, v in state.items()}
+    return (state, fin & ~admit,
+            torch.where(admit, torch.zeros_like(steps_q), steps_q))
 
 
 # ---------------------------------------------------------------------------
@@ -812,6 +847,11 @@ class BSPEngine:
     its host arenas and window buffers before the first superstep and
     none after (``tiered_stats()["buffers_made"]``).  ``residency_bytes``
     and ``tiered_stats`` report the split.
+
+    ``execute(chunk=k)`` runs the converge loop in windows of ``k``
+    supersteps; at each boundary ``on_chunk`` may kill, refill or stop
+    queries, which is how ``runtime/session.py`` serves a query stream
+    through static slots.
 
     Not ported yet: dynamic graphs raise ``NotImplementedError``.
     """
@@ -1400,6 +1440,23 @@ class BSPEngine:
         return memory_residency_bytes(self.pg, tier_plan=self.tier_plan,
                                       state_bytes=state_bytes)
 
+    def cache_entries(self) -> int:
+        """How many structures this engine has built for its programs: the
+        count a serving session's zero-retrace contract holds fixed.
+
+        Eager PyTorch compiles nothing, so this stands in for the JAX
+        package's jit-cache sizes.  It counts the hybrid splits and
+        layouts (built at a program's first run), the tiered hybrid's row
+        windows, the tiered host arenas and window buffers, the pull
+        layout and the CUDA libraries the process has loaded (each at its
+        kernel's first launch).  An engine that builds another structure
+        lazily adds it here."""
+        from repro_torch.kernels import _build
+
+        return (len(self._hybrid_cache) + len(self._hybrid_layouts)
+                + len(self._hyb_tier_cache) + int(self._pull is not None)
+                + self.tiered_buffers_made + len(_build._loaded))
+
     def tiered_stats(self) -> Optional[dict]:
         """The tier split's counters, or None on an all-resident engine.
 
@@ -1452,20 +1509,68 @@ class BSPEngine:
 
     def execute(self, program: VertexProgram, state: State, *,
                 num_steps: Optional[int] = None, chunk: Optional[int] = None,
-                incremental=None):
+                on_chunk: Optional[Callable] = None, incremental=None,
+                start_step: int = 0, fin=None, steps_q=None,
+                max_chunks: Optional[int] = None,
+                chaos_ctx: Optional[dict] = None, monitor=None):
         """Run ``program`` on a batched ``[Q, P, v_max]`` state dict.
 
         - ``execute(program, state)`` — run to convergence; returns
           ``(state, steps_q [Q])``.
         - ``execute(program, state, num_steps=n)`` — exactly ``n``
           supersteps (PageRank); returns the final state.
+        - ``execute(program, state, chunk=k)`` — the converge loop in
+          windows of ``k`` supersteps, with the boundary protocol of
+          :meth:`_run_batched_chunked` (``on_chunk``, ``monitor``) and
+          its resume carry (``start_step``, ``fin``, ``steps_q``,
+          ``max_chunks``); returns ``(state, steps_q, info)``.
 
         Leaves are moved to the engine's device.  Eligible min-combine
-        programs run direction optimized (see the class docstring).  The
-        chunked and incremental modes are not ported yet and raise.
+        programs run direction optimized (see the class docstring), except
+        in chunked mode, whose slot refills swap user state rows only: the
+        fused and reference backends push there, the hybrid runs its pull
+        SpMV.  The incremental mode and ``chaos_ctx=`` are not ported yet
+        and raise.  Incompatible keywords raise with the fix spelled out.
         """
-        if chunk is not None:
-            raise _not_in_slice("execute(chunk=)", "9")
+        modes = {"num_steps": num_steps is not None,
+                 "chunk": chunk is not None,
+                 "incremental": incremental is not None}
+        picked = [k for k, v in modes.items() if v]
+        if len(picked) > 1:
+            raise ValueError(
+                f"execute() got {' + '.join(picked)} — these select "
+                f"mutually exclusive run modes; pass exactly one (or none "
+                f"for run-to-convergence).  Fixed-step chunking is not a "
+                f"mode: restate the program with a never-voting apply "
+                f"(see _fixed_step_program) and pass chunk= alone.")
+        if modes["chunk"] and self.tier_plan is not None:
+            raise ValueError(
+                "chunked/continuous mode is not supported on a tiered "
+                "engine: chunk windows assume resident edge dicts; run "
+                "tiered convergence (drop chunk=) or build the engine "
+                "without tiered=")
+        if not modes["chunk"]:
+            chunked_only = [
+                name for name, val in (("on_chunk", on_chunk),
+                                       ("fin", fin), ("steps_q", steps_q),
+                                       ("max_chunks", max_chunks),
+                                       ("chaos_ctx", chaos_ctx),
+                                       ("monitor", monitor))
+                if val is not None] + (
+                    ["start_step"] if start_step != 0 else [])
+            if chunked_only:
+                raise ValueError(
+                    f"execute() got {', '.join(chunked_only)} without "
+                    f"chunk= — boundary hooks and resume carries only "
+                    f"exist in chunked mode; pass chunk=<supersteps per "
+                    f"window> (e.g. chunk=2).")
+        if modes["chunk"]:
+            if chaos_ctx is not None:
+                raise _not_in_slice("execute(chaos_ctx=)", "13")
+            return self._run_batched_chunked(
+                program, state, checkpoint_every=chunk, on_chunk=on_chunk,
+                start_step=start_step, fin=fin, steps_q=steps_q,
+                max_chunks=max_chunks, monitor=monitor)
         if incremental is not None:
             raise _not_in_slice("execute(incremental=)", "11")
         self.last_direction_stats = None
@@ -1502,6 +1607,107 @@ class BSPEngine:
                 switches=dopt["_dopt_switch"].sum(1).cpu().numpy())
         return state
 
+    # ---------------------- chunked (continuous) mode ----------------------
+
+    def _chunk_call(self, program: VertexProgram, chunk: int, state: State,
+                    step: int, fin: torch.Tensor, steps_q: torch.Tensor):
+        """One window of at most ``chunk`` supersteps on the global state:
+        the engine's part of it goes in, the global state comes back (on
+        a sharded engine, sliced on entry and all-gathered at the
+        boundary; the votes are global on every rank).  Returns ``(state,
+        step, fin, steps_q)``."""
+        out, step, fin, steps_q = _run_chunked_loop(
+            self._step_fn(program), chunk, program.max_steps,
+            self._local(state), step, fin, steps_q)
+        return self._global(out), step, fin, steps_q
+
+    def _run_batched_chunked(self, program: VertexProgram, state: State, *,
+                             checkpoint_every: int,
+                             on_chunk: Optional[Callable] = None,
+                             start_step: int = 0, fin=None, steps_q=None,
+                             max_chunks: Optional[int] = None,
+                             monitor=None):
+        """The converge loop in windows of ``checkpoint_every`` supersteps.
+
+        Chained windows run the resident loop's superstep sequence, so
+        every query's result and step count are those of ``execute(program,
+        state)``; between windows the carry is on the host's side.
+        ``on_chunk(snap)`` gets ``{"state", "step", "fin", "steps_q"}`` at
+        each boundary (state tensors on the engine's device, the rest
+        numpy) and may steer the carry:
+
+        - return a ``[Q]`` bool mask: force-finish those queries
+          (quarantine; they freeze bitwise like converged ones);
+        - return a dict, the continuous-batching protocol: ``{"kill":
+          mask}`` as above, ``{"refill": (new_rows, admit)}`` swaps the
+          admitted slots' state in (:func:`_slot_swap`: votes cleared,
+          counters zeroed), ``{"stop": True}`` ends the run at this
+          boundary.  Kills apply before refills.
+
+        The all-finished exit is checked after the hook, so a refill keeps
+        the loop running.  ``monitor`` (duck-typed: ``observe(snap) ->
+        {"violations", ...}`` and ``rebase(admit)``) is observed once per
+        window; its record rides to ``on_chunk`` as ``snap["monitor"]``.
+        Resume a carry with ``start_step``/``fin``/``steps_q``.  Returns
+        ``(state, steps_q, info)``, ``info = {"chunks", "final_step",
+        "finished", "refilled", "monitors_fired"}``.  The windows run the
+        plain exchange: the checked one comes with ROADMAP item 13.
+        """
+        if checkpoint_every < 1:
+            raise ValueError(
+                f"checkpoint_every must be >= 1, got {checkpoint_every}")
+        dev = self.device
+        state = {k: torch.as_tensor(v, device=dev) for k, v in state.items()}
+        q = num_queries(state)
+
+        def mask(x):
+            return torch.as_tensor(x, device=dev).to(torch.bool).reshape(q)
+
+        fin = (torch.zeros(q, dtype=torch.bool, device=dev) if fin is None
+               else mask(fin))
+        steps_q = (torch.zeros(q, dtype=torch.int32, device=dev)
+                   if steps_q is None else torch.as_tensor(
+                       steps_q, device=dev).to(torch.int32).reshape(q))
+        step = int(start_step)
+        chunks = refilled = monitors_fired = 0
+        while True:
+            state, step, fin, steps_q = self._chunk_call(
+                program, int(checkpoint_every), state, step, fin, steps_q)
+            chunks += 1
+            stop = False
+            snap = dict(state=state, step=step, fin=fin.cpu().numpy(),
+                        steps_q=steps_q.cpu().numpy())
+            if monitor is not None:
+                rec = monitor.observe(dict(state=state, step=step,
+                                           finished=snap["fin"],
+                                           steps_q=snap["steps_q"]))
+                monitors_fired += int(rec["violations"] > 0)
+                snap["monitor"] = rec
+            if on_chunk is not None:
+                out = on_chunk(snap)
+                if isinstance(out, dict):
+                    if out.get("kill") is not None:
+                        fin = fin | mask(out["kill"])
+                    if out.get("refill") is not None:
+                        new_rows, admit = out["refill"]
+                        admit_np = np.asarray(admit, dtype=bool).reshape(q)
+                        state, fin, steps_q = _slot_swap(
+                            state, new_rows, mask(admit_np), fin, steps_q)
+                        refilled += int(admit_np.sum())
+                        if monitor is not None:
+                            monitor.rebase(admit_np)
+                    stop = bool(out.get("stop"))
+                elif out is not None:        # a bare kill mask
+                    fin = fin | mask(out)
+            if stop or bool(fin.all()) or step >= program.max_steps:
+                break
+            if max_chunks is not None and chunks >= max_chunks:
+                break
+        info = dict(chunks=chunks, final_step=step,
+                    finished=fin.cpu().numpy(), refilled=refilled,
+                    monitors_fired=monitors_fired)
+        return state, steps_q, info
+
 
 class DistributedBSPEngine(BSPEngine):
     """Partitions sharded over the ranks of a ``torch.distributed`` group.
@@ -1530,9 +1736,14 @@ class DistributedBSPEngine(BSPEngine):
     ``include_reverse=True`` partitioning: reverse boundary edges route
     through the reverse outbox maps.
 
+    ``execute(chunk=k)`` runs the same windows as on one device: every
+    rank runs the boundary protocol on the global state, which a window
+    slices on entry and all-gathers at the boundary, and the votes are the
+    global AND.
+
     Not ported yet: ``tiered=`` raises (single-device only, as in the JAX
-    package), dynamic graphs raise (Queue 1 item 11), and so do chunked
-    windows and their checked exchange (items 9 and 13).
+    package), dynamic graphs raise (Queue 1 item 11), and the windows run
+    the plain exchange, not the checked one (item 13).
     """
 
     def __init__(self, pg: PartitionedGraph, group=None, *,

@@ -111,11 +111,28 @@ class PartitionedGraph:
     # SplitCache), made by the first hybrid engine and shared by the rest.
     hybrid_splits: Optional[object] = dataclasses.field(
         default=None, init=False, repr=False, compare=False)
+    # flat_index's tensors, one per device
+    _flat_index: dict = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False)
 
     @property
     def seg_count(self) -> int:
         """Extended segment space: v_max locals + 1 sink + P*o_max outbox."""
         return self.v_max + 1 + self.num_parts * self.fwd.o_max
+
+    def flat_index(self, device) -> "torch.Tensor":
+        """Each global vertex's position in a flattened ``[P * v_max]``
+        state (``part_of * v_max + local_id``), an int64 tensor on
+        ``device``, made once per device and kept."""
+        import torch
+
+        key = str(device)
+        if key not in self._flat_index:
+            asg = self.assignment
+            self._flat_index[key] = torch.as_tensor(
+                asg.part_of.astype(np.int64) * self.v_max + asg.local_id,
+                device=device)
+        return self._flat_index[key]
 
     def gather_global(self, per_part: np.ndarray) -> np.ndarray:
         """Collect a [P, v_max] per-partition state into global [n] order."""

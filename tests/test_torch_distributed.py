@@ -165,9 +165,14 @@ def test_validation_errors():
             eng.execute(BFS_PROGRAM, bad)
     with pytest.raises(ValueError, match="inconsistent with the group"):
         eng._exchange(torch.zeros(1, 2, 3, 4))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        eng.execute(BFS_PROGRAM, {"level": torch.zeros(1, 2, pg.v_max)},
+    # chunked windows are ported: they validate the state as execute()
+    # does, and their chaos sites are item 13
+    with pytest.raises(ValueError, match="expected \\[Q, num_parts=2"):
+        eng.execute(BFS_PROGRAM, {"level": torch.zeros(1, 3, pg.v_max)},
                     chunk=2)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        eng.execute(BFS_PROGRAM, {"level": torch.zeros(1, 2, pg.v_max)},
+                    chunk=2, chaos_ctx={})
 
 
 def test_gloo_group_of_one_refuses_cuda_and_runs_cpu(tmp_path):

@@ -43,7 +43,10 @@ def test_every_module_imports_without_jax_or_repro():
     names = out.stdout.split()
     assert len(names) >= 20                   # every module was imported
     for name in ("distributed", "kernels.outbox_reduce", "launch.world",
-                 "launch.selftest", "launch.hybrid_selftest"):
+                 "launch.selftest", "launch.hybrid_selftest",
+                 "runtime.session", "runtime.sla", "algorithms.continuous",
+                 "launch.graph_serve", "launch.batched_selftest",
+                 "launch.continuous_selftest"):
         assert f"repro_torch.{name}" in names
 
 
@@ -75,7 +78,10 @@ def test_engine_without_device_raises_when_no_card(monkeypatch):
 
 
 @pytest.mark.parametrize("launcher", ["run_world", "launch.selftest",
-                                      "launch.hybrid_selftest"])
+                                      "launch.hybrid_selftest",
+                                      "launch.batched_selftest",
+                                      "launch.continuous_selftest",
+                                      "launch.graph_serve"])
 def test_launchers_default_to_the_card(monkeypatch, launcher):
     """Run with no device named, the multi-rank launchers ask for cards and
     raise without one before they start any process."""
@@ -85,10 +91,13 @@ def test_launchers_default_to_the_card(monkeypatch, launcher):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         if launcher == "run_world":
             world.run_world(print, 1)
+        elif launcher == "launch.graph_serve":
+            importlib.import_module(f"repro_torch.{launcher}").main(
+                ["--smoke"])
         else:
             importlib.import_module(f"repro_torch.{launcher}").main(
-                ["--world", "1", "--parts", "1"] if "hybrid" in launcher
-                else ["--world", "1"])
+                ["--world", "1", "--parts", "1"] if "selftest" in launcher
+                and launcher != "launch.selftest" else ["--world", "1"])
 
 
 def test_unported_modes_raise_naming_the_roadmap_item():
@@ -109,8 +118,9 @@ def test_unported_modes_raise_naming_the_roadmap_item():
             BSPEngine(object(), device="cpu", backend=backend)
         eng = BSPEngine(pg, device="cpu", backend=backend)
         state = {"level": torch.zeros(1, 2, pg.v_max)}
-        with pytest.raises(NotImplementedError, match="item 9"):
-            eng.execute(BFS_PROGRAM, state, chunk=2)
+        # the chunked mode is ported; its chaos sites are item 13
+        with pytest.raises(NotImplementedError, match="item 13"):
+            eng.execute(BFS_PROGRAM, state, chunk=2, chaos_ctx={})
         with pytest.raises(NotImplementedError, match="item 11"):
             eng.execute(BFS_PROGRAM, state, incremental=True)
 

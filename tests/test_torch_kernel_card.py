@@ -1091,3 +1091,45 @@ def test_lm_on_card_matches_the_cpu(cuda, compute_dtype):
         lg_cpu, c_cpu = cpu.decode_step(c_cpu, tok)
         torch.testing.assert_close(lg_card.float().cpu(), lg_cpu.float(),
                                    **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("alg", ["bfs", "sssp"])
+@pytest.mark.parametrize("backend", ["fused", "hybrid"])
+def test_continuous_session_matches_drain_on_card(cuda, backend, alg):
+    """A continuous session (4 slots, chunk 2, a stream of 24: hub, fringe
+    and seeded vertices) on the card, bit for bit against the port's drain
+    batch of the same engine with equal steps, every slot refilled, zero
+    retraces; the backend's kernels launch in the session's windows."""
+    from repro_torch.core.bsp import BSPEngine
+    from repro_torch.launch.graph_serve import query_batch
+    from repro_torch.runtime import ServeSession
+
+    # scale 10: the hybrid planner splits (|H| = 512 of 1,024), so both
+    # of its kernels run
+    g = TG.rmat(10, 8, seed=13).with_uniform_weights(seed=1)
+    eng = BSPEngine(TPT.partition(g, 2, TPT.HIGH), backend=backend,
+                    block_e=256)
+    deg = g.out_degrees()
+    stream = np.concatenate([[int(np.argmax(deg)), int(np.argmin(deg))],
+                             np.random.default_rng(3).integers(
+                                 0, g.num_vertices, size=22)])
+    want = [query_batch(eng, alg, stream[i:i + 4])
+            for i in range(0, len(stream), 4)]
+    rows = np.concatenate([w[0] for w in want])
+    steps = np.concatenate([w[1] for w in want])
+    counters = ((kfs.fused_superstep,) if backend == "fused"
+                else (kell.ell_spmv, kds.dense_spmv_minplus))
+    session = ServeSession(eng, alg, slots=4, chunk=2)
+    qids = session.submit(stream)
+    for fn in counters:
+        fn.launches = 0
+    rep = session.drain()
+    assert all(fn.launches > 0 for fn in counters)
+    got = {r["query"]: r for r in session.poll()}
+    for j, qid in enumerate(qids):
+        np.testing.assert_array_equal(got[qid]["result"], rows[j])
+        assert got[qid]["steps"] == int(steps[j])
+    assert rep["refills"] == len(stream) - 4
+    assert rep["min_slot_refills"] >= 1
+    assert rep["retraces"] == 0

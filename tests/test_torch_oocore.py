@@ -416,7 +416,8 @@ def test_tiered_refuses_dynamic_graphs_and_chunks(pgs):
         BSPEngine(dynamic, device="cpu", tiered=1 << 30)
     eng = _port(tp, "fused", _port_budget(tp, "fused"))
     state = {"level": multi_source_state(tp, SOURCES)}
-    with pytest.raises(NotImplementedError, match="item 9"):
+    # chunked mode is ported and refuses a tiered engine, as in JAX
+    with pytest.raises(ValueError, match="not supported on a tiered"):
         eng.execute(BFS_PROGRAM, state, chunk=2)
     with pytest.raises(ValueError, match="tiered"):
         eng.edges_for(BFS_PROGRAM)
