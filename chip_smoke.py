@@ -14,7 +14,8 @@ Phases (any failed check exits non-zero; nothing is caught and passed over):
 2. each kernel against its plain PyTorch version on the card at the main
    path's shapes: RMAT20 (``totem_rmat.RMAT_MEDIUM``, 2^20 vertices, 16
    edges each), 2 partitions, HIGH, ``block_e=1024``, reverse edges, Q=8.
-   The fused superstep for all six message kinds: min kinds bit for bit,
+   The fused superstep for all seven message kinds (``bfs_relax``, BFS's
+   warm-start relaxation, among them): min kinds bit for bit,
    sum kinds against a float64 evaluation of the plain version within the
    kernel's own f32 error bound (below).  The bottom-up scan on the
    engine's transposed rows with their row plan, in its three modes (BFS's
@@ -89,6 +90,24 @@ Phases (any failed check exits non-zero; nothing is caught and passed over):
    retraces, the kernels launched in a session timed with the counts set
    to 0 just before it; and a BFS session on the sharded hybrid (world of
    one) against the single-device drain rows, ``outbox_reduce`` launched;
+   then ``[dynamic]`` (``dynamic_phase``): a ``DynamicGraph`` of the same
+   weighted graph (``mutation_capacity=256``) takes ``edge_stream``'s 8
+   batches of 256 (churn 0.7, seed 20), with the apply rate in edges/s and
+   BFS on the fused and hybrid dynamic engines after every batch, nothing
+   rebuilt but at a compaction or a split rebuild; then, with the counts
+   set to 0 just before: BFS and SSSP at Q=8 on both engines bit for bit
+   with equal steps against fresh engines over the rebuilt graph,
+   PageRank within ``pagerank_f32_bound``, warm BFS and SSSP after an
+   insert-only window bit for bit with cold runs in fewer supersteps (the
+   ``bfs_relax`` kind launched once a superstep), one compaction and its
+   pause, the sharded hybrid (a world of one) consuming a batch by
+   compaction, bit for bit with the fused engine, and two rounds of
+   ``graph_serve --mutate``'s ``serve_mutating`` on the hybrid engine (a
+   cold refresh, then a warm one bit-equal to cold); every kernel of the
+   dynamic path must launch (the counts read just after); then
+   ``ServeSession.mutate`` through ``serve_continuous(mutation_stream=)``
+   with parity against drain batches, and the phase's seconds; and
+   ``[dir]``: ``launch/direction_selftest.py`` as a world of one NCCL rank;
 5. the numpy oracles at RMAT12 on the card, all five algorithms, on the
    fused and the hybrid backends;
 6. ``[segment_reduce]``: the sorted segment reduce through its entry point
@@ -186,6 +205,10 @@ SUM_LIMITS = {"pagerank": 2e-6, "betweenness_centrality": 1e-6}
 KERNELS = {
     "fused_superstep": ("src/repro_torch/kernels/csrc/fused_superstep.cu",
                         "src/repro/kernels/fused_superstep.py:146"),
+    # the same kernel's BFS relaxation kind (warm starts), listed apart
+    "fused_superstep.bfs_relax": (
+        "src/repro_torch/kernels/csrc/fused_superstep.cu",
+        "src/repro/kernels/fused_superstep.py:146"),
     "bottomup_scan": ("src/repro_torch/kernels/csrc/bottomup.cu",
                       "src/repro/kernels/bottomup.py:113"),
     "ell_spmv": ("src/repro_torch/kernels/csrc/ell_spmv.cu",
@@ -370,6 +393,8 @@ def kernel_inputs(kind, pg, blk, rng, device):
     elif kind == "cc":
         cols = [rng.integers(0, pg.num_vertices, shape).astype(np.float32),
                 active]
+    elif kind == "bfs_relax":
+        cols = [levels, active]
     elif kind == "pagerank":
         inv = np.where(pg.out_deg > 0, 1.0 / np.maximum(pg.out_deg, 1.0), 0)
         rank = rng.uniform(0.5, 1.5, shape) / pg.num_vertices
@@ -445,6 +470,7 @@ def _edge_message(kind, num_vertices):
             num_vertices),
         "bc_fwd": lambda: alg("bc").FORWARD_PROGRAM,
         "bc_bwd": lambda: alg("bc").BACKWARD_PROGRAM,
+        "bfs_relax": lambda: alg("bfs").BFS_RELAX_PROGRAM,
     }[kind]().edge_msg
 
 
@@ -1363,6 +1389,279 @@ def serve_phase(g, pg, sources, resident, check):
     return launches
 
 
+def dynamic_phase(gw, sources, dev, check):
+    """``[dynamic]``: dynamic graphs at RMAT20 / P=2 / HIGH (SSSP weights).
+
+    A ``DynamicGraph(mutation_capacity=256)`` takes ``edge_stream``'s 8
+    batches of 256 (churn 0.7, seed 20: ``graph_serve --mutate``'s
+    defaults); the apply rate is printed, and BFS runs on the fused and
+    hybrid dynamic engines after every batch with ``cache_entries()``
+    held (no rebuild but at a compaction or a hybrid split rebuild).
+    After the stream, with every kernel's count set to 0 just before:
+    BFS and SSSP at Q=8 on both engines bit for bit with equal steps
+    against fresh engines over the rebuilt graph, PageRank within the f32
+    rounding bound of float64 (``pagerank_f32_bound``), an insert-only
+    window whose warm BFS and SSSP on the fused engine equal cold runs bit
+    for bit in fewer supersteps (the ``bfs_relax`` kind launched), one
+    compaction with its pause, and the sharded hybrid (a world of one)
+    consuming a batch by compaction, bit for bit with the fused engine,
+    and ``graph_serve --mutate``'s ``serve_mutating`` for two rounds on the
+    hybrid engine (a cold refresh, then a warm one bit-equal to cold, no
+    retrace); the counts are read just after.  Then
+    ``ServeSession.mutate`` through ``serve_continuous(mutation_stream=)``
+    with parity against drain
+    batches, and the ledger's build time.  Returns the dynamic path's
+    launches by kernel, the ``bfs_relax`` kind's included."""
+    import numpy as np
+    import torch
+
+    from repro_torch.algorithms import (bfs_batched, bfs_incremental,
+                                        pagerank, sssp_batched,
+                                        sssp_incremental)
+    from repro_torch.core import graph as G
+    from repro_torch.core import partition as PT
+    from repro_torch.core.bsp import BSPEngine, DistributedBSPEngine
+    from repro_torch.core.dynamic import DynamicGraph
+    from repro_torch.data.graphs import edge_stream
+    from repro_torch.kernels import bottomup as kbu
+    from repro_torch.kernels import dense_spmv as kds
+    from repro_torch.kernels import ell_spmv as kell
+    from repro_torch.kernels import fused_superstep as kfs
+    from repro_torch.kernels import outbox_reduce as kob
+    from repro_torch.launch.graph_serve import (ServeConfig, serve_continuous,
+                                                serve_mutating)
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    G.EdgeLedger(gw)
+    t_ledger = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dg = DynamicGraph(gw, 2, PT.HIGH, mutation_capacity=256)
+    t_dg = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stream = edge_stream(gw, 8, 256, churn=0.7, seed=SEED)
+    t_stream = time.perf_counter() - t0
+    log(f"[dynamic] EdgeLedger of RMAT20 ({gw.num_edges} edges) "
+        f"{t_ledger:.2f} s; DynamicGraph (partition, ledger, payload) "
+        f"{t_dg:.2f} s, delta_slots={dg.delta_slots}, o_max="
+        f"{dg.pg.fwd.o_max}; edge_stream 8 x 256 {t_stream:.2f} s")
+    engines = {"fused": BSPEngine(dg, backend="fused", block_e=BLOCK_E),
+               "hybrid": BSPEngine(dg, backend="hybrid")}
+    for name, eng in engines.items():
+        t0 = time.perf_counter()
+        bfs_batched(eng, sources)
+        sssp_batched(eng, sources)
+        log(f"[dynamic] {name} engine's first BFS and SSSP (builds "
+            f"included) {time.perf_counter() - t0:.2f} s")
+
+    # the stream: apply rate, then BFS on both engines after each batch
+    applied = apply_s = 0.0
+    held = True
+    for i, batch in enumerate(stream):
+        entries = {k: e.cache_entries() for k, e in engines.items()}
+        marks = {k: (e.dynamic_rebinds, e.hybrid_dyn_rebuilds)
+                 for k, e in engines.items()}
+        rep = dg.apply_mutations(batch)
+        applied += rep["num_edges"]
+        apply_s += rep["apply_ms"] / 1e3
+        walls = {}
+        for name, eng in engines.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bfs_batched(eng, sources)
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+            rebuilt = marks[name] != (eng.dynamic_rebinds,
+                                      eng.hybrid_dyn_rebuilds)
+            if not rebuilt and eng.cache_entries() != entries[name]:
+                held = False
+        log(f"[dynamic] batch {i}: {rep['inserts']} inserts, "
+            f"{rep['deletes']} deletes, apply {rep['apply_ms']:.2f} ms "
+            f"({rep['edges_per_sec']:.0f} edges/s), compacted "
+            f"{rep['compacted']}; BFS wall fused {walls['fused']:.3f} s, "
+            f"hybrid {walls['hybrid']:.3f} s")
+    rate = applied / max(apply_s, 1e-9)
+    fe, he = engines["fused"], engines["hybrid"]
+    check(held, f"[dynamic] no engine rebuilt anything across the 8 batches "
+          f"but at a compaction or a split rebuild (compactions "
+          f"{dg.compactions}, fused rebinds {fe.dynamic_rebinds}, hybrid "
+          f"rebinds {he.dynamic_rebinds}, hybrid split rebuilds "
+          f"{he.hybrid_dyn_rebuilds})")
+    log(f"[dynamic] apply rate {rate:.0f} edges/s over {int(applied)} "
+        f"edges (host planning and the device writes, "
+        f"{apply_s * 1e3:.2f} ms in all)")
+
+    # -- the dynamic path, its kernel counts zeroed just before --------------
+    # (the fresh engines' yardstick runs are taken out of the counts)
+    counters = (kfs.fused_superstep, kbu.bottomup_scan, kell.ell_spmv,
+                kds.dense_spmv, kds.dense_spmv_minplus, kob.outbox_reduce)
+    for fn in counters:
+        fn.launches = 0
+    kfs.fused_superstep.kind_launches.clear()
+
+    def yardstick(run, *args):
+        before = [fn.launches for fn in counters]
+        out = run(*args)
+        for fn, b in zip(counters, before):
+            fn.launches = b
+        return out
+
+    t0 = time.perf_counter()
+    g_mut = dg.mutated_csr()
+    fresh_pg = PT.partition(g_mut, 2, PT.HIGH)
+    fresh = {"fused": BSPEngine(fresh_pg, backend="fused", block_e=BLOCK_E),
+             "hybrid": BSPEngine(fresh_pg, backend="hybrid")}
+    log(f"[dynamic] rebuilt graph and fresh engines "
+        f"{time.perf_counter() - t0:.2f} s")
+    cold = {}
+    for name, eng in engines.items():
+        for alg, fn in (("bfs", bfs_batched), ("sssp", sssp_batched)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res, steps = fn(eng, sources)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            want, want_steps = yardstick(fn, fresh[name], sources)
+            cold[name, alg] = (res, steps, wall)
+            check(np.array_equal(res, want)
+                  and np.array_equal(steps, want_steps),
+                  f"[dynamic] {alg} {name}: the mutated layout bit-equal to "
+                  f"a fresh engine over the rebuilt graph, equal steps "
+                  f"{np.asarray(steps).tolist()} ({wall:.3f} s wall)")
+    r64, bound = pagerank_f32_bound(g_mut, PR_ITERS, dev)
+    for name, eng in engines.items():
+        pr = pagerank(eng, PR_ITERS)
+        slack = float(np.max(np.abs(pr - r64) - bound))
+        check(slack <= 0, f"[dynamic] pagerank {name}: within the f32 "
+              f"rounding bound of float64 on the rebuilt graph (max rel "
+              f"err {max_rel_err(pr, r64):.3e})")
+    del fresh, fresh_pg
+
+    # an insert-only window: warm starts on the fused engine
+    mark = dg.mark()
+    prev = {alg: cold["fused", alg][0] for alg in ("bfs", "sssp")}
+    ins = edge_stream(g_mut, 1, 256, churn=1.0, seed=SEED + 1)[0]
+    dg.apply_mutations(ins)
+    dirty, monotone = dg.dirty_since(mark)
+    check(monotone, "[dynamic] the insert-only window is monotone")
+    for alg, warm_fn, cold_fn in (("bfs", bfs_incremental, bfs_batched),
+                                  ("sssp", sssp_incremental, sssp_batched)):
+        relax0 = kfs.fused_superstep.kind_launches.get("bfs_relax", 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        warm, wsteps = warm_fn(fe, prev[alg], dirty)
+        torch.cuda.synchronize()
+        w_wall = time.perf_counter() - t0
+        relax = kfs.fused_superstep.kind_launches.get("bfs_relax", 0) - relax0
+        t0 = time.perf_counter()
+        res, csteps = cold_fn(fe, sources)
+        torch.cuda.synchronize()
+        c_wall = time.perf_counter() - t0
+        check(np.array_equal(warm, res)
+              and int(np.max(wsteps)) < int(np.max(csteps))
+              and (alg != "bfs" or relax == int(np.max(wsteps))),
+              f"[dynamic] warm {alg} (fused): bit-equal to cold, supersteps "
+              f"{int(np.max(wsteps))} vs {int(np.max(csteps))}, wall "
+              f"{w_wall:.3f} s vs {c_wall:.3f} s cold"
+              + (f"; bfs_relax launches {relax}" if alg == "bfs" else ""))
+
+    # one compaction, with its pause; then the sharded hybrid (a world of
+    # one) consumes a batch by compaction and launches the outbox kernel
+    before, _ = bfs_batched(fe, sources)
+    rebinds = fe.dynamic_rebinds
+    pause = dg.compact()
+    after, _ = bfs_batched(fe, sources)
+    check(fe.dynamic_rebinds == rebinds + 1 and np.array_equal(before, after),
+          f"[dynamic] compaction: {pause:.1f} ms pause, the fused engine "
+          f"rebound once, BFS unchanged")
+    compactions = dg.compactions
+    dg.apply_mutations(edge_stream(dg.mutated_csr(), 1, 256, churn=0.7,
+                                   seed=SEED + 2)[0])
+    sh = DistributedBSPEngine(dg, backend="hybrid")
+    ob0 = kob.outbox_reduce.launches
+    t0 = time.perf_counter()
+    got, gsteps = bfs_batched(sh, sources)
+    t_sh = time.perf_counter() - t0
+    want, wsteps = bfs_batched(fe, sources)
+    check(np.array_equal(got, want) and np.array_equal(gsteps, wsteps)
+          and kob.outbox_reduce.launches > ob0
+          and dg.compactions == compactions + 1,
+          f"[dynamic] sharded hybrid (world of one) after its compaction: "
+          f"BFS bit-equal to the fused engine, equal steps ({t_sh:.2f} s "
+          f"with the compaction and its split; outbox_reduce launches "
+          f"{kob.outbox_reduce.launches - ob0})")
+    del sh
+
+    # graph_serve --mutate's drain regime (serve_mutating) on the hybrid
+    # engine: a mixed round (cold refresh), then an insert-only one (warm
+    # refresh), the staleness and re-split votes taken every round
+    g_now = dg.mutated_csr()
+    rounds = [edge_stream(g_now, 1, 256, churn=0.7, seed=SEED + 4)[0],
+              edge_stream(g_now, 1, 256, churn=1.0, seed=SEED + 5)[0]]
+    del g_now
+    t0 = time.perf_counter()
+    rep = serve_mutating(he, dg, "bfs", batches=rounds, batch=Q, standing=Q,
+                         query_batches_per_round=2, seed=SEED)
+    t_mut = time.perf_counter() - t0
+    refreshes = [r["refresh"] for r in rep["per_round"]]
+    warm = [r for r in refreshes if r["mode"] == "incremental"]
+    check(rep["rounds"] == 2 and rep["retraces"] == 0 and len(warm) == 1
+          and all(r["bitwise_equal"] for r in warm),
+          f"[dynamic] serve_mutating (hybrid BFS, 2 rounds): refreshes "
+          f"{[r['mode'] for r in refreshes]}, the warm one bit-equal to "
+          f"cold in {rep['incremental_steps']} vs {rep['cold_steps']} "
+          f"supersteps; retraces {rep['retraces']}, compactions so far "
+          f"{rep['compactions']} ({rep['compaction_pause_ms']:.1f} ms in "
+          f"these rounds), resplits {rep['resplits']}, split rebuilds "
+          f"{rep['hybrid_rebuilds']}; batch p50 {rep['batch_p50_ms']:.1f} "
+          f"ms, p99 {rep['batch_p99_ms']:.1f} ms ({t_mut:.1f} s)")
+    launches = {fn.__name__: fn.launches for fn in counters}
+    launches["bfs_relax"] = kfs.fused_superstep.kind_launches.get(
+        "bfs_relax", 0)
+    log(f"[dynamic] launches on the dynamic path: {launches}")
+    check(all(v > 0 for v in launches.values()),
+          "[dynamic] every kernel of the dynamic path launched: the fused "
+          "kernel (tombstones in its mask, the bfs_relax kind), ell_spmv, "
+          "dense_spmv, dense_spmv_minplus and bottomup_scan on the dynamic "
+          "hybrid, outbox_reduce on the sharded hybrid")
+
+    # ServeSession.mutate: waves of 16 with a batch between them
+    cfg = ServeConfig(alg="sssp", batch=Q, mutate=True,
+                      continuous=True).validate()
+    wave_stream = edge_stream(dg.mutated_csr(), 2, 256, churn=0.7,
+                              seed=SEED + 3)
+    rep = serve_continuous(fe, gw, cfg, np.resize(sources, 48), dg=dg,
+                           mutation_stream=wave_stream, parity=True)
+    check(rep["parity_mismatches"] == 0 and rep["parity_checked"] == 48
+          and rep["retraces"] == 0,
+          f"[dynamic] ServeSession.mutate: {rep['waves']} waves, "
+          f"{rep['parity_checked']} completions bit-equal to drain batches "
+          f"with equal steps, retraces {rep['retraces']} "
+          f"({rep['continuous_qps']:.1f} q/s continuous vs "
+          f"{rep['drain_qps']:.1f} drain)")
+    log(f"[dynamic] phase {time.perf_counter() - t_phase:.1f} s")
+    del engines, fe, he
+    torch.cuda.empty_cache()
+    return launches
+
+
+def direction_world_phase(check):
+    """``[dir]``: ``launch/direction_selftest.py`` as a world of one NCCL
+    rank on this card (BFS, SSSP and CC through the sharded engine on
+    every backend x {push, pull, auto} against single-device push)."""
+    from repro_torch.launch import direction_selftest
+    from repro_torch.launch.world import run_world
+
+    t0 = time.perf_counter()
+    lines = run_world(direction_selftest._run_rank, 1, device="cuda",
+                      timeout=300, args=(8, 4, 4, 13))[0]
+    for line in lines:
+        log(f"[dir] {line.strip()}")
+    check(len(lines) == 3, f"[dir] direction_selftest over a world of one "
+          f"NCCL rank: every backend push == pull == auto "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+
 def main() -> int:
     import torch
 
@@ -1565,6 +1864,8 @@ def main() -> int:
         torch.cuda.synchronize()
         err = max_abs_err(got, want)
         worst_err = max(worst_err, err)
+        if kind == "bfs_relax":
+            relax_err = err
         if spec.combine == "min":
             check(torch.equal(got, want), f"[kernel] {kind}: bit-equal to "
                   f"the plain version (max |err| {err})")
@@ -2219,6 +2520,10 @@ def main() -> int:
     serve_launches = serve_phase(g, pg, sources, resident, check)
     log(f"[serve] launches in the timed sessions: {serve_launches}")
 
+    # -- phase 4c: [dynamic] mutations, warm starts, compaction; [dir] -------
+    dyn_launches = dynamic_phase(gw, sources, dev, check)
+    direction_world_phase(check)
+
     # -- phase 5: numpy oracles at RMAT12 on the card ------------------------
     small = G.rmat(12, 16, seed=SEED)
     sw = small.with_uniform_weights(seed=SEED)
@@ -2276,6 +2581,8 @@ def main() -> int:
             log("  " + what)
         return 1
     rows = {"fused_superstep": (kernel_rows["bfs"], worst_err),
+            "fused_superstep.bfs_relax": (kernel_rows["bfs_relax"],
+                                          relax_err),
             "bottomup_scan": (scan_rows["cc"], scan_err),
             "ell_spmv": (hyb_rows["ell_plus_times"], max(
                 hyb_rows[f"ell_{sr}"]["err"] for sr in ELL_MODES)),
@@ -2292,6 +2599,7 @@ def main() -> int:
     launches["outbox_reduce"] = shard_launches["outbox_reduce"]
     launches["segment_reduce"] = seg_launches
     launches["flash_attention"] = lm_launches
+    launches["fused_superstep.bfs_relax"] = dyn_launches["bfs_relax"]
     record = {"kernels": [dict(
         name=name, route="cuda", source=KERNELS[name][0],
         replaces=KERNELS[name][1], launches=launches[name],

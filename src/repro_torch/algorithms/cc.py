@@ -5,14 +5,16 @@ symmetrized graph (``symmetrize``).  Port of ``repro.algorithms.cc``.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.core.bsp import (MIN, BSPEngine, EdgeMessage, VertexProgram,
-                                  batch_state, gather_src)
+from repro_torch.core.bsp import (MIN, BSPEngine, EdgeMessage,
+                                  IncrementalForm, VertexProgram, batch_state,
+                                  gather_src)
 from repro_torch.core.graph import CSRGraph, from_edge_list
 
 
@@ -50,6 +52,21 @@ CC_PROGRAM = VertexProgram(combine=MIN, edge_fn=_edge_fn,
                                                 fn=_edge_msg_fn, kind="cc"))
 
 
+def _inc_seed(prev_state, dirty):
+    """Warm state after insert-only mutations: label propagation is already
+    an active-set min-relaxation, so re-seed it from the previous fixpoint
+    with the dirty frontier active.  Mutations must keep the graph
+    symmetric (insert both (u, v) and (v, u)): CC's contract."""
+    label = prev_state["label"]
+    return {"label": label,
+            "active": dirty.to(torch.bool).expand_as(label)
+            & torch.isfinite(label)}
+
+
+CC_PROGRAM = dataclasses.replace(
+    CC_PROGRAM, incremental=IncrementalForm(CC_PROGRAM, _inc_seed))
+
+
 def connected_components(engine: BSPEngine) -> Tuple[np.ndarray, int]:
     """Returns (labels [n] — min global vertex id per component, steps)."""
     pg = engine.pg
@@ -60,6 +77,21 @@ def connected_components(engine: BSPEngine) -> Tuple[np.ndarray, int]:
         "label": torch.as_tensor(label0, dtype=torch.float32),
         "active": torch.as_tensor(pg.vertex_mask.copy())}))
     return (pg.gather_global(state["label"][0].cpu().numpy()),
+            int(steps[0]))
+
+
+def cc_incremental(engine: BSPEngine, prev_labels: np.ndarray,
+                   dirty_global: np.ndarray) -> Tuple[np.ndarray, int]:
+    """Warm-start component labels after insert-only *symmetric* mutations
+    (see :func:`repro_torch.algorithms.bfs.bfs_incremental` for the
+    contract).  Returns (labels [n], supersteps)."""
+    pg = engine.pg
+    prev = np.asarray(prev_labels, dtype=np.float32)
+    state = {"label": torch.as_tensor(pg.scatter_global(prev, np.inf),
+                                      device=engine.device)[None]}
+    st, steps = engine.execute(CC_PROGRAM, state,
+                               incremental=pg.scatter_dirty(dirty_global))
+    return (pg.gather_global(st["label"][0].cpu().numpy()),
             int(steps[0]))
 
 

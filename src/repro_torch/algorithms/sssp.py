@@ -5,15 +5,17 @@ becomes the engine's segment min.  Port of ``repro.algorithms.sssp``.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Sequence, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.algorithms.bfs import gather_batch, multi_source_state
-from repro_torch.core.bsp import (MIN, BSPEngine, EdgeMessage, VertexProgram,
-                                  gather_src)
+from repro_torch.algorithms.bfs import (gather_batch, multi_source_state,
+                                        warm_state)
+from repro_torch.core.bsp import (MIN, BSPEngine, EdgeMessage,
+                                  IncrementalForm, VertexProgram, gather_src)
 from repro_torch.core.graph import CSRGraph
 
 
@@ -46,6 +48,24 @@ SSSP_PROGRAM = VertexProgram(combine=MIN, edge_fn=_edge_fn,
                                  weight_op="add"))
 
 
+def _inc_seed(prev_state, dirty):
+    """Warm state after insert-only mutations: Bellman-Ford is already a
+    relaxation with an active set, so its incremental form is the program
+    itself, seeded with the previous distances and the dirty frontier
+    (sources of inserted edges that are themselves reached)."""
+    dist = prev_state["dist"]
+    return {"dist": dist,
+            "active": dirty.to(torch.bool).expand_as(dist)
+            & torch.isfinite(dist)}
+
+
+# Min-plus fixpoints of an insert-only window are descent-reachable from the
+# previous solution and every old path survives, so the warm result is
+# bitwise a cold rerun's.
+SSSP_PROGRAM = dataclasses.replace(
+    SSSP_PROGRAM, incremental=IncrementalForm(SSSP_PROGRAM, _inc_seed))
+
+
 def sssp_batched(engine: BSPEngine,
                  sources: Sequence[int]) -> Tuple[np.ndarray, np.ndarray]:
     """Run a batch of Q SSSP queries through one engine invocation.
@@ -65,6 +85,19 @@ def sssp_batched(engine: BSPEngine,
 def sssp(engine: BSPEngine, source: int) -> Tuple[np.ndarray, int]:
     dists, steps = sssp_batched(engine, [source])
     return dists[0], int(steps[0])
+
+
+def sssp_incremental(engine: BSPEngine, prev_dists: np.ndarray,
+                     dirty_global: np.ndarray
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+    """Warm-start SSSP solutions after insert-only mutations (see
+    :func:`repro_torch.algorithms.bfs.bfs_incremental` for the
+    contract)."""
+    pg = engine.pg
+    state = {"dist": warm_state(pg, prev_dists, engine.device)}
+    st, steps = engine.execute(SSSP_PROGRAM, state,
+                               incremental=pg.scatter_dirty(dirty_global))
+    return gather_batch(pg, st["dist"]), steps.cpu().numpy()
 
 
 def sssp_reference(g: CSRGraph, source: int) -> np.ndarray:

@@ -1,7 +1,8 @@
 """Carry the JAX package's data across to the port.
 
 Reads a JAX-side ``PartitionedGraph``, ``BlockMetadata``, ``HybridGraph``,
-``ShardHybridData``, state dict or LM parameter pytree —
+``ShardHybridData``, ``DynamicGraph`` payload, state dict or LM parameter
+pytree —
 any object with the same attributes holding numpy arrays (or anything
 ``np.asarray`` takes) — without importing ``repro``, and returns the port's
 objects and tensors.  Tests use it to feed both packages the same graph,
@@ -153,6 +154,24 @@ def state(tree: Dict[str, object],
     dev = resolve_device(device)
     return {k: torch.as_tensor(np.array(v), device=dev)
             for k, v in tree.items()}
+
+
+# The port's dtype of each array of a dynamic graph's payload: the engine
+# indexes with int64.
+_PAYLOAD_DTYPES = {"tomb": torch.bool, "d_src": torch.int64,
+                   "d_dst_ext": torch.int64, "inbox_dst": torch.int64,
+                   "d_weight": torch.float32}
+
+
+def dynamic_payload(payload: Dict[str, object],
+                    device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """A JAX ``DynamicGraph.payload()`` (``tomb``, ``d_src``,
+    ``d_dst_ext``, ``inbox_dst`` and, weighted, ``d_weight``) → the port's
+    payload tensors on ``device`` (default ``cuda``), in the dtypes of
+    ``core.dynamic.DynamicGraph.payload``."""
+    dev = resolve_device(device)
+    return {k: torch.as_tensor(np.array(v), dtype=_PAYLOAD_DTYPES[k],
+                               device=dev) for k, v in payload.items()}
 
 
 def to_numpy(tree: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:

@@ -57,9 +57,12 @@ import numpy as np
 import torch
 
 from repro_torch.core import perf_model
+from repro_torch.core.graph import CSRGraph
 from repro_torch.core.hybrid import (MIN_PLUS, PLUS_TIMES, add_identity,
-                                     dense_stage, hybrid_spmv,
-                                     hybrid_spmv_scan, splits_of)
+                                     degree_split, dense_stage,
+                                     edge_max_ranks, hybrid_spmv,
+                                     hybrid_spmv_scan, split_layout,
+                                     splits_of)
 from repro_torch.core.partition import (BlockMetadata, EdgeArrays,
                                         PartitionedGraph, TierPlan,
                                         build_block_metadata, build_tier_plan,
@@ -74,7 +77,8 @@ from repro_torch.kernels.ell_spmv import (EllPlan, plan_lanes,
 from repro_torch.kernels.fused_superstep import stack_query_minor
 from repro_torch.kernels.ops import (bottomup_scan_op, ell_spmv_op,
                                      fused_superstep_op, outbox_reduce_op)
-from repro_torch.kernels.ref import MIN, SUM, identity, segment_reduce_ref
+from repro_torch.kernels.ref import (MIN, SEMIRINGS, SUM, identity,
+                                     segment_reduce_ref)
 
 State = Dict[str, torch.Tensor]  # batched: leaves [Q, Pl, ...]
 
@@ -84,7 +88,7 @@ HYBRID = "hybrid"
 BACKENDS = (REFERENCE, FUSED, HYBRID)
 
 __all__ = ["SUM", "MIN", "REFERENCE", "FUSED", "HYBRID", "BACKENDS",
-           "EdgeMessage", "VertexProgram", "BSPEngine",
+           "EdgeMessage", "IncrementalForm", "VertexProgram", "BSPEngine",
            "DistributedBSPEngine", "batch_state", "unbatch_state",
            "num_queries", "gather_src"]
 
@@ -144,6 +148,32 @@ class EdgeMessage:
 
 
 @dataclasses.dataclass(frozen=True)
+class IncrementalForm:
+    """A program's warm-start form for incremental recomputation.
+
+    ``program`` is the *relaxation* restatement of the algorithm, whose
+    fixpoint is reachable by descent from any over-approximation, not just
+    from the cold initial state (BFS's level-synchronous frontier test
+    becomes an active-set min-relaxation over levels).  ``seed(prev_state,
+    dirty)`` builds the warm initial state from a previous *fixpoint* and a
+    ``[P, v_max]`` dirty-vertex mask (the sources of edges inserted since
+    that fixpoint was computed).
+
+    Valid only while mutations stay **monotone** for the program's semiring
+    (insert-only for min/min-plus: new edges can only lower the least
+    fixpoint, so the old solution is a sound over-approximation and every
+    old path survives, which makes the warm fixpoint bitwise the cold one).
+    Deletions, and programs that are not monotone (PageRank, BC), take the
+    cold path: ``execute(incremental=)`` returns None for a program without
+    a form, and ``DynamicGraph.dirty_since`` reports whether a window was
+    monotone.
+    """
+
+    program: "VertexProgram"
+    seed: Callable[[State, torch.Tensor], State]
+
+
+@dataclasses.dataclass(frozen=True)
 class VertexProgram:
     """An algorithm in TOTEM's callback form (paper Fig. 5), on batched state.
 
@@ -152,7 +182,9 @@ class VertexProgram:
     identity).  ``apply_fn(state, acc, step) -> (new_state, finished [Q])``
     — the per-vertex update on the reduced ``[Q, Pl, v_max]`` accumulator and
     each query's vote to terminate.  ``edge_msg`` makes the program eligible
-    for the fused backend.
+    for the fused backend; ``incremental`` (an :class:`IncrementalForm`)
+    enables warm starts after monotone mutations
+    (``execute(incremental=)``).
     """
 
     combine: str
@@ -163,6 +195,7 @@ class VertexProgram:
     max_steps: int = 1 << 30
     use_reverse: bool = False
     edge_msg: Optional[EdgeMessage] = None
+    incremental: Optional[IncrementalForm] = None
 
 
 def gather_src(x: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
@@ -380,14 +413,19 @@ def _superstep(dims: _Dims, program: VertexProgram, edges: dict,
                all_finished: Callable[[torch.Tensor], torch.Tensor],
                fused_block_e: Optional[int], state: State, step: int,
                dopt_cfg: Optional[_DoptCfg] = None,
-               pull: Optional[_PullLayout] = None
+               pull: Optional[_PullLayout] = None,
+               delta: Optional[dict] = None
                ) -> Tuple[State, torch.Tensor]:
     """One BSP superstep of the whole query batch over the local partitions.
 
     ``exchange`` maps the outboxes ``[Q, pl, P, o_max]`` to the inboxes of
     the same shape (a transpose on one device, an ``all_to_all`` across
     shards); ``all_finished`` turns the local votes ``[Q]`` into global
-    ones."""
+    ones.  On a dynamic graph ``edges`` carries the run's tombstones
+    (``BSPEngine._dyn_edges``) and ``delta`` the inserted edges' slots
+    (``src``/``dst_ext``/``weight [pl, d_max]``): one reference compute
+    over the same extended segment space, combined into the accumulator,
+    so its boundary messages share the outbox slots and the exchange."""
     state, dopt = _dopt_strip(state)
 
     def compute_push(st, e=edges):
@@ -400,6 +438,9 @@ def _superstep(dims: _Dims, program: VertexProgram, edges: dict,
                                       compute_push, state, step, dopt)
     else:
         acc = compute_push(state)
+    if delta is not None:
+        acc = _combine(program.combine, acc,
+                       _compute_reference(dims, program, delta, state, step))
     return _finish_superstep(dims, program, edges["inbox_dst"], exchange,
                              all_finished, acc, state, step, dopt)
 
@@ -459,6 +500,9 @@ class _HybridCfg:
     forced: Optional[int] = None  # None = vote, else _DIR_PUSH/_DIR_PULL
     uniform: bool = False         # EdgeMessage.frontier_uniform
     e_dense: int = 0              # a pull step's dense-stage charge, k^2
+    # the dynamic split's spare slots and push slots read the sentinel
+    # column n of x, which holds the ⊕-identity
+    spare: bool = False
 
 
 def _hybrid_messages(program: VertexProgram, arrs: dict, state: State,
@@ -520,6 +564,8 @@ def _hybrid_directed(cfg: _HybridCfg, arrs: dict, x: torch.Tensor,
         if "push_w" in arrs:
             msgs = msgs + arrs["push_w"]
         y_push = segment_reduce_ref(msgs, arrs["push_dst"], x.shape[1], MIN)
+        if cfg.spare:                       # the sentinel's own segment
+            y_push = y_push[:, :-1]
         cnt_push = (msgs != ident).sum(1)
         del msgs
     if picked != {_DIR_PUSH}:
@@ -555,6 +601,9 @@ def _superstep_hybrid(program: VertexProgram, cfg: _HybridCfg, arrs: dict,
     _require_f32(program.edge_msg, state, HYBRID)
     state, dopt = _dopt_strip(state)
     vals, x = _hybrid_messages(program, arrs, state, step)     # [Q, n]
+    if cfg.spare:    # the sentinel column n that spare slots read
+        x = torch.cat([x, torch.full((x.shape[0], 1), add_identity(
+            cfg.semiring), dtype=x.dtype, device=x.device)], dim=1)
     y, want, cnt = _hybrid_directed(cfg, arrs, x,
                                     vals[program.edge_msg.gather[0]], dopt)
     return _hybrid_finish(program, cfg, arrs["hid"], state, y, step, dopt,
@@ -853,16 +902,32 @@ class BSPEngine:
     queries, which is how ``runtime/session.py`` serves a query stream
     through static slots.
 
-    Not ported yet: dynamic graphs raise ``NotImplementedError``.
+    A ``core.dynamic.DynamicGraph`` in place of ``pg`` gives a dynamic
+    engine: every run reads the graph's mutation payload, so batches
+    applied between runs rebuild nothing, and a compaction rebinds the
+    engine at its next run (``dynamic_rebinds``).  The reference and fused
+    backends fold the tombstones into the edges (to the sink, or out of
+    the block mask) and run the delta slots as one reference compute per
+    superstep; they push only, as in the JAX package.  The hybrid backend
+    keeps its own split of the mutated graph whose remainder rows end in
+    ``dynamic_ell_spare`` sentinel slots (``col = n``, the ⊗-identity):
+    each batch's touched pairs are written in place into the dense block,
+    the rows' slots and the push arrays, and a row without a free slot
+    rebuilds the split (``hybrid_dyn_rebuilds``).  ``execute(
+    incremental=dirty)`` warm-starts a program's :class:`IncrementalForm`.
+    ``tiered=`` on a dynamic graph is not ported yet (ROADMAP Queue 1
+    item 11).
     """
 
-    def __init__(self, pg: PartitionedGraph, *, backend: Optional[str] = None,
+    def __init__(self, pg, *, backend: Optional[str] = None,
                  fused: bool = False, block_e: int = 1024,
                  device: DeviceLike = None, direction: str = "auto",
                  direction_switch: bool = True,
                  pull_threshold: Optional[float] = None,
                  hybrid_k_dense: Optional[int] = None, tiered=None,
-                 win_blocks: int = 8):
+                 win_blocks: int = 8, dynamic_ell_spare: int = 8):
+        from repro_torch.core.dynamic import DynamicGraph
+
         if backend is None:
             backend = FUSED if fused else REFERENCE
         if backend not in BACKENDS:
@@ -871,32 +936,63 @@ class BSPEngine:
         if direction not in _DIRECTIONS:
             raise ValueError(f"direction must be one of {sorted(_DIRECTIONS)}"
                              f", got {direction!r}")
-        if tiered is not None and not isinstance(pg, PartitionedGraph):
-            raise _not_in_slice("tiered= on a dynamic graph", "11")
+        # A dynamic graph hands the engine a mutable layout: the engine
+        # reads its payload at every run and rebinds after a compaction.
+        self.dg: Optional[DynamicGraph] = None
+        self.dynamic_rebinds = 0
+        # dynamic-hybrid split rebuilds (a full row, or a batch log that
+        # no longer reaches the split's cursor): rebuilds a serving
+        # session counts as expected, like compaction rebinds
+        self.hybrid_dyn_rebuilds = 0
+        if isinstance(pg, DynamicGraph):
+            if tiered is not None:
+                raise _not_in_slice("tiered= on a dynamic graph", "11")
+            self.dg = pg
+            self._dyn_version = pg.version
+            pg = pg.pg
         if not isinstance(pg, PartitionedGraph):
-            raise _not_in_slice(
-                f"an engine over {type(pg).__name__} (dynamic graphs)", "11")
+            raise TypeError(f"an engine runs over a PartitionedGraph or a "
+                            f"DynamicGraph, not {type(pg).__name__}")
         self.backend = backend
         self.fused = backend == FUSED
         self.device = resolve_device(device)
-        self._parts = self._shard_parts(pg)
         self.direction = direction
         self._direction_switch = direction_switch
         self._pull_threshold = pull_threshold
-        self._pull: Optional[_PullLayout] = None
         self.last_direction_stats: Optional[dict] = None
         self._block_e = block_e
-        self.pg = pg
-        self.dims = _Dims(pg.num_parts, pg.v_max, pg.fwd.e_max, pg.fwd.o_max)
-        # this engine's partitions (all of them on one device): the edge,
-        # block and pull arrays it puts on its device
+        self._hybrid_k_dense = hybrid_k_dense
+        self._dyn_ell_spare = int(dynamic_ell_spare)
         self.tier_plan: Optional[TierPlan] = None
         self.tiered_buffers_made = 0
+        self._bind(pg, tiered=tiered is not None)
+        if tiered is not None:
+            self._bind_tiered(tiered, win_blocks)
+
+    @property
+    def pg(self) -> PartitionedGraph:
+        """The current partitioned layout.  On a dynamic engine this first
+        syncs with the ``DynamicGraph`` (a rebind after a compaction; on
+        the sharded hybrid, a compaction of pending batches), so state
+        made from ``engine.pg`` matches the layout of the next run."""
+        if self.dg is not None:
+            self._sync_dynamic()
+        return self._pg
+
+    def _bind(self, pg: PartitionedGraph, tiered: bool = False) -> None:
+        """Derive every structure of ``pg``: this engine's partitions (all
+        of them on one device) and the edge, block, pull and hybrid
+        arrays it puts on its device.  Construction and a rebind after a
+        compaction land here."""
+        self._pg = pg
+        self._parts = self._shard_parts(pg)
+        self.dims = _Dims(pg.num_parts, pg.v_max, pg.fwd.e_max, pg.fwd.o_max)
+        self._pull: Optional[_PullLayout] = None
         self._fwd = self._rev = None
-        if tiered is None:
+        if not tiered:
             local = [slice_parts(ea, *self._parts) if ea is not None
                      else None for ea in (pg.fwd, pg.rev)]
-            blks = [build_block_metadata(ea, block_e=block_e)
+            blks = [build_block_metadata(ea, block_e=self._block_e)
                     if self.fused and ea is not None else None
                     for ea in local]
             self._fwd, self._rev = (
@@ -906,17 +1002,19 @@ class BSPEngine:
         self._hybrid_cache: dict = {}
         self._hybrid_layouts: dict = {}
         self._hyb_tier_cache: dict = {}
-        if backend == HYBRID:
+        self._hybrid_dyn_cache: dict = {}
+        if self.backend == HYBRID:
             if pg.source is None:
                 raise ValueError(
                     "the hybrid backend needs PartitionedGraph.source; "
                     "partition with core.partition.partition()")
             self._splits = splits_of(pg)
-            self._hybrid_plan = self._plan_hybrid(hybrid_k_dense, block_e)
-        elif direction_switch and tiered is None:
+            self._hybrid_plan = self._plan_hybrid(self._hybrid_k_dense,
+                                                  self._block_e)
+        elif self._direction_switch and not tiered and self.dg is None:
+            # the transposed rows do not track mutations: dynamic graphs
+            # push only on these backends, as in the JAX package
             self._pull = self._build_pull_layout()
-        if tiered is not None:
-            self._bind_tiered(tiered, win_blocks)
 
     def _shard_parts(self, pg: PartitionedGraph) -> Tuple[int, int]:
         """The partitions ``[lo, hi)`` this engine holds: all of them."""
@@ -1129,7 +1227,11 @@ class BSPEngine:
         """The split ``program`` runs on: its static cfg and device tensors
         (``_superstep_hybrid``), built at the first call and cached per
         direction, semiring, weight use and frontier uniformity.  A run
-        calls it; calling it first moves the host work out of the run."""
+        calls it; calling it first moves the host work out of the run.  On a
+        dynamic graph it is the engine's own split of the mutated graph,
+        brought up to the graph's last batch (:meth:`_hybrid_dyn_for`)."""
+        if self.dg is not None:
+            return self._hybrid_dyn_for(program)
         key = self._hybrid_key(program)
         if key not in self._hybrid_cache:
             self._hybrid_cache[key] = self._build_hybrid(program)
@@ -1170,7 +1272,9 @@ class BSPEngine:
             return self._tiered_step_fn(program)
         if self._uses_hybrid(program):
             return self._hybrid_step_fn(program)
-        edges = self.edges_for(program)
+        edges, delta = self.edges_for(program), None
+        if self.dg is not None:
+            edges, delta = self._dyn_edges(program, edges)
         dims = self.dims_for(edges)
         block_e = self._block_e if self.fused else None
         pull = self._pull if dopt_cfg is not None else None
@@ -1178,8 +1282,274 @@ class BSPEngine:
         def step_fn(state, step):
             return _superstep(dims, program, edges, self._exchange,
                               self._all_finished, block_e, state, step,
-                              dopt_cfg, pull)
+                              dopt_cfg, pull, delta)
         return step_fn
+
+    # ---------------------- dynamic graphs ---------------------------------
+
+    def _sync_dynamic(self) -> None:
+        """Rebind after a compaction (the one rebuild a dynamic engine
+        pays); called at every dynamic run and by the ``pg`` property."""
+        if self.dg.version != self._dyn_version:
+            # version first: _bind reads self.pg, whose getter re-enters
+            # this sync, and the new version makes that a no-op
+            self._dyn_version = self.dg.version
+            self._bind(self.dg.pg)
+            self.dynamic_rebinds += 1
+
+    def _dyn_edges(self, program: VertexProgram,
+                   edges: dict) -> Tuple[dict, dict]:
+        """This run's view of the dynamic graph for the reference and fused
+        backends: ``edges`` with this engine's slice of the tombstones
+        folded in (sent to the sink, and zeroed in the fused block mask)
+        and the live ``inbox_dst``, and the delta slots' edges."""
+        lo, hi = self._parts
+        pl = {k: v[lo:hi].to(self.device)
+              for k, v in self.dg.payload(program.use_reverse).items()}
+        tomb = pl["tomb"]
+        out = dict(edges, inbox_dst=pl["inbox_dst"],
+                   dst_ext=torch.where(tomb, self.dims.v_max,
+                                       edges["dst_ext"]))
+        if "blk_mask" in edges:
+            alive = torch.zeros(edges["blk_mask"].shape, dtype=torch.int32,
+                                device=self.device)
+            alive[:, :tomb.shape[1]] = (~tomb).to(torch.int32)
+            out["blk_mask"] = edges["blk_mask"] * alive
+        delta = dict(src=pl["d_src"], dst_ext=pl["d_dst_ext"])
+        if "d_weight" in pl:
+            delta["weight"] = pl["d_weight"]
+        return out, delta
+
+    def should_resplit_hybrid(self, threshold: float = 0.10) -> bool:
+        """``perf_model.should_resplit`` on this engine's frozen dynamic
+        split: evaluate the candidate ladder on the *mutated* graph's
+        degree ranks and vote to re-rank only when the predicted makespan
+        improves by more than ``threshold``.  The serving launcher takes a
+        True vote as a compaction, whose rebind re-plans the split.  False
+        on engines that are not dynamic hybrids."""
+        if self.dg is None or self.backend != HYBRID:
+            return False
+        g = self.dg.mutated_csr()
+        resplit, info = perf_model.should_resplit(
+            edge_max_ranks(g), g.num_edges, self._hybrid_plan["candidates"],
+            current_k=self._hybrid_plan["k_dense"], threshold=threshold)
+        self.last_resplit_info = info
+        return resplit
+
+    def _hybrid_dyn_for(self, program: VertexProgram
+                        ) -> Tuple[_HybridCfg, dict]:
+        """The dynamic hybrid split, its device arrays brought up to the
+        graph's last batch.
+
+        Deletions write the ⊕-identity (or the combine of the surviving
+        parallel edges) into the dense block and send a row's slot back to
+        the sentinel; insertions land in the dense block or in a row's
+        spare sentinel slots.  The degree *ranking* stays frozen between
+        compactions (a stale split is a performance choice, never a
+        correctness one).  A row without a free slot, or a batch log that
+        no longer reaches the split's cursor, rebuilds the split from the
+        mutated graph.  ``row_ptr`` and so the row plan stay fixed between
+        rebuilds.
+        """
+        key = self._hybrid_key(program)
+        ent = self._hybrid_dyn_cache.get(key)
+        if ent is not None and ent["cursor"] < self.dg.log_floor:
+            ent = None
+            self.hybrid_dyn_rebuilds += 1
+        if ent is None:
+            ent = self._build_hybrid_dyn(program)
+            self._hybrid_dyn_cache[key] = ent
+        pairs = self.dg.pairs_since(ent["cursor"])
+        if pairs:
+            try:
+                self._reconcile_hybrid(ent, key, pairs)
+            except _EllOverflow:
+                ent = self._build_hybrid_dyn(program)
+                self._hybrid_dyn_cache[key] = ent
+                self.hybrid_dyn_rebuilds += 1
+            ent["cursor"] = self.dg.num_batches
+        return ent["cfg"], ent["arrs"]
+
+    def _build_hybrid_dyn(self, program: VertexProgram) -> dict:
+        """The engine's own degree split of the mutated graph (never the
+        split a static engine over the same ``pg`` shares), each remainder
+        row followed by ``dynamic_ell_spare`` sentinel slots, and the push
+        arrays followed by four batches' worth of spare sentinel slots.
+        The JAX package rounds the push arrays up to a power of two so its
+        jit caches see few shapes; here every sentinel slot scatters to the
+        one segment ``n``, whose atomics serialise (a rounded RMAT20 split
+        held 16.8M of them and ran BFS 8x slower on the card), and eager
+        PyTorch has no shapes to reuse.  Beside the device arrays it keeps
+        their host mirrors and, per (source, destination) pair, where its
+        push slots lie."""
+        spec = program.edge_msg
+        semiring = self._hybrid_semiring(program)
+        g = self.dg.mutated_csr()
+        if program.use_reverse:
+            g = g.reverse()
+        if not spec.use_weight and g.weights is not None:
+            g = CSRGraph(g.row_ptr, g.col, None)
+        k = self._hybrid_plan["k_dense"]
+        layout = split_layout(g, k)
+        hg = degree_split(g, k, semiring=semiring, layout=layout)
+        n = g.num_vertices
+        lens = np.diff(hg.ell_row_ptr.astype(np.int64))
+        row_ptr = np.zeros(n + 1, dtype=np.int64)
+        np.cumsum(lens + self._dyn_ell_spare, out=row_ptr[1:])
+        pos = np.repeat(row_ptr[:-1] - hg.ell_row_ptr[:-1], lens) + (
+            np.arange(len(hg.ell_col)))
+        mul_ident = SEMIRINGS[semiring][2]
+        col = np.full(int(row_ptr[-1]), n, dtype=np.int32)
+        val = np.full(int(row_ptr[-1]), mul_ident, dtype=np.float32)
+        col[pos], val[pos] = hg.ell_col, hg.ell_val
+        slot, hid = self._slot_hid(layout, n)
+        put = self._put
+        arrs = dict(dense=put(hg.dense_block, torch.float32),
+                    row_ptr=put(row_ptr, torch.int32),
+                    plan=row_plan(row_ptr).to(self.device),
+                    col=put(col, torch.int32), val=put(val, torch.float32),
+                    slot=put(slot, torch.int64), hid=put(hid, torch.int64))
+        cfg = dataclasses.replace(self._hybrid_cfg(program, g, hg),
+                                  spare=True)
+        ent = dict(cfg=cfg, arrs=arrs, dense=hg.dense_block.copy(),
+                   row_ptr=row_ptr, col=col, val=val,
+                   inv_perm=layout.inv_perm, mul_ident=float(mul_ident),
+                   cursor=self.dg.num_batches, push=None)
+        if program.combine == MIN and self._direction_switch:
+            e = len(layout.src)
+            cap = e + max(4 * self.dg.mutation_capacity, 64)
+            p_src = np.full(cap, n, dtype=np.int64)
+            p_dst = np.full(cap, n, dtype=np.int64)
+            p_src[:e], p_dst[:e] = layout.src, layout.dst
+            arrs["push_src"] = put(p_src, torch.int64)
+            arrs["push_dst"] = put(p_dst, torch.int64)
+            p_w = None
+            if semiring == MIN_PLUS and g.weights is not None:
+                p_w = np.zeros(cap, dtype=np.float32)
+                p_w[:e] = g.weights
+                arrs["push_w"] = put(p_w, torch.float32)
+            keys = layout.src.astype(np.int64) * (n + 1) + layout.dst
+            order = np.argsort(keys, kind="stable")
+            ent["push"] = dict(src=p_src, dst=p_dst, w=p_w, width=n + 1,
+                               keys=keys[order], order=order, slots={},
+                               free=list(range(e, cap)))
+        return ent
+
+    def _reconcile_hybrid(self, ent: dict, key, pairs) -> None:
+        """Match the split's ⊗ values for every touched (u, v) pair to the
+        ledger's live multiset, then write the dense block, the remainder
+        rows and the push arrays with one indexed write per array."""
+        semiring, use_reverse, use_weight = key[:3]
+        cfg = ent["cfg"]
+        inv, k, n = ent["inv_perm"], cfg.k_dense, cfg.num_vertices
+        ident = add_identity(semiring)
+        writes = {m: {} for m in ("dense", "col", "val", "push_src",
+                                  "push_dst", "push_w")}
+        for u, v in pairs:
+            a, b = (v, u) if use_reverse else (u, v)
+            ha, hb = int(inv[a]), int(inv[b])
+            weights = self.dg.ledger.alive_weights(u, v)
+            if semiring == PLUS_TIMES:
+                vals = [float(w) if use_weight else 1.0 for w in weights]
+            elif semiring == MIN_PLUS:
+                vals = [float(w) if use_weight else 0.0 for w in weights]
+            else:
+                vals = [0.0] * len(weights)
+            if k and ha < k and hb < k:
+                if not vals:
+                    cell = ident
+                elif semiring == PLUS_TIMES:
+                    acc = np.float32(0.0)    # f32 accumulation, in order
+                    for x in vals:
+                        acc = np.float32(acc + np.float32(x))
+                    cell = float(acc)
+                else:
+                    cell = min(vals)
+                ent["dense"][ha, hb] = cell
+                writes["dense"][ha * k + hb] = cell
+            else:
+                self._reconcile_ell_row(ent, hb, ha, vals, n, writes["col"],
+                                        writes["val"])
+            if ent["push"] is not None:
+                self._reconcile_push(ent["push"], ha, hb, vals, n, writes)
+        arrs = ent["arrs"]
+        for m, w in writes.items():
+            if not w:
+                continue
+            t = arrs[m]
+            idx = torch.as_tensor(np.fromiter(w.keys(), dtype=np.int64,
+                                              count=len(w)))
+            t.view(-1)[idx.to(t.device)] = torch.as_tensor(
+                list(w.values()), dtype=t.dtype).to(t.device)
+
+    def _reconcile_push(self, push: dict, ha: int, hb: int, vals,
+                        sentinel: int, writes: dict) -> None:
+        """Match the push arrays' (ha → hb) slots to the live multiset:
+        send extras back to the sentinel, claim spare slots for new edges.
+        Weightless arrays match by count, min_plus by ⊗ value.  Raises
+        :class:`_EllOverflow` when the spare slots run out (the caller
+        rebuilds from the mutated graph)."""
+        key = ha * push["width"] + hb
+        slots = push["slots"].get(key)
+        if slots is None:
+            lo = int(np.searchsorted(push["keys"], key, "left"))
+            hi = int(np.searchsorted(push["keys"], key, "right"))
+            slots = push["order"][lo:hi].tolist()
+        w = push["w"]
+        if w is None:
+            keep, extras = slots[:len(vals)], slots[len(vals):]
+            remaining = vals[len(slots):]
+        else:
+            remaining, keep, extras = list(vals), [], []
+            for j in slots:
+                x = float(w[j])
+                if x in remaining:
+                    remaining.remove(x)
+                    keep.append(j)
+                else:
+                    extras.append(j)
+        for j in extras:
+            writes["push_src"][j] = writes["push_dst"][j] = sentinel
+            push["src"][j] = push["dst"][j] = sentinel
+            if w is not None:
+                writes["push_w"][j] = w[j] = 0.0
+            push["free"].append(j)
+        if remaining:
+            if len(push["free"]) < len(remaining):
+                raise _EllOverflow((ha, hb))
+            for x in remaining:
+                j = push["free"].pop()
+                writes["push_src"][j] = push["src"][j] = ha
+                writes["push_dst"][j] = push["dst"][j] = hb
+                if w is not None:
+                    writes["push_w"][j] = w[j] = float(x)
+                keep.append(j)
+        push["slots"][key] = keep
+
+    def _reconcile_ell_row(self, ent: dict, row: int, col: int, want,
+                           sentinel: int, col_w: dict, val_w: dict) -> None:
+        """Match row ``row``'s slots of source ``col`` to the live multiset
+        ``want``: fill sentinel slots, send extras back to the sentinel."""
+        r0, r1 = int(ent["row_ptr"][row]), int(ent["row_ptr"][row + 1])
+        col_row, val_row = ent["col"][r0:r1], ent["val"][r0:r1]  # views
+        have = np.flatnonzero(col_row == col).tolist()
+        remaining, keep = list(want), []
+        for j in have:
+            v = float(val_row[j])
+            if v in remaining:
+                remaining.remove(v)
+                keep.append(j)
+        for j in have:
+            if j not in keep:
+                col_w[r0 + j] = col_row[j] = sentinel
+                val_w[r0 + j] = val_row[j] = ent["mul_ident"]
+        if remaining:
+            free = np.flatnonzero(col_row == sentinel).tolist()
+            if len(free) < len(remaining):
+                raise _EllOverflow(row)
+            for j, v in zip(free, remaining):
+                col_w[r0 + j] = col_row[j] = col
+                val_w[r0 + j] = val_row[j] = v
 
     # ---------------------- tiered (out-of-core) ----------------------------
 
@@ -1438,7 +1808,8 @@ class BSPEngine:
         this engine's tier plan (all on the device without one): the paper's
         Table 5 measure (``partition.memory_residency_bytes``)."""
         return memory_residency_bytes(self.pg, tier_plan=self.tier_plan,
-                                      state_bytes=state_bytes)
+                                      state_bytes=state_bytes,
+                                      dynamic=self.dg)
 
     def cache_entries(self) -> int:
         """How many structures this engine has built for its programs: the
@@ -1446,15 +1817,19 @@ class BSPEngine:
 
         Eager PyTorch compiles nothing, so this stands in for the JAX
         package's jit-cache sizes.  It counts the hybrid splits and
-        layouts (built at a program's first run), the tiered hybrid's row
-        windows, the tiered host arenas and window buffers, the pull
-        layout and the CUDA libraries the process has loaded (each at its
-        kernel's first launch).  An engine that builds another structure
+        layouts (built at a program's first run), the dynamic hybrid's
+        splits, the tiered hybrid's row windows, the tiered host arenas
+        and window buffers, the pull layout and the CUDA libraries the
+        process has loaded (each at its kernel's first launch).  A
+        mutation batch adds nothing; a compaction rebind or a dynamic
+        split rebuild replaces entries (``dynamic_rebinds``,
+        ``hybrid_dyn_rebuilds``).  An engine that builds another structure
         lazily adds it here."""
         from repro_torch.kernels import _build
 
         return (len(self._hybrid_cache) + len(self._hybrid_layouts)
-                + len(self._hyb_tier_cache) + int(self._pull is not None)
+                + len(self._hyb_tier_cache) + len(self._hybrid_dyn_cache)
+                + int(self._pull is not None)
                 + self.tiered_buffers_made + len(_build._loaded))
 
     def tiered_stats(self) -> Optional[dict]:
@@ -1525,12 +1900,18 @@ class BSPEngine:
           its resume carry (``start_step``, ``fin``, ``steps_q``,
           ``max_chunks``); returns ``(state, steps_q, info)``.
 
+        - ``execute(program, prev_state, incremental=dirty)`` — warm start
+          from a previous fixpoint over a ``[P, v_max]`` dirty mask: the
+          program's :class:`IncrementalForm` seeds the state and its
+          relaxation program runs to convergence; returns ``(state,
+          steps_q)``, or None when the program has no form.
+
         Leaves are moved to the engine's device.  Eligible min-combine
         programs run direction optimized (see the class docstring), except
         in chunked mode, whose slot refills swap user state rows only: the
         fused and reference backends push there, the hybrid runs its pull
-        SpMV.  The incremental mode and ``chaos_ctx=`` are not ported yet
-        and raise.  Incompatible keywords raise with the fix spelled out.
+        SpMV.  ``chaos_ctx=`` is not ported yet and raises.  Incompatible
+        keywords raise with the fix spelled out.
         """
         modes = {"num_steps": num_steps is not None,
                  "chunk": chunk is not None,
@@ -1571,11 +1952,20 @@ class BSPEngine:
                 program, state, checkpoint_every=chunk, on_chunk=on_chunk,
                 start_step=start_step, fin=fin, steps_q=steps_q,
                 max_chunks=max_chunks, monitor=monitor)
-        if incremental is not None:
-            raise _not_in_slice("execute(incremental=)", "11")
+        if self.dg is not None:
+            self._sync_dynamic()
         self.last_direction_stats = None
         state = {k: torch.as_tensor(v, device=self.device)
                  for k, v in state.items()}
+        if incremental is not None:
+            inc = program.incremental
+            if inc is None:
+                return None
+            # seed, then run the relaxation program to convergence (it
+            # votes its direction like any other)
+            state = inc.seed(state, torch.as_tensor(np.asarray(incremental),
+                                                    device=self.device))
+            program = inc.program
         dopt_cfg = self._dopt_cfg_for(program, state)
         if self._direction_enabled(program, state):
             q, parts = num_queries(state), self.pg.num_parts
@@ -1588,11 +1978,12 @@ class BSPEngine:
                 _dopt_switch=torch.zeros((q, parts), dtype=torch.int64,
                                          device=self.device))
         state = self._local(state)
-        step_fn = self._step_fn(program, dopt_cfg)
         if num_steps is not None:
+            step_fn = self._step_fn(program, dopt_cfg)
             for i in range(num_steps):
                 state, _ = step_fn(state, i)
             return self._dopt_finish(self._global(state))
+        step_fn = self._step_fn(program, dopt_cfg)
         state, steps_q = _run_batched_loop(step_fn, program.max_steps, state,
                                            num_queries(state))
         return self._dopt_finish(self._global(state)), steps_q
@@ -1616,6 +2007,8 @@ class BSPEngine:
         a sharded engine, sliced on entry and all-gathered at the
         boundary; the votes are global on every rank).  Returns ``(state,
         step, fin, steps_q)``."""
+        if self.dg is not None:
+            self._sync_dynamic()
         out, step, fin, steps_q = _run_chunked_loop(
             self._step_fn(program), chunk, program.max_steps,
             self._local(state), step, fin, steps_q)
@@ -1709,6 +2102,11 @@ class BSPEngine:
         return state, steps_q, info
 
 
+class _EllOverflow(RuntimeError):
+    """A dynamic hybrid row (or the push arrays) ran out of spare slots:
+    the split is rebuilt."""
+
+
 class DistributedBSPEngine(BSPEngine):
     """Partitions sharded over the ranks of a ``torch.distributed`` group.
 
@@ -1741,29 +2139,53 @@ class DistributedBSPEngine(BSPEngine):
     slices on entry and all-gathers at the boundary, and the votes are the
     global AND.
 
+    Over a ``DynamicGraph`` (each rank holds its own, built from the same
+    graph and fed the same batches) the reference and fused backends read
+    each rank's slice of the payload; the sharded hybrid's exchange maps
+    are fixed used-slot sets, so it consumes pending batches by a
+    compaction before its next run, and ``should_resplit_hybrid`` is False
+    (each compaction re-plans).
+
     Not ported yet: ``tiered=`` raises (single-device only, as in the JAX
-    package), dynamic graphs raise (Queue 1 item 11), and the windows run
-    the plain exchange, not the checked one (item 13).
+    package), and the windows run the plain exchange, not the checked one
+    (item 13).
     """
 
-    def __init__(self, pg: PartitionedGraph, group=None, *,
+    def __init__(self, pg, group=None, *,
                  device: DeviceLike = None, tiered=None, **kwargs):
+        from repro_torch.core.dynamic import DynamicGraph
+
         if tiered is not None:
             raise ValueError(
                 "tiered= is single-device only: the sharded superstep has "
                 "no host-streaming seam; drop tiered= or use BSPEngine")
-        if not isinstance(pg, PartitionedGraph):
-            raise _not_in_slice(
-                f"a sharded engine over {type(pg).__name__} (dynamic "
-                f"graphs)", "11")
+        inner = pg.pg if isinstance(pg, DynamicGraph) else pg
+        if not isinstance(inner, PartitionedGraph):
+            raise TypeError(f"a sharded engine runs over a PartitionedGraph "
+                            f"or a DynamicGraph, not {type(pg).__name__}")
         self.group = (group if isinstance(group, ShardGroup)
                       else ShardGroup(group, device))
-        if pg.num_parts % self.group.world_size:
+        if inner.num_parts % self.group.world_size:
             raise ValueError(
-                f"num_parts ({pg.num_parts}) must divide over the world size "
-                f"({self.group.world_size}): every rank holds the same number "
-                f"of partitions")
+                f"num_parts ({inner.num_parts}) must divide over the world "
+                f"size ({self.group.world_size}): every rank holds the same "
+                f"number of partitions")
         super().__init__(pg, device=self.group.device, **kwargs)
+
+    # ------------------------- dynamic graphs ------------------------------
+
+    def _sync_dynamic(self) -> None:
+        # The sharded hybrid's exchange maps (send_idx/recv_ids) are fixed
+        # used-slot sets that in-place deltas cannot extend, so pending
+        # batches are consumed through a compaction, as in the JAX package.
+        if self.backend == HYBRID and self.dg.batches_in_version:
+            self.dg.compact()
+        super()._sync_dynamic()
+
+    def should_resplit_hybrid(self, threshold: float = 0.10) -> bool:
+        """False: the sharded hybrid consumes mutations by compactions, each
+        of which re-plans the per-shard split."""
+        return False
 
     def _shard_parts(self, pg: PartitionedGraph) -> Tuple[int, int]:
         pl = pg.num_parts // self.group.world_size
@@ -1828,7 +2250,10 @@ class DistributedBSPEngine(BSPEngine):
         """This rank's slice of the per-shard split ``program`` runs on (the
         JAX ``_hybrid_dist_for``): its static cfg and device tensors, built
         at the first call (the split itself is kept on ``pg``) and cached
-        per direction, semiring, weight use and frontier uniformity."""
+        per direction, semiring, weight use and frontier uniformity.  On a
+        dynamic graph it is the split of the compacted layout."""
+        if self.dg is not None:
+            self._sync_dynamic()
         key = self._hybrid_key(program)
         if key not in self._hybrid_cache:
             self._hybrid_cache[key] = self._build_shard(program)

@@ -74,7 +74,7 @@ class EdgeArrays:
     inbox_dst: np.ndarray   # [P, P, o_max] = outbox_dst.transpose(1, 0, 2)
     num_edges: np.ndarray   # [P] true edge counts
     # Original edge index of each slot (-1 padding): the dynamic layer's
-    # tombstone locator (``repro.core.dynamic``, not ported yet).
+    # tombstone locator (``core/dynamic.py``).
     edge_id: Optional[np.ndarray] = None  # [P, e_max] int64
 
     @property
@@ -149,6 +149,13 @@ class PartitionedGraph:
         for p, l2g in enumerate(self.assignment.l2g):
             out[p, : len(l2g)] = global_vals[l2g]
         return out
+
+    def scatter_dirty(self, dirty_global: np.ndarray) -> np.ndarray:
+        """Global [n] dirty-vertex mask (``DynamicGraph.dirty_since``) into
+        [P, v_max] layout — the warm-start seed of
+        ``BSPEngine.execute(incremental=)``."""
+        return self.scatter_global(np.asarray(dirty_global, dtype=bool),
+                                   False)
 
 
 def assign_vertices(g: CSRGraph, num_parts: int, strategy: str = RAND,
@@ -234,7 +241,7 @@ def _build_edge_arrays(g: CSRGraph, asg: VertexAssignment, v_max: int,
 
     ``spare_outbox`` reserves that many unassigned outbox slots per
     (partition, peer) pair — headroom the dynamic layer
-    (``repro.core.dynamic``) assigns to inserted boundary edges targeting
+    (``core/dynamic.py``) assigns to inserted boundary edges targeting
     previously-unmessaged remote vertices, without changing ``o_max``.
     """
     P = asg.num_parts
@@ -326,7 +333,7 @@ def partition(g: CSRGraph, num_parts: int, strategy: str = RAND,
     """Partition ``g`` into ``num_parts`` fixed-shape partitions.
 
     ``spare_outbox`` reserves unassigned outbox slots per peer pair for the
-    dynamic layer's in-place edge inserts (``repro.core.dynamic``)."""
+    dynamic layer's in-place edge inserts (``core/dynamic.py``)."""
     asg = assign_vertices(g, num_parts, strategy, cpu_edge_fraction, seed)
     v_max = max(_round_up(int(asg.part_sizes.max()), align), align)
 
@@ -544,7 +551,7 @@ def build_transposed_csc(ea: EdgeArrays, v_max: int) -> TransposedCsc:
 
 def memory_footprint_bytes(pg: PartitionedGraph, state_bytes: int = 4,
                            vid_bytes: int = 4, eid_bytes: int = 4,
-                           tier_plan=None) -> dict:
+                           dynamic=None, tier_plan=None) -> dict:
     """Per-partition memory footprint, the analogue of paper Table 5.
 
     The actual-size formula of §4.3.3:
@@ -554,8 +561,12 @@ def memory_footprint_bytes(pg: PartitionedGraph, state_bytes: int = 4,
     (``"hbm"``, or ``"host"`` for a cold partition of ``tier_plan``),
     ``hbm`` and ``host`` with ``hbm + host == total``.  A cold partition
     keeps its graph bytes on the host; its state and outbox/inbox slots
-    stay on the device.  The JAX package's dynamic-graph overlay terms come
-    with dynamic graphs (ROADMAP Queue 1 item 11).
+    stay on the device.
+
+    ``dynamic`` (a ``core.dynamic.DynamicGraph`` over ``pg``, or any object
+    with ``delta_slots``/``directions``/``weighted``) adds the delta-slot
+    (``delta``) and tombstone (``tombstone``) bytes per direction, which a
+    cold partition keeps on the host with its graph bytes.
     """
     P = pg.num_parts
     res = {}
@@ -573,8 +584,20 @@ def memory_footprint_bytes(pg: PartitionedGraph, state_bytes: int = 4,
             inbox=(vid_bytes + state_bytes) * vi,
             state=state_bytes * vp,
         )
+        if dynamic is not None:
+            ndir = int(dynamic.directions)
+            dw = 4 if dynamic.weighted else 0
+            # delta slots: src + dst_ext (+ weight) per direction
+            res[p]["delta"] = ndir * int(dynamic.delta_slots) * (
+                2 * vid_bytes + dw)
+            # tombstone masks: one byte per base edge slot per direction
+            res[p]["tombstone"] = pg.fwd.e_max + (
+                pg.rev.e_max if pg.rev is not None else 0)
         res[p]["total"] = sum(res[p].values())
-        host = res[p]["graph"] if p in cold else 0
+        host = 0
+        if p in cold:
+            host = (res[p]["graph"] + res[p].get("delta", 0)
+                    + res[p].get("tombstone", 0))
         res[p]["tier"] = "host" if p in cold else "hbm"
         res[p]["hbm"] = res[p]["total"] - host
         res[p]["host"] = host
@@ -582,14 +605,14 @@ def memory_footprint_bytes(pg: PartitionedGraph, state_bytes: int = 4,
 
 
 def memory_residency_bytes(pg: PartitionedGraph, tier_plan=None,
-                           state_bytes: int = 4) -> dict:
+                           state_bytes: int = 4, dynamic=None) -> dict:
     """Device and host residency of a (possibly tiered) layout: the sums of
     :func:`memory_footprint_bytes`'s tiers, the device side with the two
     window buffers added.  ``hbm_bytes`` is what occupies device memory,
     ``host_bytes`` what lives in pinned host memory, ``total_bytes`` both.
     """
     per = memory_footprint_bytes(pg, state_bytes=state_bytes,
-                                 tier_plan=tier_plan)
+                                 dynamic=dynamic, tier_plan=tier_plan)
     hbm = sum(rec["hbm"] for rec in per.values())
     host = sum(rec["host"] for rec in per.values())
     if tier_plan is not None:

@@ -9,9 +9,8 @@ Equations (paper §3.2):
   speedup  = t_cpu(G) / makespan                               (Eq. 3)
            = c / (beta * r_cpu + alpha * c)                    (Eq. 4)
 
-A copy of the JAX package's ``repro.core.perf_model`` (all of it but the
-dynamic graphs' ``should_resplit``), so an engine of the port votes for the
-same direction, picks the same dense block |H| and keeps the same
+A copy of the JAX package's ``repro.core.perf_model``, so an engine of the
+port votes for the same direction, picks the same dense block |H| and keeps the same
 partitions on the device as the JAX package's on the same graph.
 
 Every constant below is that package's model of its own accelerator, kept
@@ -293,6 +292,31 @@ def plan_shards(shard_ranks, shard_edges, shard_slots, candidates,
                 k_dense=max((rec["k_dense"] for rec in per_shard), default=0),
                 makespan=bottleneck["makespan"],
                 bottleneck=bottleneck["shard"])
+
+
+def should_resplit(edge_max_rank: np.ndarray, num_edges: int, candidates,
+                   current_k: int, threshold: float = 0.10,
+                   **kwargs) -> "tuple[bool, dict]":
+    """Decide whether a drifted (mutated) graph warrants re-splitting.
+
+    The dynamic layer keeps the degree split frozen between compactions (a
+    stale split is a performance choice, never a correctness one), so the
+    re-ranking should run only when it pays: this evaluates the current
+    |H| on the drifted graph's ranks against the argmin over
+    ``candidates`` and votes to resplit when the predicted makespan
+    improves by more than ``threshold`` (relative).  Returns ``(resplit,
+    info)``, ``info = dict(current_k, current_makespan, best_k,
+    best_makespan, improvement, table)``.
+    """
+    cands = sorted(set(int(c) for c in candidates) | {int(current_k)})
+    table = rank_k_dense(edge_max_rank, num_edges, cands, **kwargs)
+    cur = next(r for r in table if r["k_dense"] == int(current_k))
+    best = min(table, key=lambda rec: rec["makespan"])
+    improvement = 1.0 - best["makespan"] / max(cur["makespan"], 1e-30)
+    return improvement > threshold, dict(
+        current_k=int(current_k), current_makespan=cur["makespan"],
+        best_k=best["k_dense"], best_makespan=best["makespan"],
+        improvement=improvement, table=table)
 
 
 def split_mode(k_dense: int, num_vertices: int, e_sparse: int) -> str:

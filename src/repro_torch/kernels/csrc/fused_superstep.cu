@@ -69,7 +69,14 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kGroup = 8;                 // queries carried together
 constexpr unsigned kFullMask = 0xffffffffu;
 
-enum Kind { kBfs = 0, kSssp = 1, kCc = 2, kPagerank = 3, kBcFwd = 4, kBcBwd = 5 };
+enum Kind {
+  kBfs = 0, kSssp = 1, kCc = 2, kPagerank = 3, kBcFwd = 4, kBcBwd = 5,
+  kBfsRelax = 6
+};
+
+// Kinds that combine by min (the rest sum).
+template <int KIND>
+constexpr bool kIsMin = KIND <= kCc || KIND == kBfsRelax;
 
 // Gathered state arrays of each kind, and the edges whose loads one thread
 // issues together (kBatch * kGather * 8 floats in flight per thread).
@@ -103,6 +110,8 @@ __device__ __forceinline__ float message(float g0, float g1, float g2,
     return g1 > 0.0f ? __fadd_rn(g0, w) : CUDART_INF_F;
   } else if constexpr (KIND == kCc) {      // gather (label, active)
     return g1 > 0.0f ? g0 : CUDART_INF_F;
+  } else if constexpr (KIND == kBfsRelax) {  // gather (level, active)
+    return g1 > 0.0f ? __fadd_rn(g0, 1.0f) : CUDART_INF_F;
   } else if constexpr (KIND == kPagerank) {  // gather (rank, inv_deg)
     return __fmul_rn(g0, g1);
   } else if constexpr (KIND == kBcFwd) {   // gather (dist, sigma)
@@ -277,7 +286,7 @@ fused_superstep_kernel(const float* __restrict__ vt,
                        float* __restrict__ part_val,
                        int Q, int Qp, int Pl, int V, int S, int e_pad, int nb,
                        int block_e, int seg) {
-  constexpr bool kMin = KIND <= kCc;
+  constexpr bool kMin = kIsMin<KIND>;
   constexpr int K = Spec<KIND>::kGather;
   constexpr int kB = Spec<KIND>::kBatch;
   const float kIdent = kMin ? CUDART_INF_F : 0.0f;
@@ -447,7 +456,7 @@ cudaError_t launch(const float* vt, const float* scal, const int* src,
   if (err != cudaSuccess) return err;
   const int n2 = 2 * nb;
   const dim3 mgrid((n2 + 255) / 256, Q * Pl);
-  merge_partials_kernel<(KIND <= kCc)><<<mgrid, 256, 0, stream>>>(
+  merge_partials_kernel<kIsMin<KIND>><<<mgrid, 256, 0, stream>>>(
       part_id, part_val, acc, n2, Pl, seg, Qp);
   return cudaGetLastError();
 }
@@ -481,6 +490,7 @@ extern "C" int fused_superstep_launch(
     case kPagerank: err = REPRO_LAUNCH(kPagerank); break;
     case kBcFwd: err = REPRO_LAUNCH(kBcFwd); break;
     case kBcBwd: err = REPRO_LAUNCH(kBcBwd); break;
+    case kBfsRelax: err = REPRO_LAUNCH(kBfsRelax); break;
     default: err = cudaErrorInvalidValue;
   }
 #undef REPRO_LAUNCH

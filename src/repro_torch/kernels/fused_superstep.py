@@ -52,6 +52,7 @@ KINDS = {
     "pagerank": Kind(3, "sum", 2),                 # rank*inv_deg
     "bc_fwd": Kind(4, "sum", 2),                   # dist==step ? sigma : 0
     "bc_bwd": Kind(5, "sum", 3, num_consts=1),     # bc.py backward message
+    "bfs_relax": Kind(6, "min", 2),                # active>0 ? level+1 : inf
 }
 
 _P = ctypes.c_void_p
@@ -210,8 +211,12 @@ def fused_superstep(kind: str, vt: torch.Tensor, scal: torch.Tensor,
         raise RuntimeError("fused_superstep launch failed: "
                            + lib.fused_superstep_error_string(rc).decode())
     fused_superstep.launches += 1
+    fused_superstep.kind_launches[kind] = (
+        fused_superstep.kind_launches.get(kind, 0) + 1)
     return acc
 
 
-# Kernel launches since the caller last set this to 0.
+# Kernel launches since the caller last set this to 0, and by kind since
+# the caller last cleared the dict.
 fused_superstep.launches = 0
+fused_superstep.kind_launches = {}

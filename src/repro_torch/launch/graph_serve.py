@@ -20,7 +20,7 @@ stream, and queries per second with latency percentiles.
       [--scale 12] [--parts 4] [--alg bfs] [--batch 32] \
       [--num-queries 256] [--backend fused] [--out serve_report.json]
   PYTHONPATH=src python -m repro_torch.launch.graph_serve --smoke \
-      --device cpu [--continuous | --depth-buckets 2]
+      --device cpu [--continuous | --depth-buckets 2 | --mutate]
 
 Runs on ``cuda`` unless ``--device`` names another device.  ``--smoke``
 shrinks everything for CI.  The first batch pays the host layouts and the
@@ -35,9 +35,18 @@ baseline on the same stream.  ``--depth-buckets`` orders the stream by
 estimated depth.  ``--hbm-budget`` builds a tiered engine, which the drain
 mode serves and the continuous mode refuses.
 
-Port of ``repro.launch.graph_serve`` without dynamic graphs and the fault
-drills: ``--mutate`` raises ``NotImplementedError`` naming ROADMAP Queue 1
-item 11, ``--chaos`` and ``--corrupt`` item 13.
+``--mutate`` serves an evolving graph: a resident ``DynamicGraph`` takes
+``--mutation-rounds`` batches of ``--mutation-batch`` edges (``--churn``
+inserts, the rest deletes; ``data/graphs.py::edge_stream``), and each
+round serves fresh queries cold and keeps a ``--standing`` query set
+fresh, warm-started when the window was insert-only
+(:func:`serve_mutating`).  With ``--continuous`` the stream is served in
+waves with a mutation batch between them (``serve_continuous(
+mutation_stream=)``), ``--depth-buckets`` composing as the scheduler.
+
+Port of ``repro.launch.graph_serve`` without the fault drills:
+``--chaos`` and ``--corrupt`` raise ``NotImplementedError`` naming ROADMAP
+Queue 1 item 13.
 """
 from __future__ import annotations
 
@@ -91,9 +100,6 @@ class ServeConfig:
             raise ValueError(f"incompatible serving flags: {combo} — {why}. "
                              f"{instead}")
 
-        if self.mutate:
-            raise _not_in_slice("graph_serve --mutate (dynamic graphs)",
-                                "11")
         if self.chaos:
             raise _not_in_slice("graph_serve --chaos (the fault drill)",
                                 "13")
@@ -107,22 +113,40 @@ class ServeConfig:
                 f"query mid-loop in the global step frame "
                 f"(algorithms/continuous.py).  Drop --continuous to "
                 f"drain-batch {self.alg!r}.")
-        if not self.continuous and self.depth_buckets:
-            for name, on in (("--deadline-ms", self.deadline_ms is not None),
-                             ("--queue-capacity",
-                              self.queue_capacity is not None)):
-                if on:
-                    bad(f"--depth-buckets + {name}",
-                        "the bucketed A/B driver re-runs the stream "
-                        "twice and reports buckets, not SLA",
-                        "Add --continuous to schedule depth-first "
-                        "under a deadline, or drop --depth-buckets.")
+        if not self.continuous:
+            if self.mutate:
+                for name, on in (("--depth-buckets",
+                                  bool(self.depth_buckets)),
+                                 ("--deadline-ms",
+                                  self.deadline_ms is not None),
+                                 ("--queue-capacity",
+                                  self.queue_capacity is not None)):
+                    if on:
+                        bad(f"--mutate + {name}",
+                            "the drain-batch mutating driver has no "
+                            "admission queue or scheduler",
+                            "Add --continuous: ServeSession composes "
+                            "mutations with deadlines, admission and the "
+                            "depth scheduler in one resident engine.")
+            elif self.depth_buckets:
+                for name, on in (("--deadline-ms",
+                                  self.deadline_ms is not None),
+                                 ("--queue-capacity",
+                                  self.queue_capacity is not None)):
+                    if on:
+                        bad(f"--depth-buckets + {name}",
+                            "the bucketed A/B driver re-runs the stream "
+                            "twice and reports buckets, not SLA",
+                            "Add --continuous to schedule depth-first "
+                            "under a deadline, or drop --depth-buckets.")
         return self
 
     @property
     def mode(self) -> str:
         if self.continuous:
             return "continuous"
+        if self.mutate:
+            return "mutate"
         if self.depth_buckets:
             return "depth"
         return "drain"
@@ -234,11 +258,14 @@ def serve(engine, alg: str, sources: np.ndarray, batch: int,
     return report
 
 
-def build_engine(args):
-    """``(graph, partitioned graph, engine)`` from the CLI arguments."""
+def build_engine(args, dynamic: bool = False):
+    """``(graph, partitioned graph, engine)`` from the CLI arguments;
+    with ``dynamic`` a ``DynamicGraph`` (mutation capacity
+    ``--mutation-batch``) in place of the partitioned graph."""
     from repro_torch.core import graph as G
     from repro_torch.core import partition as PT
     from repro_torch.core.bsp import BSPEngine
+    from repro_torch.core.dynamic import DynamicGraph
 
     gen = G.rmat if args.graph == "rmat" else G.uniform
     g = gen(args.scale, args.edge_factor, seed=args.seed)
@@ -253,6 +280,12 @@ def build_engine(args):
         kw["tiered"] = args.hbm_budget
         kw["win_blocks"] = args.win_blocks
         kw.setdefault("block_e", args.block_e)
+    if dynamic:
+        dg = DynamicGraph(g, args.parts, args.strategy,
+                          include_reverse=(args.alg == "bc"),
+                          mutation_capacity=args.mutation_batch,
+                          device=args.device)
+        return g, dg, BSPEngine(dg, device=args.device, **kw)
     pg = PT.partition(g, args.parts, args.strategy,
                       include_reverse=(args.alg == "bc"))
     return g, pg, BSPEngine(pg, device=args.device, **kw)
@@ -321,17 +354,154 @@ def serve_depth_bucketed(engine, g, alg: str, sources: np.ndarray,
                 buckets=buckets)
 
 
+def refresh_standing(engine, dg, alg: str, sources, prev, mark) -> dict:
+    """Refresh a standing query set after mutations: warm-start when the
+    window allows (a program with an incremental form, insert-only
+    batches), cold otherwise.  Runs the cold path too, so the report can
+    state the superstep savings.  Returns the new results and metrics."""
+    from repro_torch.algorithms import (bfs_batched, bfs_incremental,
+                                        sssp_batched, sssp_incremental)
+
+    dirty, monotone = dg.dirty_since(mark)
+    incremental = {"bfs": (bfs_incremental, bfs_batched),
+                   "sssp": (sssp_incremental, sssp_batched)}.get(alg)
+    cold_fn = (incremental[1] if incremental
+               else (lambda e, s: (run_query_batch(e, alg, s), None)))
+    t0 = time.perf_counter()
+    cold_out = cold_fn(engine, sources)
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    cold_res, cold_steps = cold_out
+    rec = dict(mode="cold", cold_ms=cold_ms,
+               cold_steps=(None if cold_steps is None
+                           else [int(s) for s in cold_steps]))
+    result = cold_res
+    if incremental is not None and monotone:
+        t0 = time.perf_counter()
+        warm_res, warm_steps = incremental[0](engine, prev, dirty)
+        rec.update(mode="incremental", warm_ms=(time.perf_counter() - t0)
+                   * 1e3, warm_steps=[int(s) for s in warm_steps],
+                   bitwise_equal=bool(np.array_equal(warm_res, cold_res)))
+        result = warm_res
+    return dict(rec, result=result)
+
+
+def serve_mutating(engine, dg, alg: str, *, batches, batch: int,
+                   standing: int, query_batches_per_round: int,
+                   seed: int = 1, compact: bool = True,
+                   skew_drift_threshold: float = 0.5,
+                   resplit_threshold: float = 0.10) -> dict:
+    """Interleave mutation batches with query batches against the resident
+    graph: the evolving-graph serving regime end to end.
+
+    Per round: one mutation batch is applied in place (edges/s), fresh
+    random queries are served cold, and a *standing* query set is kept
+    fresh (warm-started from its previous fixpoint when the window is
+    monotone, cold otherwise) under the zero-rebuild contract: the
+    engine's ``cache_entries()`` must not grow after warm-up except at a
+    compaction rebind, a hybrid split rebuild, or the warm path's first
+    run at a graph version (its relaxation program's first structures).
+    Compactions trigger on the staleness signals (degree-skew drift at
+    ``skew_drift_threshold`` included) or, on the hybrid backend, on
+    ``engine.should_resplit_hybrid``.
+    """
+    rng = np.random.default_rng(seed)
+    n = dg.pg.num_vertices
+    standing_sources = rng.integers(0, n, size=standing)
+
+    # warm-up: the cold path's first-run builds before timing
+    prev = run_query_batch(engine, alg, standing_sources)
+    mark = dg.mark()
+
+    rounds, lat_ms = [], []
+    mut_edges = mut_s = 0.0
+    compact_ms = 0.0
+    resplits = 0
+    warm_steps_all, cold_steps_all = [], []
+    retraces = 0
+    entries_prev = rebinds_prev = rebuilds_prev = None
+    warm_versions = set()     # graph versions whose warm path has run
+    t_all = time.perf_counter()
+    for i, mb in enumerate(batches):
+        rep = dg.apply_mutations(mb)
+        mut_edges += rep["num_edges"]
+        mut_s += rep["apply_ms"] / 1e3
+        if rep["compacted"]:
+            # capacity-overflow compaction inside apply_mutations —
+            # --no-compact only disables the threshold-driven kind
+            compact_ms += dg.last_compaction_ms
+        if compact and dg.should_compact(
+                max_skew_drift=skew_drift_threshold):
+            compact_ms += dg.compact()
+        elif compact and engine.should_resplit_hybrid(resplit_threshold):
+            # re-ranking the degree split rides a compaction: the rebind
+            # re-plans the split on the mutated graph
+            compact_ms += dg.compact()
+            resplits += 1
+        for _ in range(query_batches_per_round):
+            srcs = rng.integers(0, n, size=batch)
+            t0 = time.perf_counter()
+            run_query_batch(engine, alg, srcs)
+            lat_ms.append((time.perf_counter() - t0) * 1e3)
+        ref = refresh_standing(engine, dg, alg, standing_sources, prev, mark)
+        prev = ref.pop("result")
+        mark = dg.mark()
+        if ref.get("warm_steps"):
+            warm_steps_all.append(max(ref["warm_steps"]))
+        if ref.get("cold_steps"):
+            cold_steps_all.append(max(ref["cold_steps"]))
+        rounds.append(dict(round=i, mutation=dict(
+            (k, v) for k, v in rep.items() if k != "dirty"), refresh=ref))
+        # Per round: growth counts as a rebuild unless something
+        # legitimately new was built this round (a compaction rebind, a
+        # split rebuild, the warm path's first run at this version)
+        legit = (engine.dynamic_rebinds != rebinds_prev
+                 or engine.hybrid_dyn_rebuilds != rebuilds_prev)
+        if (ref.get("mode") == "incremental"
+                and dg.version not in warm_versions):
+            warm_versions.add(dg.version)
+            legit = True
+        if entries_prev is not None and not legit:
+            retraces += engine.cache_entries() - entries_prev
+        entries_prev = engine.cache_entries()
+        rebinds_prev = engine.dynamic_rebinds
+        rebuilds_prev = engine.hybrid_dyn_rebuilds
+    wall_s = time.perf_counter() - t_all
+
+    return dict(
+        algorithm=alg, batch=batch, rounds=len(rounds),
+        standing=standing,
+        mutation_edges_per_sec=(mut_edges / mut_s) if mut_s else None,
+        mutation_edges=int(mut_edges),
+        incremental_steps=(int(np.mean(warm_steps_all))
+                           if warm_steps_all else None),
+        cold_steps=(int(np.mean(cold_steps_all))
+                    if cold_steps_all else None),
+        batch_p50_ms=_percentile(lat_ms, 50),
+        batch_p99_ms=_percentile(lat_ms, 99),
+        compactions=dg.compactions, compaction_pause_ms=compact_ms,
+        resplits=resplits,
+        dynamic_rebinds=engine.dynamic_rebinds,
+        hybrid_rebuilds=engine.hybrid_dyn_rebuilds,
+        retraces=retraces,
+        wall_s=wall_s, per_round=rounds,
+        staleness=dg.staleness())
+
+
 def serve_continuous(engine, g, cfg: ServeConfig, sources, *,
-                     parity: bool = False, warm: bool = True) -> dict:
+                     dg=None, mutation_stream=None, parity: bool = False,
+                     warm: bool = True) -> dict:
     """Serve ``sources`` through one resident :class:`ServeSession` and
     report it against fixed-batch drain at the same Q.
 
-    The whole stream is submitted up front ("under load": every query's
-    latency includes its queue wait) and drained by ONE resident loop; the
-    same stream then runs through drain-batch ``execute`` for the q/s /
-    p99 baseline and, with ``parity=True``, the oracle: a completion
-    mismatches unless its result is bitwise its drain row's and its
-    superstep count equals the drain's.
+    Without ``mutation_stream`` the whole stream is submitted up front
+    ("under load": every query's latency includes its queue wait) and
+    drained by ONE resident loop; the same stream then runs through
+    drain-batch ``execute`` for the q/s / p99 baseline and, with
+    ``parity=True``, the oracle: a completion mismatches unless its result
+    is bitwise its drain row's and its superstep count equals the drain's.
+    With ``mutation_stream`` (which needs the dynamic ``dg``) the stream is
+    served in waves — drain, mutate, drain — so every query completes
+    against one graph version and parity holds per wave.
     """
     from repro_torch.runtime import ServeSession, drain_reference
 
@@ -355,46 +525,57 @@ def serve_continuous(engine, g, cfg: ServeConfig, sources, *,
         ws.drain()
         drain_reference(engine, cfg.alg, warm_srcs[:cfg.batch], cfg.batch)
 
-    wave = np.asarray(sources).reshape(-1)
+    stream = np.asarray(sources).reshape(-1)
+    waves = [stream]
+    if mutation_stream is not None:
+        if dg is None:
+            raise ValueError("mutation_stream needs the dynamic graph (dg)")
+        waves = np.array_split(stream, len(mutation_stream) + 1)
     session = make_session()
-    t_all = time.perf_counter()
-    qids = session.submit(wave)
-    t0 = time.perf_counter()
-    session.drain()
-    cont_wall = time.perf_counter() - t0
-    # fixed-batch drain of the same stream: the q/s + p99 baseline, and
-    # (parity=True) the oracle
-    t0 = time.perf_counter()
-    num = len(wave)
-    ref_rows, ref_steps, drain_lat = [], [], []
-    for i in range(0, num, cfg.batch):
-        batch = np.resize(wave[i:i + cfg.batch], cfg.batch)
-        res, steps = query_batch(engine, cfg.alg, batch)
-        ref_rows.append(res)
-        ref_steps.append(np.asarray(steps))
-        # a drained query's latency is its batch's completion time
-        done_ms = (time.perf_counter() - t0) * 1e3
-        drain_lat.extend([done_ms] * min(cfg.batch, num - i))
-    drain_wall = time.perf_counter() - t0
     mismatches = checked = 0
-    if parity:
-        ref = np.concatenate(ref_rows, axis=0)[:num]
-        ref_s = np.concatenate(ref_steps)[:num]
-        by_qid = {q: j for j, q in enumerate(qids) if q is not None}
-        for r in session.poll():
-            j = by_qid.get(r["query"])
-            if j is not None:
-                checked += 1
-                if not (np.array_equal(r["result"], ref[j])
-                        and r["steps"] == int(ref_s[j])):
-                    mismatches += 1
+    drain_lat: list = []
+    cont_wall = drain_wall = 0.0
+    t_all = time.perf_counter()
+    for w, wave in enumerate(waves):
+        if w > 0:
+            session.mutate(mutation_stream[w - 1])
+        qids = session.submit(wave)
+        t0 = time.perf_counter()
+        session.drain()
+        cont_wall += time.perf_counter() - t0
+        # fixed-batch drain of the same wave on the same graph version:
+        # the q/s + p99 baseline, and (parity=True) the oracle
+        t0 = time.perf_counter()
+        num = len(wave)
+        ref_rows, ref_steps = [], []
+        for i in range(0, num, cfg.batch):
+            batch = np.resize(wave[i:i + cfg.batch], cfg.batch)
+            res, steps = query_batch(engine, cfg.alg, batch)
+            ref_rows.append(res)
+            ref_steps.append(np.asarray(steps))
+            # a drained query's latency is its batch's completion time
+            done_ms = (time.perf_counter() - t0) * 1e3
+            drain_lat.extend([done_ms] * min(cfg.batch, num - i))
+        drain_wall += time.perf_counter() - t0
+        if parity:
+            ref = np.concatenate(ref_rows, axis=0)[:num]
+            ref_s = np.concatenate(ref_steps)[:num]
+            by_qid = {q: j for j, q in enumerate(qids) if q is not None}
+            for r in session.poll():
+                j = by_qid.get(r["query"])
+                if j is not None:
+                    checked += 1
+                    if not (np.array_equal(r["result"], ref[j])
+                            and r["steps"] == int(ref_s[j])):
+                        mismatches += 1
     wall_s = time.perf_counter() - t_all
     rep = session.report()
     cont_lat = sorted(session._latency_ms.values())
     completed = rep["completed"]
     report = dict(
         mode="continuous", algorithm=cfg.alg, slots=cfg.batch,
-        chunk=cfg.chunk, stream=num, waves=1, completed=completed,
+        chunk=cfg.chunk, stream=len(stream), waves=len(waves),
+        completed=completed,
         rejected=rep["rejected"], windows=rep["windows"],
         refills=rep["refills"],
         min_slot_refills=rep["min_slot_refills"],
@@ -457,7 +638,21 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--smoke", action="store_true",
                     help="tiny sizes for CI (scale 8, 3 batches of 4)")
     ap.add_argument("--mutate", action="store_true",
-                    help="dynamic-graph serving (not ported yet: item 11)")
+                    help="interleave edge-mutation batches with query "
+                         "batches against a resident DynamicGraph")
+    ap.add_argument("--mutation-batch", type=int, default=256,
+                    help="edges per mutation batch")
+    ap.add_argument("--mutation-rounds", type=int, default=8,
+                    help="mutation batches in the stream")
+    ap.add_argument("--churn", type=float, default=0.7,
+                    help="insert fraction of each mutation batch (the rest "
+                         "deletes; 1.0 keeps warm starts monotone)")
+    ap.add_argument("--standing", type=int, default=8,
+                    help="standing query set kept fresh across mutations")
+    ap.add_argument("--no-compact", action="store_true",
+                    help="disable threshold-driven compaction (capacity-"
+                         "overflow compaction still applies; its pauses "
+                         "are reported either way)")
     ap.add_argument("--depth-buckets", type=int, default=0, metavar="B",
                     help="serve the stream in B estimated-depth buckets and "
                          "report per-bucket p99 vs the unbucketed baseline")
@@ -477,8 +672,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--continuous", action="store_true",
                     help="serve through one resident ServeSession: refill "
                          "converged query slots mid-loop instead of "
-                         "draining the batch (composes with --deadline-ms, "
-                         "--queue-capacity, --depth-buckets)")
+                         "draining the batch (composes with --mutate, "
+                         "--deadline-ms, --queue-capacity, --depth-buckets)")
     return ap
 
 
@@ -488,6 +683,9 @@ def main(argv=None) -> int:
         args.scale = min(args.scale, 8)
         args.batch = min(args.batch, 4)
         args.num_queries = min(args.num_queries, 3 * args.batch)
+        args.mutation_batch = min(args.mutation_batch, 32)
+        args.mutation_rounds = min(args.mutation_rounds, 3)
+        args.standing = min(args.standing, 4)
 
     try:
         cfg = ServeConfig.from_args(args)
@@ -495,7 +693,15 @@ def main(argv=None) -> int:
         print(f"error: {e}", file=sys.stderr)
         return 2
 
-    g, _, engine = build_engine(args)
+    dg = stream = None
+    if cfg.mutate:
+        from repro_torch.data.graphs import edge_stream
+
+        g, dg, engine = build_engine(args, dynamic=True)
+        stream = edge_stream(g, args.mutation_rounds, args.mutation_batch,
+                             churn=args.churn, seed=args.seed)
+    else:
+        g, _, engine = build_engine(args)
     rng = np.random.default_rng(args.seed)
     sources = rng.integers(0, g.num_vertices, size=args.num_queries)
 
@@ -504,10 +710,12 @@ def main(argv=None) -> int:
               f"|E|={g.num_edges:,} parts={args.parts} "
               f"backend={args.backend} continuous slots={cfg.batch} "
               f"device={engine.device}", flush=True)
-        report = serve_continuous(engine, g, cfg, sources,
+        report = serve_continuous(engine, g, cfg, sources, dg=dg,
+                                  mutation_stream=stream,
                                   parity=args.smoke)
         print(f"{cfg.alg}: {report['completed']}/{report['stream']} "
-              f"queries through {report['slots']} resident slots -> "
+              f"queries through {report['slots']} resident slots "
+              f"({report['waves']} wave(s)) -> "
               f"{report['continuous_qps']:.1f} q/s continuous vs "
               f"{report['drain_qps']:.1f} q/s drain; p99 "
               f"{report['continuous_p99_ms']:.1f} vs "
@@ -526,6 +734,38 @@ def main(argv=None) -> int:
             print(f"WARNING: {report['retraces']} engine structures built "
                   f"after warm-up — refills are rebuilding",
                   file=sys.stderr)
+        _write(args, report)
+        print("GRAPH SERVE OK")
+        return 0
+
+    if cfg.mode == "mutate":
+        print(f"resident dynamic graph: |V|={g.num_vertices:,} "
+              f"|E|={g.num_edges:,} parts={args.parts} "
+              f"strategy={args.strategy} backend={args.backend} "
+              f"delta_slots={dg.delta_slots}/partition "
+              f"device={engine.device}", flush=True)
+        report = serve_mutating(
+            engine, dg, args.alg, batches=stream, batch=args.batch,
+            standing=args.standing, query_batches_per_round=2,
+            seed=args.seed, compact=not args.no_compact)
+        inc = report["incremental_steps"]
+        cold = report["cold_steps"]
+        savings = (f"{inc} vs {cold} supersteps "
+                   f"({cold / max(inc, 1):.1f}x fewer)"
+                   if inc is not None and cold else "n/a (non-monotone)")
+        print(f"{args.alg}: {report['rounds']} mutation rounds x "
+              f"{args.mutation_batch} edges -> "
+              f"{report['mutation_edges_per_sec']:.0f} edges/s applied; "
+              f"incremental refresh {savings}; query batch "
+              f"p50={report['batch_p50_ms']:.1f} "
+              f"p99={report['batch_p99_ms']:.1f} ms; "
+              f"compactions={report['compactions']} "
+              f"({report['compaction_pause_ms']:.0f} ms paused); "
+              f"retraces={report['retraces']}", flush=True)
+        if report["retraces"]:
+            print(f"WARNING: {report['retraces']} engine structures built "
+                  f"after warm-up without a compaction — mutation batches "
+                  f"are rebuilding", file=sys.stderr)
         _write(args, report)
         print("GRAPH SERVE OK")
         return 0

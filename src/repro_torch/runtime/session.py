@@ -30,11 +30,14 @@ programs instead (``BSPEngine.cache_entries()``: the hybrid splits and
 layouts, the tiered hybrid's row windows, the pull layout, the tiered host
 arenas and window buffers, the CUDA libraries loaded).  The contract: that
 count does not grow after the warm-up window and the first refill, so
-``retraces()`` is 0.
+``retraces()`` is 0.  On a dynamic engine a compaction rebind and a
+dynamic split rebuild are expected rebuilds: they reset the baseline, as
+the JAX package's recompiles do; a mutation batch (``mutate``) must add
+nothing.
 
 Port of ``repro.runtime.session``.  Not ported yet: ``snapshot`` and
-``restore`` and ``certifier=`` (ROADMAP Queue 1 item 13) and ``mutate``
-(item 11) raise ``NotImplementedError``.
+``restore`` and ``certifier=`` (ROADMAP Queue 1 item 13) raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -160,6 +163,8 @@ class ServeSession:
         # events (first window, first refill), then any growth is a retrace
         self._entries0: Optional[int] = None
         self._warm_events: set = set()
+        self._rebinds0 = getattr(engine, "dynamic_rebinds", 0)
+        self._rebuilds0 = getattr(engine, "hybrid_dyn_rebuilds", 0)
 
     # ------------------------------------------------------------- admission
 
@@ -335,9 +340,18 @@ class ServeSession:
         return out
 
     def mutate(self, batch) -> dict:
-        """Edge mutations in a serving session: dynamic graphs are not
-        ported yet (ROADMAP Queue 1 item 11)."""
-        raise _not_in_slice("ServeSession.mutate()", "11")
+        """Apply one edge-mutation batch to the resident dynamic graph in
+        the session that is serving (``DynamicGraph.apply_mutations``'s
+        report).  Call it at a window boundary (between ``step()``s or
+        ``drain()`` waves): a traversal in flight would otherwise straddle
+        two graph versions and match neither drain-batch result."""
+        dg = getattr(self.engine, "dg", None)
+        if dg is None:
+            raise ValueError(
+                "session.mutate() needs a dynamic engine — build it as "
+                "BSPEngine(DynamicGraph(g, parts, strategy)); a "
+                "static-partition engine cannot absorb mutations")
+        return dg.apply_mutations(batch)
 
     # ---------------------------------------------------- retrace accounting
 
@@ -351,6 +365,11 @@ class ServeSession:
             if seen and event not in self._warm_events:
                 self._warm_events.add(event)
                 legit = True           # warm-up build, resets the baseline
+        rebinds = getattr(self.engine, "dynamic_rebinds", 0)
+        rebuilds = getattr(self.engine, "hybrid_dyn_rebuilds", 0)
+        if rebinds != self._rebinds0 or rebuilds != self._rebuilds0:
+            self._rebinds0, self._rebuilds0 = rebinds, rebuilds
+            legit = True               # compaction rebind, split rebuild
         if legit or self._entries0 is None:
             self._entries0 = self._cache_entries()
 

@@ -49,6 +49,8 @@ def _programs(kind, n):
                      tpr.make_pagerank_program(n)),
         "bc_fwd": (jbc.FORWARD_PROGRAM, tbc.FORWARD_PROGRAM),
         "bc_bwd": (jbc.BACKWARD_PROGRAM, tbc.BACKWARD_PROGRAM),
+        # BFS's incremental (relaxation) form
+        "bfs_relax": (jbfs.BFS_RELAX_PROGRAM, tbfs.BFS_RELAX_PROGRAM),
     }[kind]
 
 

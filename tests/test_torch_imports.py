@@ -5,6 +5,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -105,24 +106,32 @@ def test_unported_modes_raise_naming_the_roadmap_item():
     from repro_torch.core import graph as TG
     from repro_torch.core import partition as TPT
     from repro_torch.core.bsp import BSPEngine
+    from repro_torch.core.dynamic import DynamicGraph
 
-    pg = TPT.partition(TG.rmat(5, 4, seed=1), 2, TPT.RAND)
+    g = TG.rmat(5, 4, seed=1)
+    pg = TPT.partition(g, 2, TPT.RAND)
+    dg = DynamicGraph(g, 2, TPT.RAND, device="cpu")
     for backend in ("reference", "hybrid"):
         # tiered memory is ported: a budget below its two window buffers
-        # is refused, and a dynamic graph under it names item 11
+        # is refused; a dynamic graph under it is what stays of item 11
         with pytest.raises(ValueError, match="double-buffer"):
             BSPEngine(pg, device="cpu", backend=backend, tiered=1)
         with pytest.raises(NotImplementedError, match="item 11"):
-            BSPEngine(object(), device="cpu", backend=backend, tiered=1)
-        with pytest.raises(NotImplementedError, match="item 11"):
+            BSPEngine(dg, device="cpu", backend=backend, tiered=1)
+        # dynamic graphs are ported; anything else is refused by type
+        with pytest.raises(TypeError, match="DynamicGraph"):
             BSPEngine(object(), device="cpu", backend=backend)
+        assert BSPEngine(dg, device="cpu", backend=backend).dg is dg
         eng = BSPEngine(pg, device="cpu", backend=backend)
         state = {"level": torch.zeros(1, 2, pg.v_max)}
         # the chunked mode is ported; its chaos sites are item 13
         with pytest.raises(NotImplementedError, match="item 13"):
             eng.execute(BFS_PROGRAM, state, chunk=2, chaos_ctx={})
-        with pytest.raises(NotImplementedError, match="item 11"):
-            eng.execute(BFS_PROGRAM, state, incremental=True)
+        # the incremental mode is ported: BFS warm-starts its relaxation
+        out, steps = eng.execute(BFS_PROGRAM, state, incremental=np.ones(
+            (2, pg.v_max), bool))
+        assert torch.equal(out["level"], state["level"])
+        assert steps.tolist() == [1]
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):

@@ -5,7 +5,8 @@ port is installed: ``python -m pytest -q -m gpu tests/test_torch_kernel_card.py`
 Without a card its tests skip (the kernel has no CPU mode); the helpers
 below also feed ``test_torch_fused_superstep.py``'s CPU parity tests.
 
-Tolerances: the min kinds (bfs, sssp, cc) bit for bit, a min is order-free;
+Tolerances: the min kinds (bfs, sssp, cc, bfs_relax) bit for bit, a min is
+order-free;
 the sum kinds (pagerank, bc_fwd, bc_bwd) ``rtol=1e-6, atol=1e-9``, the f32
 reassociation bound ``tests/test_fused_superstep.py`` uses between fused
 and reference.  Two launches on the same inputs are bit-equal (the kernel's
@@ -49,7 +50,7 @@ from repro_torch.kernels import segment_reduce as ksr
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 
-KINDS = ["bfs", "sssp", "cc", "pagerank", "bc_fwd", "bc_bwd"]
+KINDS = ["bfs", "sssp", "cc", "pagerank", "bc_fwd", "bc_bwd", "bfs_relax"]
 
 
 def port_program(kind, n):
@@ -64,6 +65,7 @@ def port_program(kind, n):
         "pagerank": lambda: alg("pagerank").make_pagerank_program(n),
         "bc_fwd": lambda: alg("bc").FORWARD_PROGRAM,
         "bc_bwd": lambda: alg("bc").BACKWARD_PROGRAM,
+        "bfs_relax": lambda: alg("bfs").BFS_RELAX_PROGRAM,
     }[kind]()
 
 
@@ -84,6 +86,8 @@ def make_inputs(kind, q, pl, v_max, rng):
         cols = [dist, active]
     elif kind == "cc":
         cols = [rng.integers(0, 10 * v_max, shape).astype(np.float32), active]
+    elif kind == "bfs_relax":
+        cols = [levels, active]
     elif kind == "pagerank":
         # Dyadic ranks and inverse degrees: every product and every partial
         # sum is exact in f32, so any two summation orders agree.  With
@@ -1133,3 +1137,66 @@ def test_continuous_session_matches_drain_on_card(cuda, backend, alg):
     assert rep["refills"] == len(stream) - 4
     assert rep["min_slot_refills"] >= 1
     assert rep["retraces"] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["fused", "hybrid"])
+def test_dynamic_engine_matches_rebuilt_graph_on_card(cuda, backend):
+    """A dynamic engine on the card after a mutation stream (inserts and
+    deletes; scale 10, 2 partitions): BFS and SSSP bit for bit with equal
+    steps against a fresh engine over the rebuilt graph, the backend's
+    kernels launched on the mutated layout (tombstones in the fused
+    kernel's mask; the hybrid's spare-slot rows through the scan and the
+    dense min-plus product), nothing rebuilt across
+    the batches; then an insert-only window's warm BFS bit for bit a cold
+    run, through the ``bfs_relax`` kind on the fused backend."""
+    import importlib
+
+    from repro_torch.core.bsp import BSPEngine
+    from repro_torch.core.dynamic import DynamicGraph
+    from repro_torch.data.graphs import edge_stream
+
+    tbfs = importlib.import_module("repro_torch.algorithms.bfs")
+    tsssp = importlib.import_module("repro_torch.algorithms.sssp")
+    g = TG.rmat(10, 8, seed=13).with_uniform_weights(seed=1)
+    stream = edge_stream(g, 3, 64, churn=0.7, seed=5)
+    dg = DynamicGraph(g, 2, TPT.HIGH, mutation_capacity=64)
+    # the hybrid forced to pull, so its scan and dense kernels run in
+    # every superstep
+    kw = dict(direction="pull") if backend == "hybrid" else {}
+    eng = BSPEngine(dg, backend=backend, block_e=256, **kw)
+    sources = [0, 3, 17, 91]
+    tbfs.bfs_batched(eng, sources)
+    tsssp.sssp_batched(eng, sources)
+    entries = eng.cache_entries()
+    for b in stream:
+        dg.apply_mutations(b)
+    counters = ((kfs.fused_superstep,) if backend == "fused"
+                else (kds.dense_spmv_minplus, kbu.bottomup_scan))
+    for fn in counters:
+        fn.launches = 0
+    got = [fn(eng, sources) for fn in (tbfs.bfs_batched, tsssp.sssp_batched)]
+    # before the fresh engine loads its own kernels (its pull scan)
+    assert eng.cache_entries() == entries
+    fresh = BSPEngine(TPT.partition(TG.apply_mutation_batches(g, stream), 2,
+                                    TPT.HIGH), backend=backend, block_e=256)
+    for fn, (res, steps) in zip((tbfs.bfs_batched, tsssp.sssp_batched), got):
+        want, want_steps = fn(fresh, sources)
+        np.testing.assert_array_equal(res, want)
+        np.testing.assert_array_equal(steps, want_steps)
+    assert eng.dynamic_rebinds == eng.hybrid_dyn_rebuilds == 0
+    prev, _ = tbfs.bfs_batched(eng, sources)
+    mark = dg.mark()
+    dg.apply_mutations(edge_stream(dg.mutated_csr(), 1, 64, churn=1.0,
+                                   seed=6)[0])
+    dirty, monotone = dg.dirty_since(mark)
+    assert monotone
+    kfs.fused_superstep.launches = 0
+    warm, warm_steps = tbfs.bfs_incremental(eng, prev, dirty)
+    relax_launches = kfs.fused_superstep.launches
+    cold, cold_steps = tbfs.bfs_batched(eng, sources)
+    np.testing.assert_array_equal(warm, cold)
+    assert warm_steps.max() < cold_steps.max()
+    assert all(fn.launches > 0 for fn in counters)
+    if backend == "fused":
+        assert relax_launches == int(warm_steps.max())

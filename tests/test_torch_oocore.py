@@ -20,7 +20,6 @@ package's own arena bytes.  Tolerances:
   atol=1e-9`` and BC ``rtol=1e-5, atol=1e-5``, the f32 reassociation
   bounds of ``tests/test_fused_superstep.py``.
 """
-import types
 
 import numpy as np
 import pytest
@@ -410,8 +409,10 @@ def test_no_buffer_made_after_the_first_superstep(pgs, backend):
 
 
 def test_tiered_refuses_dynamic_graphs_and_chunks(pgs):
+    from repro_torch.core.dynamic import DynamicGraph
+
     tp = pgs[1]
-    dynamic = types.SimpleNamespace(pg=tp)       # not a PartitionedGraph
+    dynamic = DynamicGraph(tp.source, tp.num_parts, "high", device="cpu")
     with pytest.raises(NotImplementedError, match="item 11"):
         BSPEngine(dynamic, device="cpu", tiered=1 << 30)
     eng = _port(tp, "fused", _port_budget(tp, "fused"))

@@ -546,13 +546,15 @@ def test_tiered_engine_refuses_chunk_as_jax(graphs):
 
 
 def test_unported_parts_raise_naming_the_roadmap_item(graphs):
-    """Checkpoints, chaos and certifiers are item 13; mutations item 11."""
+    """Checkpoints, chaos and certifiers are item 13.  Mutations (item 11)
+    are ported: on a static engine ``mutate`` refuses as JAX's does."""
     tp = graphs[1]["main"][1]
     eng = _port(tp, "reference")
     session = ServeSession(eng, "bfs", slots=SLOTS)
+    with pytest.raises(ValueError, match="needs a dynamic engine"):
+        session.mutate(None)
     for call, item in ((lambda: session.snapshot(None), "13"),
                        (lambda: session.restore(None), "13"),
-                       (lambda: session.mutate(None), "11"),
                        (lambda: ServeSession(eng, "bfs", slots=SLOTS,
                                              certifier=object()), "13"),
                        (lambda: eng.execute(
@@ -561,8 +563,7 @@ def test_unported_parts_raise_naming_the_roadmap_item(graphs):
                            chunk=2, chaos_ctx={"round": 0}), "13")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             call()
-    for flag, item in (("--mutate", "11"), ("--chaos", "13"),
-                       ("--corrupt", "13")):
+    for flag, item in (("--chaos", "13"), ("--corrupt", "13")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             tgs.main(["--smoke", "--device", "cpu", flag])
     with pytest.raises(ValueError, match="no continuous form"):
@@ -572,6 +573,8 @@ def test_unported_parts_raise_naming_the_roadmap_item(graphs):
 @pytest.mark.parametrize("kw", [
     dict(depth_buckets=2, queue_capacity=8),
     dict(depth_buckets=2, deadline_ms=50.0),
+    dict(mutate=True, depth_buckets=2), dict(mutate=True, deadline_ms=50.0),
+    dict(mutate=True, queue_capacity=8),
     dict(continuous=True, alg="bc"), dict(continuous=True, alg="ppr")])
 def test_serve_config_errors_equal_jax(kw):
     got = _messages(lambda: tgs.ServeConfig(**kw).validate())
@@ -582,11 +585,13 @@ def test_serve_config_errors_equal_jax(kw):
 def test_serve_config_composes():
     for kw in (dict(continuous=True, deadline_ms=50.0, queue_capacity=8,
                     depth_buckets=2), dict(deadline_ms=50.0),
-               dict(queue_capacity=8), dict(depth_buckets=2)):
+               dict(queue_capacity=8), dict(depth_buckets=2),
+               dict(mutate=True), dict(continuous=True, mutate=True),
+               dict(continuous=True, mutate=True, depth_buckets=2,
+                    deadline_ms=50.0)):
         cfg = tgs.ServeConfig(**kw).validate()
         assert cfg.mode == jgs.ServeConfig(**kw).validate().mode
-    for kw, item in ((dict(continuous=True, mutate=True), "11"),
-                     (dict(chaos=True), "13"), (dict(corrupt=True), "13")):
+    for kw, item in ((dict(chaos=True), "13"), (dict(corrupt=True), "13")):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             tgs.ServeConfig(**kw).validate()
 
