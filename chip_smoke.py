@@ -108,6 +108,22 @@ Phases (any failed check exits non-zero; nothing is caught and passed over):
    ``ServeSession.mutate`` through ``serve_continuous(mutation_stream=)``
    with parity against drain batches, and the phase's seconds; and
    ``[dir]``: ``launch/direction_selftest.py`` as a world of one NCCL rank;
+   then ``[robust]`` (``robust_phase``), with every count set to 0 just
+   before it: ``graph_serve.run_chaos_drill`` on the unweighted RMAT20
+   (BFS, fused primary, hybrid fallback, 3 mutation rounds of 256 at
+   churn 0.7, 8 standing queries: at least 3 failures recovered, one
+   downgrade, query 0 quarantined, the standing results bit for bit the
+   clean session's, with the walls, each recovery's seconds and the
+   snapshots' bytes and save times), ``graph_serve.run_corrupt_drill`` on
+   reference, fused and hybrid engines over this partition (detected or
+   masked, no false positive), ``serve_with_restarts`` over a fused BFS
+   session with one injected fault (every completion bit for bit
+   ``drain_reference``'s), the checked exchange's window time and host
+   syncs beside the plain exchange's and the monitor's time a window, and
+   the sharded hybrid's checked window (world of one: ``exchange.payload``
+   detected, the clean run bit for bit the single-device hybrid's); the
+   fused kernel, ``ell_spmv``, ``dense_spmv_minplus`` and
+   ``outbox_reduce`` must launch;
 5. the numpy oracles at RMAT12 on the card, all five algorithms, on the
    fused and the hybrid backends;
 6. ``[segment_reduce]``: the sorted segment reduce through its entry point
@@ -178,6 +194,7 @@ The line before the last is the kernels' JSON record; the last line is
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib
 import json
@@ -1645,6 +1662,293 @@ def dynamic_phase(gw, sources, dev, check):
     return launches
 
 
+def robust_phase(g, pg, sources, resident, check):
+    """``[robust]``: the robustness layer at RMAT20 / P=2 / HIGH, Q=8, chunk 2.
+
+    1. ``graph_serve.run_chaos_drill`` on the unweighted graph (BFS, fused
+       primary with the hybrid fallback, 3 mutation rounds of 256 at churn
+       0.7, 8 standing queries, batch 8): at least 3 failures recovered,
+       every batch acknowledged, one downgrade, query 0 quarantined as
+       ``nonfinite``, mid-run snapshots, rebuilds within the failures, the
+       replayed payload checked against the snapshot, the standing results
+       not quarantined bit for bit the clean session's; the walls, each
+       recovery's seconds, the snapshot bytes and save times.
+    2. ``graph_serve.run_corrupt_drill`` on reference, fused and hybrid
+       engines over the script's partition (plain push: chunk windows never
+       pull) and a dynamic fused engine over RMAT20 (``DynamicGraph``, P=2,
+       HIGH, capacity 256): no false positive clean, ``state.corrupt`` detected or masked with every recompute
+       recovered, ``exchange.payload`` detected on reference and fused with
+       a bit-equal replay and inert on the hybrid, ``checkpoint.torn``
+       caught, ``tombstone.flip`` detected or masked and a perturbed
+       fixpoint rejected.
+    3. ``failures.serve_with_restarts`` over a continuous fused BFS session
+       (16 queries, one ``superstep.chunk`` fault): restored mid-stream,
+       every completion bit for bit ``drain_reference``'s.
+    4. The checked exchange's cost: fused BFS windows of 2 supersteps with
+       the guard and without it, CUDA events, the median of 7 pairs in
+       turns; the host syncs of a window (both paths warm, and one
+       throwaway count first) and of one ``execute`` boundary
+       (``torch.cuda.set_sync_debug_mode``); the monitor's ms per window at
+       Q=8, beside the copy of the state to the host as float64 that a host
+       monitor would need.
+    5. The sharded engine as a world of one: on the fused backend a
+       checked window with ``exchange.payload`` raises
+       ``ExchangeCorruption`` (the tagged partition exchange, checked on a
+       world of one as in the JAX package); the sharded hybrid's checked
+       windows launch ``outbox_reduce`` and are bit for bit the
+       single-device hybrid's with equal steps, poisoned or not (its
+       compact exchange carries no slot on a world of one, so the guard is
+       inert there, as in the JAX package; ``launch/ft_selftest.py``
+       drills it across ranks).
+
+    Every kernel count is set to 0 just before and read just after; the
+    fused kernel, ``ell_spmv``, ``dense_spmv_minplus`` and
+    ``outbox_reduce`` must launch.  Returns the launches."""
+    import argparse
+    import statistics
+    import tempfile
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from repro_torch.algorithms.bfs import (BFS_PROGRAM, gather_batch,
+                                            multi_source_state)
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import partition as PT
+    from repro_torch.core.bsp import (BSPEngine, DistributedBSPEngine,
+                                      _ExchangeGuard, _run_chunked_loop)
+    from repro_torch.core.dynamic import DynamicGraph
+    from repro_torch.kernels import bottomup as kbu
+    from repro_torch.kernels import dense_spmv as kds
+    from repro_torch.kernels import ell_spmv as kell
+    from repro_torch.kernels import fused_superstep as kfs
+    from repro_torch.kernels import outbox_reduce as kob
+    from repro_torch.launch import graph_serve as gs
+    from repro_torch.runtime import (ExchangeCorruption, FaultInjector,
+                                     ServeSession, chaos, drain_reference,
+                                     monitor_for, serve_with_restarts)
+
+    card = torch.cuda.get_device_name(0)
+    t_phase = time.perf_counter()
+    counters = (kfs.fused_superstep, kell.ell_spmv, kds.dense_spmv_minplus,
+                kob.outbox_reduce, kbu.bottomup_scan)
+    for fn in counters:
+        fn.launches = 0
+    args = gs.build_parser().parse_args([])
+    args = argparse.Namespace(**dict(
+        vars(args), device="cuda", alg="bfs", backend="fused", parts=2,
+        strategy="high", block_e=BLOCK_E, seed=SEED, batch=Q,
+        num_queries=Q, standing=Q, mutation_rounds=3, mutation_batch=256,
+        churn=0.7, checkpoint_every=2))
+
+    # -- 1. fault-tolerant serving through the chaos drill -----------------
+    t0 = time.perf_counter()
+    out = gs.run_chaos_drill(args, g=g)
+    clean, faulty = out["clean"], out["faulty"]
+    check(faulty["failures"] >= 3 and faulty["acked"] == args.mutation_rounds
+          and len(faulty["downgrades"]) == 1
+          and out["quarantined"] == [0]
+          and any(r["reason"] == "nonfinite" for r in faulty["quarantined"])
+          and faulty["midrun_snapshots"] > 0
+          and faulty["retraces"] <= faulty["failures"]
+          and faulty["replay_checked"] > 0
+          and out["parity"] == Q - 1,
+          f"[robust] chaos drill (BFS, fused primary, {faulty['fallback']} "
+          f"fallback, 3 rounds of 256 at churn 0.7, {Q} standing): "
+          f"failures {faulty['failures']} at rounds "
+          f"{[r.get('round') for r in faulty['restarts']]}, acked "
+          f"{faulty['acked']}, downgrades {len(faulty['downgrades'])}, "
+          f"quarantined {out['quarantined']} (nonfinite), mid-run "
+          f"snapshots {faulty['midrun_snapshots']}, rebuilds "
+          f"{faulty['retraces']} <= failures, replayed payloads checked "
+          f"{faulty['replay_checked']}, mutated CSR == the log's, "
+          f"{out['parity']}/{Q} standing results bit-equal to the clean run")
+    log(f"[robust] chaos drill ({card}): clean session "
+        f"{clean['wall_s']:.1f} s, faulty {faulty['wall_s']:.1f} s; "
+        f"recoveries (rebuild from base + replay + restore) "
+        f"{[round(t, 2) for t in faulty['recovery_s']]} s; round snapshots "
+        f"{[round(b / 2**20, 1) for b in clean['snapshot_bytes']]} MiB "
+        f"saved in "
+        f"{[round(t, 1) for t in clean['snapshot_ms']]} ms; drill "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # -- 2. the corruption drill on the script's partition -----------------
+    t0 = time.perf_counter()
+    engines = {b: (g, BSPEngine(pg, backend=b, block_e=BLOCK_E,
+                                direction_switch=False))
+               for b in ("reference", "fused", "hybrid")}
+    t_dg = time.perf_counter()
+    dg = DynamicGraph(g, 2, PT.HIGH, mutation_capacity=args.mutation_batch)
+    t_dg = time.perf_counter() - t_dg
+    dynamic = (g, dg, BSPEngine(dg, backend="fused", block_e=BLOCK_E,
+                                direction_switch=False))
+    out = gs.run_corrupt_drill(args, engines=engines, dynamic=dynamic)
+    check(out["detections"] >= 4,
+          f"[robust] corruption drill (the three backends and the dynamic "
+          f"fused engine at RMAT20): {out['detections']} detected, "
+          f"{out['masked']} masked, no false positive (walls "
+          f"{ {k: round(v, 1) for k, v in out['walls'].items()} } s, "
+          f"DynamicGraph {t_dg:.1f} s, {time.perf_counter() - t0:.1f} s)")
+    del dynamic, dg
+
+    # -- 3. serve_with_restarts over a continuous fused BFS session -------
+    fe = engines["fused"][1]
+    stream = np.random.default_rng(SEED + 1).integers(0, g.num_vertices,
+                                                      2 * Q)
+    want = drain_reference(fe, "bfs", stream, Q)
+
+    def factory():
+        s = ServeSession(fe, "bfs", slots=Q, chunk=2)
+        s.submit(stream)
+        return s
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td:
+        with chaos.active(FaultInjector(
+                sites={"superstep.chunk": [{"at": 3}]})):
+            session, summary = serve_with_restarts(
+                factory, CheckpointManager(td, keep=2), checkpoint_every=2)
+    got = {r["query"]: r["result"] for r in session.poll()}
+    check(summary["failures"] == 1 and len(got) == len(stream)
+          and all(np.array_equal(got[q], want[q]) for q in range(len(stream))),
+          f"[robust] serve_with_restarts (fused BFS session, {len(stream)} "
+          f"queries, {Q} slots, a superstep.chunk fault at the 4th window): "
+          f"{summary['failures']} failure restored at window "
+          f"{summary['restarts'][0]['windows']} of {summary['windows']}, "
+          f"{len(got)} completions bit-equal to drain_reference "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    # -- 4. the checked exchange's and the monitor's cost ------------------
+    level = multi_source_state(pg, sources, device="cuda")
+    state = {"level": level}
+    fin = torch.zeros(Q, dtype=torch.bool, device="cuda")
+    steps_q = torch.zeros(Q, dtype=torch.int32, device="cuda")
+
+    def window(checked):
+        # a fresh guard a window, as BSPEngine._chunk_call makes
+        guard = _ExchangeGuard() if checked else None
+        fn = fe._step_fn(BFS_PROGRAM, guard=guard)
+        return (*_run_chunked_loop(fn, 2, BFS_PROGRAM.max_steps, state, 0,
+                                   fin, steps_q), guard)
+
+    def timed(checked):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        _, _, f, s, guard = window(checked)
+        # the boundary's one read: votes, counters and the count
+        parts = [f.to(torch.int64), s.to(torch.int64)]
+        if checked:
+            parts.append(guard.read().reshape(1))
+        torch.cat(parts).cpu()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b)
+
+    for checked in (False, True):
+        timed(checked)
+    times = {False: [], True: []}
+    for _ in range(7):
+        for checked in (False, True, True, False):
+            times[checked].append(timed(checked))
+
+    def syncs(fn):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return sum("synchroniz" in str(w.message) for w in caught)
+
+    # both paths are warm (timed above); the first count under the debug
+    # mode is thrown away: it warned once more than its path syncs when
+    # it was the plain window's (3 against 2)
+    n_first = syncs(lambda: window(False))
+    n_checked = syncs(lambda: window(True))
+    n_plain = syncs(lambda: window(False))
+    n_boundary = syncs(lambda: fe.execute(BFS_PROGRAM, state, chunk=2,
+                                          max_chunks=1))
+    mon = monitor_for("bfs", chunk=2)
+    snap = dict(state=state, finished=np.zeros(Q, bool),
+                steps_q=np.zeros(Q, np.int32), step=0)
+    mon.observe(snap)
+    mon_ms = []
+    host_ms = []
+    for i in range(9):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mon.observe(dict(snap, step=2 * i + 2))
+        mon_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        np.asarray(level.cpu().numpy(), np.float64)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    plain_ms = statistics.median(times[False])
+    checked_ms = statistics.median(times[True])
+    check(n_checked == n_plain and mon.violations == 0,
+          f"[robust] checked exchange ({card}; fused BFS, Q={Q}, a window "
+          f"of 2 supersteps and its boundary read, CUDA events, median of "
+          f"{len(times[True])}): {checked_ms:.3f} ms checked vs "
+          f"{plain_ms:.3f} ms plain ({checked_ms / plain_ms:.3f}x); host "
+          f"syncs in the window {n_checked} checked == {n_plain} plain "
+          f"(the thrown-away first count {n_first}), "
+          f"{n_boundary} in one execute(chunk=2) window with its boundary; "
+          f"monitor {statistics.median(mon_ms):.3f} ms a window on the card "
+          f"(median of {len(mon_ms)}, no violation) vs "
+          f"{statistics.median(host_ms):.3f} ms to copy the state to the "
+          f"host as float64")
+
+    # -- 5. the sharded engine as a world of one ---------------------------
+    def poisoned():
+        return chaos.active(FaultInjector(sites={"exchange.payload": [
+            {"step": 0, "flag": True}]}))
+
+    shard = DistributedBSPEngine(pg, backend="fused", block_e=BLOCK_E)
+    caught = None
+    try:
+        with poisoned():
+            shard.execute(BFS_PROGRAM, state, chunk=2)
+    except ExchangeCorruption as e:
+        caught = e
+    st, sq, _ = shard.execute(BFS_PROGRAM, state, chunk=2)
+    want_res, want_steps = resident["fused", "bfs"]
+    check(caught is not None
+          and np.array_equal(gather_batch(pg, st["level"]), want_res)
+          and np.array_equal(sq.cpu().numpy(), want_steps),
+          f"[robust] sharded fused (world of one): exchange.payload "
+          f"detected ({caught}); the replay bit-equal to the single-device "
+          f"fused run, equal steps")
+    shard = DistributedBSPEngine(pg, backend="hybrid")
+    before = kob.outbox_reduce.launches
+    runs = {}
+    for poison in (False, True):
+        with poisoned() if poison else contextlib.nullcontext():
+            st, sq, info = shard.execute(BFS_PROGRAM, state, chunk=2)
+        runs[poison] = (gather_batch(pg, st["level"]), sq.cpu().numpy())
+    used = kob.outbox_reduce.launches - before
+    want_res, want_steps = resident["hybrid", "bfs"]
+    check(used > 0 and all(np.array_equal(r, want_res)
+                           and np.array_equal(s, want_steps)
+                           for r, s in runs.values()),
+          f"[robust] sharded hybrid (world of one): checked windows "
+          f"bit-equal to the single-device hybrid with equal steps, clean "
+          f"and under exchange.payload (no slot crosses ranks: the guard "
+          f"is inert), {info['chunks']} windows, {used} outbox_reduce "
+          f"launches")
+    del shard, engines, fe, session
+    torch.cuda.empty_cache()
+
+    launches = {fn.__name__: fn.launches for fn in counters}
+    check(all(launches[n] > 0 for n in ("fused_superstep", "ell_spmv",
+                                         "dense_spmv_minplus",
+                                         "outbox_reduce")),
+          f"[robust] launches in the phase: {launches}")
+    log(f"[robust] phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def direction_world_phase(check):
     """``[dir]``: ``launch/direction_selftest.py`` as a world of one NCCL
     rank on this card (BFS, SSSP and CC through the sharded engine on
@@ -2523,6 +2827,10 @@ def main() -> int:
     # -- phase 4c: [dynamic] mutations, warm starts, compaction; [dir] -------
     dyn_launches = dynamic_phase(gw, sources, dev, check)
     direction_world_phase(check)
+
+    # -- phase 4d: [robust] checkpoints, chaos, the checked exchange -------
+    robust_launches = robust_phase(g, pg, sources, resident, check)
+    log(f"[robust] launches on the robustness path: {robust_launches}")
 
     # -- phase 5: numpy oracles at RMAT12 on the card ------------------------
     small = G.rmat(12, 16, seed=SEED)

@@ -79,6 +79,8 @@ from repro_torch.kernels.ops import (bottomup_scan_op, ell_spmv_op,
                                      fused_superstep_op, outbox_reduce_op)
 from repro_torch.kernels.ref import (MIN, SEMIRINGS, SUM, identity,
                                      segment_reduce_ref)
+from repro_torch.runtime import chaos
+from repro_torch.runtime.failures import ExchangeCorruption
 
 State = Dict[str, torch.Tensor]  # batched: leaves [Q, Pl, ...]
 
@@ -252,6 +254,10 @@ def _compute_fused(dims: _Dims, program: VertexProgram, edges: dict,
                    block_e: int, state: State, step: int) -> torch.Tensor:
     """Fused compute: one kernel launch per superstep on the card, no
     [Q, Pl, e_max] message array (kernels/fused_superstep.py)."""
+    # fault site: a raise here surfaces to the dispatching host as a kernel
+    # fault (the degradation ladder's retry point).  Visited at every call:
+    # the JAX package visits it once per trace.
+    chaos.visit("kernel.fused", block_e=block_e)
     spec = program.edge_msg
     vstate, scal = _fused_inputs(spec, state, step)
     weight = edges.get("weight_blk") if spec.use_weight else None
@@ -598,6 +604,7 @@ def _superstep_hybrid(program: VertexProgram, cfg: _HybridCfg, arrs: dict,
     the per-query push/pull vote for min combines (``_hybrid_directed``),
     as the JAX engine runs it.
     """
+    chaos.visit("kernel.hybrid", distributed=False)
     _require_f32(program.edge_msg, state, HYBRID)
     state, dopt = _dopt_strip(state)
     vals, x = _hybrid_messages(program, arrs, state, step)     # [Q, n]
@@ -649,7 +656,8 @@ class _ShardCfg(_HybridCfg):
 
 def _superstep_hybrid_dist(program: VertexProgram, cfg: _ShardCfg,
                            arrs: dict, group: ShardGroup, state: State,
-                           step: int) -> Tuple[State, torch.Tensor]:
+                           step: int, guard: Optional["_ExchangeGuard"] = None
+                           ) -> Tuple[State, torch.Tensor]:
     """One BSP superstep of the sharded degree-split backend, on one rank.
 
     ``state`` leaves are the rank's ``[Q, pl, v_max]`` slice.  The paper's
@@ -668,7 +676,14 @@ def _superstep_hybrid_dist(program: VertexProgram, cfg: _ShardCfg,
          source partition (each sends a vertex at most one slot, so no
          pass writes an id twice and sums keep one order), combine with
          the SpMV result, apply and vote (a global AND).
+
+    With ``guard`` (a chunk window) the exchange is checked: one reduction
+    tag per destination rank ships over its own ``all_to_all`` and the
+    receiver re-tags what it got (the JAX package's tagged compact
+    exchange).  Where no slot crosses ranks (a world of one) there is no
+    wire and the guard is inert, as in the JAX package.
     """
+    chaos.visit("kernel.hybrid", distributed=True)
     spec = program.edge_msg
     _require_f32(spec, state, HYBRID)
     ident = add_identity(cfg.semiring)
@@ -701,8 +716,14 @@ def _superstep_hybrid_dist(program: VertexProgram, cfg: _ShardCfg,
         if cfg.has_remote:
             obox_ext = torch.cat([outbox, torch.full(
                 (q, 1), ident, dtype=outbox.dtype, device=outbox.device)], 1)
-            send = obox_ext[:, arrs["send_idx"]]         # [Q, S, w]
-            recv = group.all_to_all(send.transpose(0, 1))    # [S, Q, w]
+            send = obox_ext[:, arrs["send_idx"]].transpose(0, 1)  # [S, Q, w]
+            if guard is not None:
+                tags = _payload_tag(send, (1, 2))              # [S]
+                send = _flip_wire(send) if guard.poison else send
+                want = group.all_to_all(tags.reshape(-1, 1)).reshape(-1)
+            recv = group.all_to_all(send)                      # [S, Q, w]
+            if guard is not None:
+                guard.add((_payload_tag(recv, (1, 2)) != want).sum())
             inbound = torch.cat([recv.transpose(0, 1).reshape(q, -1),
                                  outbox], dim=1)
         racc = torch.full((q, cfg.pl * (cfg.v_max + 1)), ident,
@@ -752,6 +773,10 @@ def _run_chunked_loop(step_fn: Callable, chunk: int, max_steps: int,
     each query's executed supersteps.  Windows chained end to end run the
     superstep sequence of one unbounded window, which is the resident loop
     (``_run_batched_loop``).
+
+    A checked window's :class:`_ExchangeGuard` rides in ``step_fn``, so
+    one loop serves both (the JAX package needs a second loop, since a
+    traced carry cannot hold the guard).
     """
     step, fin, steps_q = int(step0), fin0, steps_q0
     stop = min(max_steps, step + chunk)
@@ -763,6 +788,81 @@ def _run_chunked_loop(step_fn: Callable, chunk: int, max_steps: int,
         fin = fin | vote
         step += 1
     return state, step, fin, steps_q
+
+
+# ---------------------------------------------------------------------------
+# The checked exchange (the silent-corruption defense of the chunk windows)
+# ---------------------------------------------------------------------------
+
+def _payload_tag(x: torch.Tensor, dims) -> torch.Tensor:
+    """Order-independent int32 tag of a payload over ``dims``: the bit
+    patterns as int32 (``view``, no conversion) in a wrapping int32 sum,
+    as in the JAX package.  Any single-element change moves the sum by a
+    nonzero delta mod 2^32, so a one-bit wire flip always mismatches."""
+    words = x.view(torch.int32) if x.element_size() == 4 else x.to(
+        torch.int32)
+    return torch.sum(words, dim=dims, dtype=torch.int32)
+
+
+def _flip_wire(x: torch.Tensor) -> torch.Tensor:
+    """A copy of a payload with one mantissa bit of its first element
+    flipped (the ``exchange.payload`` drill's corruption).  Only the copy
+    goes over the wire: the tensor the send tags were taken from, a view
+    of the accumulator, stays as it was."""
+    if x.element_size() != 4:
+        return x
+    wire = x.clone(memory_format=torch.contiguous_format)
+    wire.view(torch.int32).view(-1)[0] ^= 1 << 20
+    return wire
+
+
+def _flip_state_bit(state: State, bit: int = 20) -> State:
+    """The state with one bit of the first element of every float32 leaf
+    flipped, in copies (the ``state.corrupt`` site): a memory or transfer
+    bit flip between windows.  The carry the caller holds is unchanged."""
+    def flip(leaf: torch.Tensor) -> torch.Tensor:
+        if leaf.dtype != torch.float32 or leaf.numel() == 0:
+            return leaf
+        out = leaf.clone(memory_format=torch.contiguous_format)
+        out.view(torch.int32).view(-1)[0] ^= 1 << bit
+        return out
+    return {k: flip(v) for k, v in state.items()}
+
+
+class _ExchangeGuard:
+    """One window's exchange checks: whether the window is poisoned (the
+    ``exchange.payload`` drill) and its count of tag mismatches, a tensor
+    on the engine's device until the boundary reads it with the votes (no
+    host sync of its own)."""
+
+    def __init__(self, poison: bool = False):
+        self.poison = bool(poison)
+        self._bad: Optional[torch.Tensor] = None
+
+    def add(self, n: torch.Tensor) -> None:
+        self._bad = n if self._bad is None else self._bad + n
+
+    def read(self) -> Optional[torch.Tensor]:
+        """The window's mismatch count; None when no exchange ran."""
+        return self._bad
+
+
+def _checked_exchange(guard: _ExchangeGuard
+                      ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The single-device exchange with a reduction tag per (partition,
+    peer) slot block: the send tags are taken from the outbox *before* the
+    wire (where the ``exchange.payload`` drill corrupts a copy), the inbox
+    side re-derives them, and each mismatch lands in ``guard``; the
+    boundary turns a nonzero window count into an ``ExchangeCorruption``
+    and the caller replays the window."""
+    def exchange(outbox: torch.Tensor) -> torch.Tensor:
+        send_tags = _payload_tag(outbox, (0, 3))            # [pl, P]
+        wire = _flip_wire(outbox) if guard.poison else outbox
+        inbox = wire.transpose(1, 2)                        # [Q, P, pl, o]
+        recv_tags = _payload_tag(inbox, (0, 3))             # [P, pl]
+        guard.add((recv_tags != send_tags.T).sum())
+        return inbox
+    return exchange
 
 
 def _run_batched_loop(step_fn: Callable, max_steps: int, state: State,
@@ -1264,8 +1364,19 @@ class BSPEngine:
         cfg, arrs = self.hybrid_for(program)
         return functools.partial(_superstep_hybrid, program, cfg, arrs)
 
+    def _guarded_exchange(self, guard: _ExchangeGuard) -> Callable:
+        return _checked_exchange(guard)
+
     def _step_fn(self, program: VertexProgram,
-                 dopt_cfg: Optional[_DoptCfg] = None) -> Callable:
+                 dopt_cfg: Optional[_DoptCfg] = None,
+                 guard: Optional[_ExchangeGuard] = None,
+                 flip_tomb: bool = False) -> Callable:
+        """One superstep ``(state, step) -> (state, votes)`` of ``program``
+        on this engine.  With ``guard`` every exchange is checked (chunk
+        windows on a static graph; one device's hybrid split has no
+        partition boundary, so nothing to check); ``flip_tomb`` runs a
+        dynamic graph with one tombstone flipped in a copy of the mask (the
+        ``tombstone.flip`` site)."""
         if self.tier_plan is not None:
             if self._uses_hybrid(program):
                 return self._tiered_hybrid_step_fn(program)
@@ -1274,13 +1385,15 @@ class BSPEngine:
             return self._hybrid_step_fn(program)
         edges, delta = self.edges_for(program), None
         if self.dg is not None:
-            edges, delta = self._dyn_edges(program, edges)
+            edges, delta = self._dyn_edges(program, edges, flip_tomb)
         dims = self.dims_for(edges)
         block_e = self._block_e if self.fused else None
         pull = self._pull if dopt_cfg is not None else None
+        exchange = (self._exchange if guard is None
+                    else self._guarded_exchange(guard))
 
         def step_fn(state, step):
-            return _superstep(dims, program, edges, self._exchange,
+            return _superstep(dims, program, edges, exchange,
                               self._all_finished, block_e, state, step,
                               dopt_cfg, pull, delta)
         return step_fn
@@ -1297,16 +1410,26 @@ class BSPEngine:
             self._bind(self.dg.pg)
             self.dynamic_rebinds += 1
 
-    def _dyn_edges(self, program: VertexProgram,
-                   edges: dict) -> Tuple[dict, dict]:
+    def _dyn_edges(self, program: VertexProgram, edges: dict,
+                   flip_tomb: bool = False) -> Tuple[dict, dict]:
         """This run's view of the dynamic graph for the reference and fused
         backends: ``edges`` with this engine's slice of the tombstones
         folded in (sent to the sink, and zeroed in the fused block mask)
-        and the live ``inbox_dst``, and the delta slots' edges."""
+        and the live ``inbox_dst``, and the delta slots' edges.
+
+        ``flip_tomb`` flips one bit of a copy of the first partition's
+        tombstones, preferring a tombstoned edge that is not a self-loop
+        (a resurrected self-loop is inert under every program, which
+        would make the drill vacuous); the graph's payload is unchanged."""
         lo, hi = self._parts
         pl = {k: v[lo:hi].to(self.device)
               for k, v in self.dg.payload(program.use_reverse).items()}
         tomb = pl["tomb"]
+        if flip_tomb:
+            cand = tomb[0] & (edges["src"][0] != edges["dst_ext"][0])
+            j = int(cand.to(torch.int8).argmax())   # the first, else 0
+            tomb = tomb.clone()
+            tomb[0, j] = ~tomb[0, j]
         out = dict(edges, inbox_dst=pl["inbox_dst"],
                    dst_ext=torch.where(tomb, self.dims.v_max,
                                        edges["dst_ext"]))
@@ -1896,8 +2019,9 @@ class BSPEngine:
           supersteps (PageRank); returns the final state.
         - ``execute(program, state, chunk=k)`` — the converge loop in
           windows of ``k`` supersteps, with the boundary protocol of
-          :meth:`_run_batched_chunked` (``on_chunk``, ``monitor``) and
-          its resume carry (``start_step``, ``fin``, ``steps_q``,
+          :meth:`_run_batched_chunked` (``on_chunk``, ``monitor``, the
+          checked exchange, the chaos sites with ``chaos_ctx``) and its
+          resume carry (``start_step``, ``fin``, ``steps_q``,
           ``max_chunks``); returns ``(state, steps_q, info)``.
 
         - ``execute(program, prev_state, incremental=dirty)`` — warm start
@@ -1910,8 +2034,7 @@ class BSPEngine:
         programs run direction optimized (see the class docstring), except
         in chunked mode, whose slot refills swap user state rows only: the
         fused and reference backends push there, the hybrid runs its pull
-        SpMV.  ``chaos_ctx=`` is not ported yet and raises.  Incompatible
-        keywords raise with the fix spelled out.
+        SpMV.  Incompatible keywords raise with the fix spelled out.
         """
         modes = {"num_steps": num_steps is not None,
                  "chunk": chunk is not None,
@@ -1946,12 +2069,10 @@ class BSPEngine:
                     f"exist in chunked mode; pass chunk=<supersteps per "
                     f"window> (e.g. chunk=2).")
         if modes["chunk"]:
-            if chaos_ctx is not None:
-                raise _not_in_slice("execute(chaos_ctx=)", "13")
             return self._run_batched_chunked(
                 program, state, checkpoint_every=chunk, on_chunk=on_chunk,
                 start_step=start_step, fin=fin, steps_q=steps_q,
-                max_chunks=max_chunks, monitor=monitor)
+                max_chunks=max_chunks, chaos_ctx=chaos_ctx, monitor=monitor)
         if self.dg is not None:
             self._sync_dynamic()
         self.last_direction_stats = None
@@ -2000,25 +2121,44 @@ class BSPEngine:
 
     # ---------------------- chunked (continuous) mode ----------------------
 
+    def _tombstone_flip(self, step: int) -> bool:
+        """The ``tombstone.flip`` site of a dynamic chunk window."""
+        return chaos.visit("tombstone.flip", step=int(step))
+
     def _chunk_call(self, program: VertexProgram, chunk: int, state: State,
-                    step: int, fin: torch.Tensor, steps_q: torch.Tensor):
+                    step: int, fin: torch.Tensor, steps_q: torch.Tensor,
+                    poison: bool = False):
         """One window of at most ``chunk`` supersteps on the global state:
         the engine's part of it goes in, the global state comes back (on
         a sharded engine, sliced on entry and all-gathered at the
         boundary; the votes are global on every rank).  Returns ``(state,
-        step, fin, steps_q)``."""
+        step, fin, steps_q, bad)``.
+
+        On a static graph every exchange of the window is checked, and
+        ``bad`` is its count of tag mismatches: a tensor on the device, or
+        None when no exchange ran.  ``poison`` corrupts the wire (the
+        ``exchange.payload`` site).  Dynamic windows run unchecked (their
+        integrity net is the certifier layer) and return None; their
+        reference and fused backends visit ``tombstone.flip``."""
+        guard, flip = None, False
         if self.dg is not None:
             self._sync_dynamic()
+            flip = (not self._uses_hybrid(program)
+                    and self._tombstone_flip(step))
+        else:
+            guard = _ExchangeGuard(poison)
         out, step, fin, steps_q = _run_chunked_loop(
-            self._step_fn(program), chunk, program.max_steps,
-            self._local(state), step, fin, steps_q)
-        return self._global(out), step, fin, steps_q
+            self._step_fn(program, guard=guard, flip_tomb=flip), chunk,
+            program.max_steps, self._local(state), step, fin, steps_q)
+        return (self._global(out), step, fin, steps_q,
+                None if guard is None else guard.read())
 
     def _run_batched_chunked(self, program: VertexProgram, state: State, *,
                              checkpoint_every: int,
                              on_chunk: Optional[Callable] = None,
                              start_step: int = 0, fin=None, steps_q=None,
                              max_chunks: Optional[int] = None,
+                             chaos_ctx: Optional[dict] = None,
                              monitor=None):
         """The converge loop in windows of ``checkpoint_every`` supersteps.
 
@@ -2039,12 +2179,22 @@ class BSPEngine:
 
         The all-finished exit is checked after the hook, so a refill keeps
         the loop running.  ``monitor`` (duck-typed: ``observe(snap) ->
-        {"violations", ...}`` and ``rebase(admit)``) is observed once per
-        window; its record rides to ``on_chunk`` as ``snap["monitor"]``.
-        Resume a carry with ``start_step``/``fin``/``steps_q``.  Returns
-        ``(state, steps_q, info)``, ``info = {"chunks", "final_step",
-        "finished", "refilled", "monitors_fired"}``.  The windows run the
-        plain exchange: the checked one comes with ROADMAP item 13.
+        {"violations", ...}`` and ``rebase(admit)``, e.g.
+        :class:`repro_torch.runtime.verify.InvariantMonitor`) is observed
+        once per window; its record rides to ``on_chunk`` as
+        ``snap["monitor"]``.  Resume a carry with ``start_step``/``fin``/
+        ``steps_q``.  Returns ``(state, steps_q, info)``, ``info =
+        {"chunks", "final_step", "finished", "refilled",
+        "monitors_fired"}``.
+
+        Integrity: every static-graph window runs the checked exchange; its
+        mismatch count is read with the votes and step counters in one copy
+        at the boundary, and a nonzero count raises
+        :class:`repro_torch.runtime.failures.ExchangeCorruption` *before*
+        the corrupted carry replaces the live one, so the caller replays
+        the window from its last checkpoint.  The chaos sites
+        ``superstep.chunk``, ``state.corrupt`` and ``exchange.payload`` are
+        visited before each window with ``chaos_ctx`` in their context.
         """
         if checkpoint_every < 1:
             raise ValueError(
@@ -2052,6 +2202,7 @@ class BSPEngine:
         dev = self.device
         state = {k: torch.as_tensor(v, device=dev) for k, v in state.items()}
         q = num_queries(state)
+        ctx = chaos_ctx or {}
 
         def mask(x):
             return torch.as_tensor(x, device=dev).to(torch.bool).reshape(q)
@@ -2064,40 +2215,67 @@ class BSPEngine:
         step = int(start_step)
         chunks = refilled = monitors_fired = 0
         while True:
-            state, step, fin, steps_q = self._chunk_call(
-                program, int(checkpoint_every), state, step, fin, steps_q)
+            chaos.visit("superstep.chunk", step=step, chunk=chunks, **ctx)
+            if chaos.visit("state.corrupt", step=step, **ctx):
+                state = _flip_state_bit(state)
+            poison = chaos.visit("exchange.payload", step=step, **ctx)
+            new_state, new_step, new_fin, new_steps_q, bad = \
+                self._chunk_call(program, int(checkpoint_every), state,
+                                 step, fin, steps_q, poison)
+            # the boundary's one read: votes, counters, mismatch count
+            parts = [new_fin.to(torch.int64), new_steps_q.to(torch.int64)]
+            if bad is not None:
+                parts.append(bad.reshape(1).to(torch.int64))
+            host = torch.cat(parts).cpu().numpy()
+            n_bad = int(host[2 * q]) if bad is not None else 0
+            if n_bad:
+                # the corrupted window never replaces the live carry; the
+                # caller's RestartPolicy replays it from the last
+                # checkpoint (ExchangeCorruption is a WorkerFailure)
+                raise ExchangeCorruption(
+                    f"exchange checksum mismatch in window at superstep "
+                    f"{step} ({n_bad} tag(s)): a payload block was "
+                    f"corrupted in flight; replay the window from the last "
+                    f"checkpoint")
+            state, step, fin, steps_q = (new_state, new_step, new_fin,
+                                         new_steps_q)
             chunks += 1
             stop = False
-            snap = dict(state=state, step=step, fin=fin.cpu().numpy(),
-                        steps_q=steps_q.cpu().numpy())
+            snap = dict(state=state, step=step,
+                        fin=host[:q].astype(bool),
+                        steps_q=host[q:2 * q].astype(np.int32))
             if monitor is not None:
                 rec = monitor.observe(dict(state=state, step=step,
                                            finished=snap["fin"],
                                            steps_q=snap["steps_q"]))
                 monitors_fired += int(rec["violations"] > 0)
                 snap["monitor"] = rec
+            fin_h = snap["fin"].copy()    # fin as the hook leaves it
             if on_chunk is not None:
                 out = on_chunk(snap)
                 if isinstance(out, dict):
                     if out.get("kill") is not None:
                         fin = fin | mask(out["kill"])
+                        fin_h |= np.asarray(out["kill"], bool).reshape(q)
                     if out.get("refill") is not None:
                         new_rows, admit = out["refill"]
                         admit_np = np.asarray(admit, dtype=bool).reshape(q)
                         state, fin, steps_q = _slot_swap(
                             state, new_rows, mask(admit_np), fin, steps_q)
+                        fin_h &= ~admit_np
                         refilled += int(admit_np.sum())
                         if monitor is not None:
                             monitor.rebase(admit_np)
                     stop = bool(out.get("stop"))
                 elif out is not None:        # a bare kill mask
                     fin = fin | mask(out)
-            if stop or bool(fin.all()) or step >= program.max_steps:
+                    fin_h |= np.asarray(out, bool).reshape(q)
+            if stop or fin_h.all() or step >= program.max_steps:
                 break
             if max_chunks is not None and chunks >= max_chunks:
                 break
         info = dict(chunks=chunks, final_step=step,
-                    finished=fin.cpu().numpy(), refilled=refilled,
+                    finished=fin_h, refilled=refilled,
                     monitors_fired=monitors_fired)
         return state, steps_q, info
 
@@ -2137,7 +2315,11 @@ class DistributedBSPEngine(BSPEngine):
     ``execute(chunk=k)`` runs the same windows as on one device: every
     rank runs the boundary protocol on the global state, which a window
     slices on entry and all-gathers at the boundary, and the votes are the
-    global AND.
+    global AND.  Each window visits ``worker.chunk`` (with the ``shards``
+    of the group) and runs the checked exchange (:meth:`_exchange` with
+    a guard, or the sharded hybrid's tagged compact exchange); the
+    mismatch count is summed over the group, so
+    every rank raises ``ExchangeCorruption`` at the same boundary.
 
     Over a ``DynamicGraph`` (each rank holds its own, built from the same
     graph and fed the same batches) the reference and fused backends read
@@ -2146,9 +2328,8 @@ class DistributedBSPEngine(BSPEngine):
     compaction before its next run, and ``should_resplit_hybrid`` is False
     (each compaction re-plans).
 
-    Not ported yet: ``tiered=`` raises (single-device only, as in the JAX
-    package), and the windows run the plain exchange, not the checked one
-    (item 13).
+    ``tiered=`` raises: tiering is single-device only, as in the JAX
+    package.
     """
 
     def __init__(self, pg, group=None, *,
@@ -2211,10 +2392,20 @@ class DistributedBSPEngine(BSPEngine):
     def _global(self, state: State) -> State:
         return {k: self.group.all_gather(v, dim=1) for k, v in state.items()}
 
-    def _exchange(self, outbox: torch.Tensor) -> torch.Tensor:
+    def _exchange(self, outbox: torch.Tensor,
+                  guard: Optional[_ExchangeGuard] = None) -> torch.Tensor:
         """Outboxes ``[Q, pl, P, o_max]`` -> inboxes of the same shape (the
         JAX ``_dist_exchange``): the peer axis regroups as (rank, local
-        partition), moves to the front for ``all_to_all``, and comes back."""
+        partition), moves to the front for ``all_to_all``, and comes back.
+
+        With ``guard`` it is checked (the JAX ``_checked_dist_exchange``):
+        a tag per (rank, source partition, destination partition) block
+        ships over its own ``all_to_all`` and the receiver re-derives it,
+        so a wire flip lands in ``guard`` (see :func:`_checked_exchange`).
+        Under the poison every rank corrupts its own first element, as
+        every shard does in the JAX package, so the group counts the world
+        size."""
+        chaos.visit("exchange", world=self.group.world_size)
         q, pl, peers, o = outbox.shape
         world = self.group.world_size
         if peers != world * pl:
@@ -2222,9 +2413,38 @@ class DistributedBSPEngine(BSPEngine):
                 f"outbox shape {tuple(outbox.shape)} is inconsistent with the "
                 f"group: the peer axis ({peers}) must equal the world size "
                 f"({world}) x local partitions ({pl})")
-        send = outbox.reshape(q, pl, world, pl, o).permute(2, 0, 1, 3, 4)
-        recv = self.group.all_to_all(send)   # [world, Q, pl_src, pl_dst, o]
+        ob = outbox.reshape(q, pl, world, pl, o)
+        if guard is not None:
+            send_tags = _payload_tag(ob, (0, 4))    # [pl_src, world, pl_dst]
+            ob = _flip_wire(ob) if guard.poison else ob
+        recv = self.group.all_to_all(ob.permute(2, 0, 1, 3, 4))
+        # recv: [world, Q, pl_src, pl_dst, o]
+        if guard is not None:
+            want = self.group.all_to_all(send_tags.permute(1, 0, 2))
+            got = _payload_tag(recv, (1, 4))   # [world_src, pl_src, pl_dst]
+            guard.add((got != want).sum())
         return recv.permute(1, 3, 0, 2, 4).reshape(q, pl, peers, o)
+
+    def _guarded_exchange(self, guard: _ExchangeGuard) -> Callable:
+        return functools.partial(self._exchange, guard=guard)
+
+    def _tombstone_flip(self, step: int) -> bool:
+        """False: the ``tombstone.flip`` site is the single-device
+        dispatch's, as in the JAX package."""
+        return False
+
+    def _chunk_call(self, program: VertexProgram, chunk: int, state: State,
+                    step: int, fin: torch.Tensor, steps_q: torch.Tensor,
+                    poison: bool = False):
+        """:meth:`BSPEngine._chunk_call` with the ``worker.chunk`` site and
+        the mismatch count summed over the group (each rank only sees the
+        payload it received)."""
+        self._validate_state(state)
+        chaos.visit("worker.chunk", step=int(step),
+                    shards=tuple(range(self.group.world_size)))
+        *out, bad = super()._chunk_call(program, chunk, state, step, fin,
+                                        steps_q, poison)
+        return (*out, None if bad is None else self.group.all_sum(bad))
 
     def _all_finished(self, fin: torch.Tensor) -> torch.Tensor:
         """Per-shard votes ``[Q]`` -> the global AND (JAX
@@ -2335,7 +2555,14 @@ class DistributedBSPEngine(BSPEngine):
             has_remote=shd.has_remote)
         return cfg, arrs
 
-    def _hybrid_step_fn(self, program: VertexProgram) -> Callable:
-        cfg, arrs = self.hybrid_for(program)
-        return functools.partial(_superstep_hybrid_dist, program, cfg, arrs,
-                                 self.group)
+    def _step_fn(self, program: VertexProgram,
+                 dopt_cfg: Optional[_DoptCfg] = None,
+                 guard: Optional[_ExchangeGuard] = None,
+                 flip_tomb: bool = False) -> Callable:
+        """:meth:`BSPEngine._step_fn`; the sharded hybrid checks its wire
+        (the compact exchange) under ``guard``."""
+        if self._uses_hybrid(program):     # never tiered (see __init__)
+            cfg, arrs = self.hybrid_for(program)
+            return functools.partial(_superstep_hybrid_dist, program, cfg,
+                                     arrs, self.group, guard=guard)
+        return super()._step_fn(program, dopt_cfg, guard, flip_tomb)

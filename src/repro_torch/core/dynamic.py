@@ -30,8 +30,14 @@ The payload (``tomb``, ``d_src``, ``d_dst_ext``, ``d_weight``,
 ``inbox_dst``) lives as tensors on ``device`` (``cuda`` unless named); the
 host mirrors equal the JAX package's arrays after the same stream.  The
 engine (``core/bsp.py``) reads the payload at every run, so a mutation
-batch rebuilds nothing there.  Not ported yet: ``snapshot`` and the chaos
-sites (ROADMAP Queue 1 item 13).
+batch rebuilds nothing there.
+
+Recovery: ``snapshot()`` gives the payload and the replay cursor for
+``CheckpointManager.save_tree``; a restart rebuilds the graph from base
+and ``replay``s the acknowledged batches, which gives the same payload bit
+for bit.  ``apply_mutations`` visits the chaos sites ``mutation.apply``
+(on entry) and ``mutation.scatter`` (after the host planning, before the
+device writes).
 """
 from __future__ import annotations
 
@@ -47,6 +53,7 @@ from repro_torch.core.partition import (EdgeArrays, _build_edge_arrays,
                                         _round_up, build_block_metadata,
                                         partition)
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.runtime import chaos
 
 
 class CapacityError(RuntimeError):
@@ -265,6 +272,7 @@ class DynamicGraph:
         ``last_compaction_ms``), ``dirty`` (global sources of inserted
         edges: the warm-start frontier seed) and ``monotone``.
         """
+        chaos.visit("mutation.apply", index=self.num_batches)
         batch.validate(self.pg.num_vertices)
         if len(batch) > self.mutation_capacity:
             raise CapacityError(
@@ -315,6 +323,11 @@ class DynamicGraph:
                             p * self.delta_slots + pos, self.pg.v_max)
                 self.pg.out_deg[asg.part_of[u], asg.local_id[u]] -= 1.0
 
+        # mid-batch fault site: host planning done, device writes not yet
+        # issued.  A fault here leaves the batch unacknowledged and the
+        # host mirrors partly advanced, so recovery rebuilds from base and
+        # replays the acknowledged log.
+        chaos.visit("mutation.scatter", index=self.num_batches)
         for ds, reverse in self._dirs():
             self._apply_device(self._payload[reverse], upds[reverse])
         if self.device.type == "cuda":
@@ -504,6 +517,30 @@ class DynamicGraph:
     def mark(self) -> int:
         """Current batch clock, to pass back into :meth:`dirty_since`."""
         return self.num_batches
+
+    # ------------------------------------------------------------------
+    # checkpointing
+    # ------------------------------------------------------------------
+
+    def snapshot(self) -> Tuple[dict, dict]:
+        """``(tree, extra)`` for ``CheckpointManager.save_tree``.
+
+        The tree holds the device payload per direction (``fwd``/``rev``:
+        the tensors of :meth:`payload`; the checkpoint manager copies them
+        to the host); the extra carries the replay cursor (``cursor``, the
+        batches the snapshot has absorbed), ``version`` and ``log_floor``.
+        A restore does not write the payload back: the host mirrors (slot
+        maps, free lists, the ledger) are not in the snapshot, so recovery
+        rebuilds the graph from base and replays the acknowledged log up
+        to the cursor.  Construction is deterministic, so the replayed
+        payload equals the snapshot's bit for bit, which the serving
+        launcher checks (no mutation lost).
+        """
+        tree = {("rev" if reverse else "fwd"): dict(self._payload[reverse])
+                for reverse in self._payload}
+        extra = dict(cursor=self.num_batches, version=self.version,
+                     log_floor=self.log_floor)
+        return tree, extra
 
     def replay(self, batches: List[MutationBatch]) -> None:
         """Apply acknowledged batches in log order onto a freshly built

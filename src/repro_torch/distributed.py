@@ -78,6 +78,14 @@ class ShardGroup:
         dist.all_reduce(not_done, op=dist.ReduceOp.SUM, group=self.group)
         return not_done == 0
 
+    def all_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the ranks (every rank gets the sum)."""
+        if self.world_size == 1:
+            return x
+        x = x.clone()
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self.group)
+        return x
+
     def all_gather(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
         """Concatenate every rank's ``x`` along ``dim`` in rank order (the
         shards' partition slices back into the global state)."""

@@ -44,9 +44,17 @@ fresh, warm-started when the window was insert-only
 waves with a mutation batch between them (``serve_continuous(
 mutation_stream=)``), ``--depth-buckets`` composing as the scheduler.
 
-Port of ``repro.launch.graph_serve`` without the fault drills:
-``--chaos`` and ``--corrupt`` raise ``NotImplementedError`` naming ROADMAP
-Queue 1 item 13.
+``--chaos`` runs the fault drill (:func:`run_chaos_drill`): a clean
+mutating session, then the same session with injected crashes, recovered
+by :func:`serve_fault_tolerant` (checkpoints, the replayed mutation log,
+the degradation ladder, the quarantine); it prints ``CHAOS OK``.
+``--corrupt`` runs the silent-corruption drill (:func:`run_corrupt_drill`)
+on the reference, fused and hybrid backends and prints ``CORRUPT OK``.
+On a card the ladder's fallback is the other kernel backend on the same
+device (hybrid for fused, fused for hybrid); on the CPU it is the
+reference backend, as in the JAX package.
+
+Port of ``repro.launch.graph_serve``.
 """
 from __future__ import annotations
 
@@ -58,8 +66,6 @@ import time
 from typing import Optional
 
 import numpy as np
-
-from repro_torch.core.bsp import _not_in_slice
 
 
 def _percentile(vals, p: float) -> float:
@@ -101,11 +107,43 @@ class ServeConfig:
                              f"{instead}")
 
         if self.chaos:
-            raise _not_in_slice("graph_serve --chaos (the fault drill)",
-                                "13")
+            for name, on in (("--mutate", self.mutate),
+                             ("--continuous", self.continuous),
+                             ("--depth-buckets", bool(self.depth_buckets)),
+                             ("--deadline-ms", self.deadline_ms is not None),
+                             ("--queue-capacity",
+                              self.queue_capacity is not None)):
+                if on:
+                    bad(f"--chaos + {name}",
+                        "the chaos drill is a self-contained mutating "
+                        "session with its own injection schedule",
+                        "Run --chaos alone; fault tolerance for continuous "
+                        "sessions is serve_with_restarts (see "
+                        "tests/test_continuous.py).")
         if self.corrupt:
-            raise _not_in_slice("graph_serve --corrupt (the corruption "
-                                "drill)", "13")
+            if self.chaos:
+                bad("--chaos + --corrupt",
+                    "the drills have disjoint injection schedules (worker "
+                    "faults vs silent bit-flips)",
+                    "Run them as two invocations — CI does.")
+            for name, on in (("--mutate", self.mutate),
+                             ("--continuous", self.continuous),
+                             ("--depth-buckets", bool(self.depth_buckets)),
+                             ("--deadline-ms", self.deadline_ms is not None),
+                             ("--queue-capacity",
+                              self.queue_capacity is not None)):
+                if on:
+                    bad(f"--corrupt + {name}",
+                        "the corruption drill runs its own sessions across "
+                        "all three backends with a fixed injection schedule",
+                        "Run --corrupt alone; certification in production "
+                        "sessions is ServeSession(certifier=..., "
+                        "monitor=...) — see docs/robustness.md.")
+            if self.alg not in ("bfs", "sssp"):
+                raise ValueError(
+                    f"--corrupt drills the continuous-session certification "
+                    f"path, which serves step-translatable programs only "
+                    f"(bfs, sssp), not {self.alg!r}.")
         if self.continuous and self.alg not in ("bfs", "sssp"):
             raise ValueError(
                 f"--continuous serves step-translatable programs only "
@@ -143,6 +181,10 @@ class ServeConfig:
 
     @property
     def mode(self) -> str:
+        if self.chaos:
+            return "chaos"
+        if self.corrupt:
+            return "corrupt"
         if self.continuous:
             return "continuous"
         if self.mutate:
@@ -271,15 +313,10 @@ def build_engine(args, dynamic: bool = False):
     g = gen(args.scale, args.edge_factor, seed=args.seed)
     if args.alg == "sssp":
         g = g.with_uniform_weights(seed=args.seed + 1)
-    kw = {}
-    if args.backend == "fused":
-        kw = dict(fused=True, block_e=args.block_e)
-    elif args.backend == "hybrid":
-        kw = dict(backend="hybrid")
+    kw = dict(backend=args.backend, block_e=args.block_e)
     if args.hbm_budget is not None:
         kw["tiered"] = args.hbm_budget
         kw["win_blocks"] = args.win_blocks
-        kw.setdefault("block_e", args.block_e)
     if dynamic:
         dg = DynamicGraph(g, args.parts, args.strategy,
                           include_reverse=(args.alg == "bc"),
@@ -487,6 +524,608 @@ def serve_mutating(engine, dg, alg: str, *, batches, batch: int,
         staleness=dg.staleness())
 
 
+# ---------------------------------------------------------------------------
+# fault-tolerant serving and the drills
+# ---------------------------------------------------------------------------
+
+def _require(ok: bool, what: str) -> None:
+    """A drill's check: raises (not an ``assert``, which ``-O`` drops)."""
+    if not ok:
+        raise AssertionError(what)
+
+
+
+
+def _fallback_backend(backend: str, device) -> Optional[str]:
+    """The degradation ladder's fallback rung for a ``backend`` primary, or
+    None when the primary is the reference backend itself.  On a card it
+    is the other kernel backend on the same device (hybrid for fused,
+    fused for hybrid: a failed rung is never served by plain PyTorch on
+    the card); elsewhere the reference backend, as in the JAX package."""
+    import torch
+
+    if backend == "reference":
+        return None
+    if torch.device(device).type == "cuda":
+        return "hybrid" if backend == "fused" else "fused"
+    return "reference"
+
+
+def chunked_refresh(engine, alg: str, sources, *, chunk: int,
+                    on_chunk=None, round_i: int = 0):
+    """Refresh a standing query set through the chunked run mode (the
+    checkpointable one).  Returns ``([Q, n] results, steps [Q], info)``.
+    The ``query.poison`` site poisons query 0's initial state (NaN)."""
+    import torch
+
+    from repro_torch.algorithms.bfs import (BFS_PROGRAM, gather_batch,
+                                            multi_source_state)
+    from repro_torch.algorithms.sssp import SSSP_PROGRAM
+    from repro_torch.runtime import chaos
+
+    pg = engine.pg
+    d0 = multi_source_state(pg, sources, device=engine.device)
+    if alg == "bfs":
+        program, key = BFS_PROGRAM, "level"
+        state = {"level": d0}
+    elif alg == "sssp":
+        program, key = SSSP_PROGRAM, "dist"
+        state = {"dist": d0, "active": torch.isfinite(d0)}
+    else:
+        raise ValueError(f"chunked refresh supports bfs/sssp, not {alg!r}")
+    if chaos.visit("query.poison", round=round_i):
+        # data-level fault drill: corrupt query 0's initial state; the
+        # quarantine scan must catch it at the first chunk boundary
+        state[key] = state[key].clone()
+        state[key][0] = float("nan")
+    state, steps_q, info = engine.execute(
+        program, state, chunk=chunk, on_chunk=on_chunk,
+        chaos_ctx={"round": round_i})
+    return gather_batch(pg, state[key]), steps_q.cpu().numpy(), info
+
+
+def serve_fault_tolerant(args, manager, *, midrun_manager=None,
+                         hard_limit_s=None, g=None):
+    """Mutating serving session that survives injected (or real) faults.
+
+    Per round: apply one mutation batch (acknowledged only after its
+    device writes complete), serve a fresh query batch through the
+    degradation ladder (primary backend -> retry -> :func:`_fallback_backend`),
+    refresh the standing set through the chunked run mode with the
+    quarantine scan and the superstep watchdog at every chunk boundary,
+    then snapshot ``{standing results, dynamic payload}`` and ``{round,
+    acked cursor}`` through ``save_tree``.
+
+    Recovery (a retryable fault anywhere in the round): backoff, rebuild
+    the graph from base, **replay the acknowledged mutation log**, restore
+    the latest round snapshot, and check that the replayed device payload
+    equals the snapshot's bit for bit: a crash between compactions loses
+    no acknowledged mutation.  The watchdog's ``hard_limit_s`` triggers
+    checkpoint-now: the chunk carry in flight is saved to
+    ``midrun_manager`` without waiting for the round boundary.  ``g`` is
+    the base graph when the caller has it (else made from ``args``).
+
+    Returns ``(report, standing results [Q, n], quarantined query ids)``.
+    The report adds to the JAX package's keys the fallback backend, each
+    recovery's seconds (``recovery_s``), the recoveries whose replayed
+    payload was checked against the snapshot (``replay_checked``), and the
+    round snapshots' bytes on disk and save times (``snapshot_bytes``,
+    ``snapshot_ms``).
+    """
+    import torch
+
+    from repro_torch.checkpoint.manager import _flatten
+    from repro_torch.core import graph as G
+    from repro_torch.core.bsp import BSPEngine
+    from repro_torch.core.dynamic import DynamicGraph
+    from repro_torch.core.graph import apply_mutation_batches
+    from repro_torch.data.graphs import edge_stream
+    from repro_torch.runtime import (RETRYABLE_EXCEPTIONS, DegradationLadder,
+                                     QuarantinePolicy, RestartPolicy,
+                                     StepWatchdog, chaos)
+
+    if g is None:
+        gen = G.rmat if args.graph == "rmat" else G.uniform
+        g = gen(args.scale, args.edge_factor, seed=args.seed)
+        if args.alg == "sssp":
+            g = g.with_uniform_weights(seed=args.seed + 1)
+    kw = dict(backend=args.backend, block_e=args.block_e)
+    fb_backend = _fallback_backend(args.backend, args.device)
+
+    rounds = args.mutation_rounds
+    stream = edge_stream(g, rounds, args.mutation_batch, churn=args.churn,
+                         seed=args.seed)
+    rng = np.random.default_rng(args.seed)
+    standing = rng.integers(0, g.num_vertices, size=(args.standing, 1))
+
+    def build_session():
+        dg = DynamicGraph(g, args.parts, args.strategy,
+                          mutation_capacity=args.mutation_batch,
+                          device=args.device)
+        primary = BSPEngine(dg, device=args.device, **kw)
+        fallback = (BSPEngine(dg, device=args.device,
+                              backend=fb_backend, block_e=args.block_e)
+                    if fb_backend is not None else primary)
+        return dg, primary, fallback
+
+    policy = RestartPolicy(max_failures=args.max_restarts,
+                           backoff_s=args.restart_backoff_s)
+    quar = QuarantinePolicy(superstep_budget=args.superstep_budget)
+    ladder = DegradationLadder(retries=1)
+    wd = StepWatchdog(warmup_steps=2, hard_limit_s=hard_limit_s)
+    midrun_snapshots = 0
+    n = g.num_vertices
+
+    def cache_entries():
+        return engine.cache_entries() + (
+            fb_engine.cache_entries() if fb_engine is not engine else 0)
+
+    dg, engine, fb_engine = build_session()
+    # warm both rungs of the ladder, so a downgrade builds nothing
+    warm = rng.integers(0, n, size=args.batch)
+    run_query_batch(engine, args.alg, warm)
+    if fb_engine is not engine:
+        run_query_batch(fb_engine, args.alg, warm)
+
+    acked = 0                 # durable cursor: stream[:acked] acknowledged
+    round_i = 0
+    prev = None
+    snapshots = replay_checked = 0
+    snapshot_bytes, snapshot_ms, recovery_s = [], [], []
+    # Rebuilds after warm-up, per engine life: eager PyTorch compiles
+    # nothing, so this counts what the engines build (cache_entries); a
+    # restart's new engines are warmed, and their baseline is taken after
+    # their first round.
+    retraces = 0
+    entries0 = None
+
+    def recover():
+        nonlocal dg, engine, fb_engine, round_i, prev, retraces, entries0
+        nonlocal replay_checked
+        t0 = time.perf_counter()
+        if entries0 is not None:
+            retraces += cache_entries() - entries0
+            entries0 = None
+        del dg, engine, fb_engine
+        dg, engine, fb_engine = build_session()
+        if acked:
+            dg.replay(stream[:acked])   # the durable log is the truth
+        latest = manager.latest_step()
+        if latest is None:
+            round_i, prev = 0, None
+        else:
+            dyn_tree, dyn_extra = dg.snapshot()
+            like = {"standing": np.zeros((args.standing, n), np.float32),
+                    "dyn": dyn_tree}
+            _, tree = manager.restore_tree(like, latest)
+            extra = manager.manifest_extra(latest)
+            round_i = int(extra["round"])
+            prev = tree["standing"]
+            if (int(extra["cursor"]) == dyn_extra["cursor"]
+                    and int(extra["version"]) == dyn_extra["version"]):
+                # no mutation lost: rebuilding from base and replaying the
+                # acknowledged log gives the snapshot's payload bit for bit
+                live = _flatten(dyn_tree)
+                for name, a in _flatten(tree["dyn"]).items():
+                    if not torch.equal(a, live[name]):
+                        raise RuntimeError(
+                            f"replayed payload leaf {name!r} differs from "
+                            f"the snapshot — a mutation was lost or "
+                            f"double-applied")
+                replay_checked += 1
+        recovery_s.append(time.perf_counter() - t0)
+
+    while round_i < rounds:
+        try:
+            chaos.visit("serve.round", round=round_i)
+            if round_i >= acked:
+                dg.apply_mutations(stream[round_i])
+                acked = round_i + 1
+            # fresh queries ride the degradation ladder
+            srcs = np.random.default_rng(
+                args.seed + 100 + round_i).integers(0, n, size=args.batch)
+            r = round_i
+
+            def primary():
+                chaos.visit("kernel.dispatch", round=r,
+                            backend=args.backend)
+                return run_query_batch(engine, args.alg, srcs)
+
+            ladder.run(primary,
+                       lambda: run_query_batch(fb_engine, args.alg, srcs),
+                       label=f"round{r}:{args.alg}")
+
+            # standing refresh through the checkpointable chunked mode
+            quar.begin(args.standing)
+            t_chunk = [time.perf_counter()]
+
+            def on_chunk(snap):
+                nonlocal midrun_snapshots
+                now = time.perf_counter()
+                flagged = wd.report(snap["step"], now - t_chunk[0])
+                t_chunk[0] = now
+                if flagged and midrun_manager is not None:
+                    # checkpoint-now: persist the chunk carry in flight
+                    midrun_manager.save_tree(
+                        snap["step"],
+                        {"state": snap["state"], "fin": snap["fin"],
+                         "steps_q": snap["steps_q"]},
+                        extra={"round": r, "step": snap["step"],
+                               "mid_run": True}, blocking=True)
+                    midrun_snapshots += 1
+                return quar.scan(snap)
+
+            prev, steps_q, info = chunked_refresh(
+                engine, args.alg, standing, chunk=args.checkpoint_every,
+                on_chunk=on_chunk, round_i=round_i)
+
+            dyn_tree, dyn_extra = dg.snapshot()
+            t0 = time.perf_counter()
+            path = manager.save_tree(
+                round_i + 1,
+                {"standing": np.asarray(prev), "dyn": dyn_tree},
+                extra=dict(round=round_i + 1, acked=acked, **dyn_extra),
+                blocking=True)
+            snapshot_ms.append((time.perf_counter() - t0) * 1e3)
+            snapshot_bytes.append(path.stat().st_size)
+            snapshots += 1
+            round_i += 1
+            if entries0 is None:
+                entries0 = cache_entries()
+        except RETRYABLE_EXCEPTIONS as e:
+            # only the restart whitelist (worker faults, the runtime errors
+            # of RETRYABLE_EXCEPTIONS, exchange corruption) burns the retry
+            # budget; anything else propagates, as RestartPolicy.handle's
+            # own contract says, and so does a failed CUDA kernel
+            sleep_s = policy.handle(e, context=dict(round=round_i))
+            if sleep_s:
+                time.sleep(sleep_s)
+            recover()
+
+    # ledger-vs-oracle audit: the served graph equals a from-scratch apply
+    # of every acknowledged batch
+    mut = dg.mutated_csr()
+    oracle = apply_mutation_batches(g, stream[:acked])
+    if not (np.array_equal(mut.row_ptr, oracle.row_ptr)
+            and np.array_equal(mut.col, oracle.col)):
+        raise RuntimeError("mutated CSR diverged from the mutation-log "
+                           "oracle — acknowledged mutations were lost")
+
+    if entries0 is not None:
+        retraces += cache_entries() - entries0
+    report = dict(
+        rounds=rounds, acked=acked, snapshots=snapshots,
+        midrun_snapshots=midrun_snapshots,
+        failures=policy.failures, restarts=policy.restarts,
+        downgrades=ladder.downgrades, quarantined=quar.quarantined,
+        stragglers=len(wd.stragglers), retraces=retraces,
+        backend=args.backend, fallback=fb_backend, algorithm=args.alg,
+        recovery_s=recovery_s, replay_checked=replay_checked,
+        snapshot_bytes=snapshot_bytes, snapshot_ms=snapshot_ms)
+    quarantined_ids = {rec["query"] for rec in quar.quarantined}
+    return report, np.asarray(prev), quarantined_ids
+
+
+def run_chaos_drill(args, g=None) -> dict:
+    """``--chaos``: a clean session against a fault-injected one, with
+    recovery and parity checks.
+
+    Injected faults: a crash between mutation batches (``serve.round``), a
+    shard/worker death mid-refresh (``superstep.chunk``), a crash
+    mid-mutation-batch before the device writes (``mutation.scatter``), a
+    kernel-dispatch fault that exhausts its retry (``kernel.dispatch`` x2
+    -> the fallback rung), and a poisoned query (``query.poison`` -> NaN
+    state, quarantined every round).  Checks: the session recovers within
+    the restart budget, the mutation log replays with no lost mutation,
+    the standing results not quarantined equal the clean run's bit for
+    bit, rebuilds stay within the restarts, and the clean path
+    quarantines nothing.  Raises on a failed check; returns ``{"clean",
+    "faulty"}`` reports, each with its wall seconds.
+    """
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.runtime import FaultInjector, chaos
+
+    rounds = args.mutation_rounds
+    with tempfile.TemporaryDirectory() as td:
+        t0 = time.perf_counter()
+        clean_rep, clean_res, clean_quar = serve_fault_tolerant(
+            args, CheckpointManager(td + "/clean", keep=3), g=g)
+        clean_rep["wall_s"] = time.perf_counter() - t0
+        print(f"clean session: rounds={clean_rep['rounds']} "
+              f"snapshots={clean_rep['snapshots']} "
+              f"retraces={clean_rep['retraces']} "
+              f"quarantined={len(clean_rep['quarantined'])} "
+              f"({clean_rep['wall_s']:.1f} s)", flush=True)
+        _require(clean_rep["failures"] == 0 and not clean_quar,
+                 f"the clean session failed or quarantined: "
+                 f"{clean_rep['failures']} failures, {sorted(clean_quar)}")
+        _require(clean_rep["retraces"] == 0,
+                 f"clean path rebuilt: {clean_rep['retraces']}")
+
+        inj = FaultInjector(sites={
+            "serve.round": [{"round": min(1, rounds - 1)}],
+            "superstep.chunk": [{"round": min(1, rounds - 1), "chunk": 1}],
+            "mutation.scatter": [{"index": min(2, rounds - 1)}],
+            "kernel.dispatch": [{"round": min(2, rounds - 1)},
+                                {"round": min(2, rounds - 1)}],
+            "query.poison": [{"round": r, "flag": True}
+                             for r in range(rounds)],
+        })
+        with chaos.active(inj):
+            t0 = time.perf_counter()
+            faulty_rep, faulty_res, faulty_quar = serve_fault_tolerant(
+                args, CheckpointManager(td + "/faulty", keep=3),
+                midrun_manager=CheckpointManager(td + "/midrun", keep=3),
+                hard_limit_s=0.0, g=g)
+            faulty_rep["wall_s"] = time.perf_counter() - t0
+
+    print(f"faulty session: failures={faulty_rep['failures']} "
+          f"restarts={[r.get('round') for r in faulty_rep['restarts']]} "
+          f"downgrades={len(faulty_rep['downgrades'])} "
+          f"(fallback {faulty_rep['fallback']}) "
+          f"quarantined={sorted(faulty_quar)} "
+          f"midrun_snapshots={faulty_rep['midrun_snapshots']} "
+          f"retraces={faulty_rep['retraces']} "
+          f"({faulty_rep['wall_s']:.1f} s; recoveries "
+          f"{[round(t, 2) for t in faulty_rep['recovery_s']]} s)",
+          flush=True)
+
+    _require(faulty_rep["failures"] >= 3,
+             "expected >=3 injected worker faults to fire")
+    _require(faulty_rep["acked"] == rounds, "mutation log not fully replayed")
+    _require(len(faulty_rep["downgrades"]) == 1,
+             "kernel fault did not fall back to the fallback backend")
+    _require(faulty_quar == {0},
+             f"poisoned query 0 not quarantined: {faulty_quar}")
+    _require(any(rec["reason"] == "nonfinite"
+                 for rec in faulty_rep["quarantined"]),
+             "the poisoned query was not quarantined as nonfinite")
+    _require(faulty_rep["midrun_snapshots"] > 0,
+             "watchdog checkpoint-now never fired")
+    _require(faulty_rep["retraces"] <= faulty_rep["failures"],
+             f"retraces ({faulty_rep['retraces']}) exceed restarts "
+             f"({faulty_rep['failures']})")
+
+    ok = np.ones(len(clean_res), bool)
+    for q in faulty_quar | clean_quar:
+        ok[q] = False
+    _require(np.array_equal(clean_res[ok], faulty_res[ok]),
+             "recovered results diverge from the uninjected run")
+    print(f"chaos parity: {int(ok.sum())}/{len(ok)} standing queries "
+          f"bitwise identical to the uninjected run "
+          f"(quarantined: {sorted(faulty_quar)})", flush=True)
+    return dict(clean=clean_rep, faulty=faulty_rep,
+                parity=int(ok.sum()), quarantined=sorted(faulty_quar))
+
+
+def run_corrupt_drill(args, engines=None, dynamic=None) -> dict:
+    """``--corrupt``: the silent-corruption drill.
+
+    Worker faults raise; silent faults don't.  This drill flips bits at
+    every data-corruption site and checks that the integrity layer turns
+    each into a *detection* (checksum mismatch, monitor fire, or certifier
+    rejection with a recompute) or a *mask* (the harvested result is the
+    clean run's bit for bit anyway).  Per backend (reference, fused,
+    hybrid):
+
+    - clean pass: a certified ``ServeSession`` and a certified chunked
+      refresh give **zero** false positives;
+    - ``state.corrupt``: a bit-flipped state at a window boundary is caught
+      by the invariant monitor and/or the harvest certifier, and the
+      recompute-once policy restores the right answer;
+    - ``exchange.payload``: a corrupted wire element mismatches its
+      inbox-side tag -> ``ExchangeCorruption`` -> a clean replay of the
+      window gives the uncorrupted result bit for bit (the single-device
+      hybrid has no wire exchange, so the site is inert there and the
+      result must stay clean).
+
+    Backend-independent sites, drilled once: ``checkpoint.torn`` (a torn
+    tensor fails its manifest CRC at restore; the previous snapshot still
+    loads) and ``tombstone.flip`` (a resurrected deleted edge on the
+    dynamic path gives a fixpoint the certifier rejects against the true
+    mutated graph).
+
+    ``engines`` maps each backend to a prebuilt ``(graph, engine)`` and
+    ``dynamic`` is a prebuilt ``(graph, DynamicGraph, engine)`` for BFS
+    on a backend that visits ``tombstone.flip`` (reference or fused); each
+    is built from ``args`` when None (a reference engine, as in JAX).
+    Raises on a failed check; returns ``{"detections", "masked",
+    "walls"}`` (seconds per part).
+    """
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.manager import CheckpointCorruption
+    from repro_torch.runtime import (ExchangeCorruption, FaultInjector,
+                                     QuarantinePolicy, ResultCertifier,
+                                     ServeSession, chaos, monitor_for)
+
+    rng = np.random.default_rng(args.seed)
+    detections = 0
+    masked = 0
+    walls = {}
+
+    def flag(site, **ctx):
+        return FaultInjector(sites={site: [dict(ctx, flag=True)]})
+
+    for backend in ("reference", "fused", "hybrid"):
+        t_backend = time.perf_counter()
+        if engines is None:
+            a = argparse.Namespace(**vars(args))
+            a.backend = backend
+            g, _, engine = build_engine(a)
+        else:
+            g, engine = engines[backend]
+        sources = rng.integers(0, g.num_vertices, size=args.num_queries)
+        certifier = ResultCertifier(args.alg, g)
+
+        def run_session():
+            # all three detection layers armed: in-loop monitors, the
+            # non-finite/budget quarantine, and harvest certification
+            s = ServeSession(engine, args.alg, slots=args.batch,
+                             chunk=args.checkpoint_every,
+                             quarantine=QuarantinePolicy(
+                                 superstep_budget=args.superstep_budget),
+                             certifier=ResultCertifier(args.alg, g),
+                             monitor=monitor_for(args.alg,
+                                                 chunk=args.checkpoint_every))
+            s.submit(sources)
+            s.drain()
+            rep = s.report()
+            res = {r["query"]: r["result"] for r in s.poll()}
+            return res, rep, set(s.quarantined_qids)
+
+        # -- clean pass: zero false positives -----------------------------
+        clean, rep, cq = run_session()
+        _require(rep["recomputed"] == 0 and not rep["certify_failed"],
+                 f"[{backend}] clean session raised certifier false "
+                 f"positives: {rep['certify_failed']}")
+        _require(rep["monitors_fired"] == 0 and not cq,
+                 f"[{backend}] clean session fired {rep['monitors_fired']} "
+                 f"invariant monitors, quarantined {sorted(cq)}")
+        std = sources[:args.batch]
+        clean_chunk, _, _ = chunked_refresh(
+            engine, args.alg, std, chunk=args.checkpoint_every)
+        verdicts = certifier.certify_batch(clean_chunk, sources=std)
+        _require(all(v.ok for v in verdicts),
+                 f"[{backend}] clean chunked fixpoint failed certification: "
+                 f"{[v.reason() for v in verdicts if not v.ok]}")
+        print(f"[{backend}] clean: {rep['completed']} queries certified, "
+              f"0 false positives, 0 monitor fires", flush=True)
+
+        # -- state.corrupt: bit-flipped state at a window boundary --------
+        with chaos.active(flag("state.corrupt", step=0)):
+            dirty, rep, dq = run_session()
+        hits = rep["monitors_fired"] + rep["recomputed"] + len(dq)
+        parity = all(np.array_equal(dirty[q], clean[q])
+                     for q in clean if q not in dq)
+        _require(bool(hits or parity),
+                 f"[{backend}] state.corrupt neither detected nor masked")
+        _require(all(r["recovered"] for r in rep["certify_failed"]),
+                 f"[{backend}] certifier recompute did not recover: "
+                 f"{rep['certify_failed']}")
+        _require(bool(parity or rep["recomputed"]),
+                 f"[{backend}] state.corrupt changed results without a "
+                 f"recompute")
+        detections += bool(hits)
+        masked += bool(not hits)
+        print(f"[{backend}] state.corrupt: "
+              f"{'detected' if hits else 'masked'} "
+              f"(monitors={rep['monitors_fired']} "
+              f"recomputes={rep['recomputed']} "
+              f"quarantined={sorted(dq)})", flush=True)
+
+        # -- exchange.payload: corrupted wire block vs reduction tags -----
+        try:
+            with chaos.active(flag("exchange.payload", step=0)):
+                got, _, _ = chunked_refresh(
+                    engine, args.alg, std, chunk=args.checkpoint_every)
+            caught = None
+        except ExchangeCorruption as e:
+            caught = e
+        if caught is not None:
+            # bounded window replay: the clean rerun is the recovery
+            replay, _, _ = chunked_refresh(
+                engine, args.alg, std, chunk=args.checkpoint_every)
+            _require(np.array_equal(replay, clean_chunk),
+                     f"[{backend}] post-corruption replay diverged")
+            detections += 1
+            print(f"[{backend}] exchange.payload: detected "
+                  f"({caught}); replay bitwise clean", flush=True)
+        else:
+            _require(backend == "hybrid",
+                     f"[{backend}] corrupted exchange escaped the tag check")
+            _require(np.array_equal(got, clean_chunk),
+                     "[hybrid] inert exchange site still changed the result")
+            masked += 1
+            print("[hybrid] exchange.payload: masked (single-device hybrid "
+                  "supersteps have no wire exchange)", flush=True)
+        walls[backend] = time.perf_counter() - t_backend
+
+    # -- checkpoint.torn: torn tensor vs manifest CRC (backend-free) ------
+    with tempfile.TemporaryDirectory() as td:
+        mgr = CheckpointManager(td, keep=3)
+        tree = {"state": rng.standard_normal(64).astype(np.float32)}
+        mgr.save_tree(0, tree, blocking=True)
+        with chaos.active(flag("checkpoint.torn", step=1)):
+            mgr.save_tree(1, tree, blocking=True)
+        try:
+            mgr.restore_tree(tree)
+            raise AssertionError("torn checkpoint restored silently")
+        except CheckpointCorruption as e:
+            detections += 1
+            print(f"checkpoint.torn: detected ({e})", flush=True)
+        _, prev = mgr.restore_tree(tree, step=0)
+        _require(np.array_equal(prev["state"], tree["state"]),
+                 "fallback snapshot does not match the saved state")
+        print("checkpoint.torn: fallback to step 0 bitwise clean",
+              flush=True)
+
+    # -- tombstone.flip: resurrected deleted edge on the dynamic path -----
+    from repro_torch.data.graphs import edge_stream
+
+    t0 = time.perf_counter()
+    if dynamic is None:
+        a = argparse.Namespace(**vars(args))
+        a.backend, a.alg = "reference", "bfs"
+        g, dg, engine = build_engine(a, dynamic=True)
+    else:
+        g, dg, engine = dynamic
+    batch = edge_stream(g, 1, args.mutation_batch, churn=0.5,
+                        seed=args.seed)[0]
+    dg.apply_mutations(batch)
+    truth = dg.mutated_csr()
+    cert = ResultCertifier("bfs", truth)
+    std = rng.integers(0, g.num_vertices, size=args.batch)
+    base, _, _ = chunked_refresh(engine, "bfs", std,
+                                 chunk=args.checkpoint_every)
+    verdicts = cert.certify_batch(base, sources=std)
+    _require(all(v.ok for v in verdicts),
+             "clean dynamic fixpoint failed certification against the "
+             "mutated graph")
+    # flip at EVERY window so the engine converges to a consistent
+    # fixpoint of the *wrong* graph: the hardest case, which only a
+    # certifier checking against the true mutated topology can tell
+    persistent = FaultInjector(sites={"tombstone.flip": [
+        {"step": s, "flag": True}
+        for s in range(0, 64, args.checkpoint_every)]})
+    with chaos.active(persistent):
+        flipped, _, _ = chunked_refresh(engine, "bfs", std,
+                                        chunk=args.checkpoint_every)
+    verdicts = cert.certify_batch(flipped, sources=std)
+    bad = [v.reason() for v in verdicts if not v.ok]
+    if np.array_equal(flipped, base):
+        masked += 1
+        _require(not bad, f"masked tombstone flip still failed: {bad}")
+        print("tombstone.flip: masked (min-semiring path redundancy "
+              "absorbed the flipped slot; fixpoint bitwise clean)",
+              flush=True)
+    else:
+        detections += 1
+        _require(bool(bad), "tombstone flip changed the fixpoint but every "
+                            "certifier check passed")
+        print(f"tombstone.flip: detected ({bad[0]})", flush=True)
+    # teeth proof: had the flip produced ANY wrong fixpoint, the certifier
+    # rejects it: perturb one reached vertex's level by one and re-certify
+    slot = next(i for i in range(len(std))
+                if (np.isfinite(flipped[i]) & (flipped[i] > 0)).any())
+    wrong = np.asarray(flipped[slot]).copy()
+    v = int(np.flatnonzero(np.isfinite(wrong) & (wrong > 0))[0])
+    wrong[v] -= 1.0
+    verdict = cert.certify(wrong, source=int(std[slot]))
+    _require(not verdict.ok,
+             "certifier accepted a provably wrong BFS fixpoint")
+    print(f"tombstone.flip: certifier rejects a perturbed fixpoint "
+          f"({verdict.reason()})", flush=True)
+    walls["tombstone"] = time.perf_counter() - t0
+
+    print(f"corruption drill: {detections} detected, {masked} masked, "
+          f"0 false positives across 3 backends", flush=True)
+    return dict(detections=detections, masked=masked, walls=walls)
+
+
 def serve_continuous(engine, g, cfg: ServeConfig, sources, *,
                      dg=None, mutation_stream=None, parity: bool = False,
                      warm: bool = True) -> dict:
@@ -657,13 +1296,27 @@ def build_parser() -> argparse.ArgumentParser:
                     help="serve the stream in B estimated-depth buckets and "
                          "report per-bucket p99 vs the unbucketed baseline")
     ap.add_argument("--chaos", action="store_true",
-                    help="the fault-injection drill (not ported yet: item "
-                         "13)")
+                    help="run the fault-injection drill: a clean mutating "
+                         "session, then the same session with injected "
+                         "crashes; check recovery, zero lost mutations, "
+                         "and bitwise parity")
     ap.add_argument("--corrupt", action="store_true",
-                    help="the silent-corruption drill (not ported yet: "
-                         "item 13)")
+                    help="run the silent-corruption drill: inject bit-flips "
+                         "at every data-corruption site (state rows, "
+                         "exchange payloads, checkpoint tensors, tombstone "
+                         "masks) across all three backends; check every "
+                         "fault is detected or masked and the clean path "
+                         "raises zero false positives")
     ap.add_argument("--checkpoint-every", type=int, default=2,
-                    help="supersteps per chunk window (--continuous)")
+                    help="supersteps per chunk window (--continuous and "
+                         "the drills' checkpointable refresh)")
+    ap.add_argument("--superstep-budget", type=int, default=64,
+                    help="quarantine standing queries still unconverged "
+                         "after this many supersteps (divergence watchdog)")
+    ap.add_argument("--max-restarts", type=int, default=5,
+                    help="retryable-failure budget for the serving session")
+    ap.add_argument("--restart-backoff-s", type=float, default=0.0,
+                    help="base exponential-backoff sleep between restarts")
     ap.add_argument("--deadline-ms", type=float, default=None,
                     help="per-query SLA deadline; misses are reported")
     ap.add_argument("--queue-capacity", type=int, default=None,
@@ -692,6 +1345,15 @@ def main(argv=None) -> int:
     except ValueError as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
+
+    if cfg.mode == "chaos":
+        run_chaos_drill(args)
+        print("CHAOS OK")
+        return 0
+    if cfg.mode == "corrupt":
+        run_corrupt_drill(args)
+        print("CORRUPT OK")
+        return 0
 
     dg = stream = None
     if cfg.mutate:

@@ -35,9 +35,14 @@ dynamic split rebuild are expected rebuilds: they reset the baseline, as
 the JAX package's recompiles do; a mutation batch (``mutate``) must add
 nothing.
 
-Port of ``repro.runtime.session``.  Not ported yet: ``snapshot`` and
-``restore`` and ``certifier=`` (ROADMAP Queue 1 item 13) raise
-``NotImplementedError``.
+``snapshot``/``restore`` persist the full serving carry (vertex state,
+votes, per-slot step frames, occupancy mask, per-slot query ids, pending
+queue, completed results) through a ``CheckpointManager``, so a restart
+resumes mid-refill (``failures.serve_with_restarts``).  A ``certifier``
+checks every harvested result (recompute once, then quarantine); on a card
+the recompute is the engine's own, never a host oracle's row.
+
+Port of ``repro.runtime.session``.
 """
 from __future__ import annotations
 
@@ -47,7 +52,6 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.bsp import REFERENCE, _not_in_slice
 from repro_torch.runtime.sla import AdmissionController, QuarantinePolicy
 
 
@@ -89,7 +93,12 @@ class ServeSession:
         ``"fifo"`` (arrival order) or ``"depth"`` (admit shallow-first by
         ``depth_key(source)``; see ``graph_serve.estimate_depth_order``).
     certifier:
-        Not ported yet (item 13): anything but None raises.
+        Optional :class:`repro_torch.runtime.verify.ResultCertifier` bound
+        to the *current* graph: every harvested result is certified before
+        it completes.  A failed verdict triggers the recompute-once policy
+        (:meth:`_recompute`); if even the recomputed answer fails
+        certification the query is quarantined with reason
+        ``"certification"``.
     monitor:
         Optional duck-typed invariant monitor (``observe(snap)``,
         ``rebase(admit)``) observed at every window boundary (threaded
@@ -107,8 +116,6 @@ class ServeSession:
         from repro_torch.algorithms.continuous import (continuous_form,
                                                        result_key)
 
-        if certifier is not None:
-            raise _not_in_slice("ServeSession(certifier=)", "13")
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
         if scheduler not in ("fifo", "depth"):
@@ -129,7 +136,11 @@ class ServeSession:
         self.quarantine = quarantine
         self.scheduler = scheduler
         self.depth_key = depth_key
+        self.certifier = certifier
         self.monitor = monitor
+        self.certified_ok = 0
+        self.recomputed = 0
+        self.certify_failures: List[dict] = []
         self.admission = AdmissionController(
             queue_capacity if queue_capacity is not None else (1 << 30))
 
@@ -216,6 +227,54 @@ class ServeSession:
         if self.quarantine is not None:
             self.quarantine.begin(self.slots)
 
+    def _recompute(self, source: int) -> np.ndarray:
+        """The one recompute of a result that failed its certifier.
+
+        On the CPU it is the certifier's numpy oracle, as in the JAX
+        package.  On a card it is the query run again alone through the
+        session's engine (a resident run from step 0, on its kernels), so
+        nothing a kernel got wrong is served by host code; the numpy
+        oracle only certifies it."""
+        if self.engine.device.type == "cpu":
+            return np.asarray(self.certifier.recompute(source))
+        return self._rerun(source)
+
+    def _rerun(self, source: int) -> np.ndarray:
+        """Query ``source`` run alone through the engine from step 0."""
+        zero = np.zeros(1, np.int64)
+        state = self.form.make_slot_state(self.engine.pg, [source], zero,
+                                          device=self.engine.device)
+        out, _ = self.engine.execute(self.form.program, state)
+        sub = {k: out[k] for k in self._result_keys}
+        return np.asarray(self.form.harvest(self.engine.pg, sub, zero)[0])
+
+    def _certified(self, result: np.ndarray, slot: int, qid: int,
+                   step: int) -> np.ndarray:
+        """Recompute-once-then-quarantine("certification") policy.
+
+        A harvested result that fails its certifier is replaced by its
+        recompute (:meth:`_recompute`); if that fails too (a certifier of
+        another graph, say a stale one across a mutation) the query is
+        quarantined."""
+        source = int(self.slot_source[slot])
+        verdict = self.certifier.certify(result, source=source)
+        if verdict.ok:
+            self.certified_ok += 1
+            return result
+        self.recomputed += 1
+        ref = self._recompute(source)
+        rec = dict(query=qid, source=source, step=step,
+                   reason=verdict.reason(), recovered=True)
+        if not self.certifier.certify(ref, source=source).ok:
+            rec["recovered"] = False
+            self.quarantined_qids.add(qid)
+            if self.quarantine is not None:
+                self.quarantine.quarantined.append(
+                    {"query": qid, "reason": "certification",
+                     "step": step, "steps_q": -1})
+        self.certify_failures.append(rec)
+        return ref
+
     def _harvest(self, snap: dict, done: np.ndarray) -> None:
         """Complete the slots of ``done``: their rows of the result leaf
         are indexed where the state lies and only they reach the host."""
@@ -233,7 +292,11 @@ class ServeSession:
         now = time.perf_counter()
         for i, slot in enumerate(rows):
             qid = int(self.slot_query[slot])
-            self._completed[qid] = np.asarray(results[i])
+            result = np.asarray(results[i])
+            if (self.certifier is not None
+                    and qid not in self.quarantined_qids):
+                result = self._certified(result, slot, qid, snap["step"])
+            self._completed[qid] = result
             self._completed_steps[qid] = int(steps_q[slot])
             if qid in self._submit_t:
                 lat = (now - self._submit_t[qid]) * 1e3
@@ -401,8 +464,9 @@ class ServeSession:
             retraces=self.retraces(),
             quarantined=sorted(self.quarantined_qids),
             sla_misses=self.sla_misses,
-            # the certifier comes with item 13: nothing is certified yet
-            certified_ok=0, recomputed=0, certify_failed=[],
+            certified_ok=self.certified_ok,
+            recomputed=self.recomputed,
+            certify_failed=list(self.certify_failures),
             monitors_fired=self.monitors_fired,
             latency_p50_ms=pct(50), latency_p99_ms=pct(99),
             final_step=int(self._step),
@@ -422,15 +486,88 @@ class ServeSession:
 
     # --------------------------------------------------- checkpoint/restore
 
+    def _like_carry(self) -> dict:
+        state = self.form.make_slot_state(
+            self.engine.pg, np.zeros(self.slots, np.int64),
+            np.zeros(self.slots, np.int64), device=self.engine.device)
+        return {"state": state,
+                "fin": np.zeros(self.slots, bool),
+                "steps_q": np.zeros(self.slots, np.int32)}
+
     def snapshot(self, manager, step: Optional[int] = None,
                  blocking: bool = True) -> None:
-        """Persisting the serving carry needs the checkpoint manager
-        (ROADMAP Queue 1 item 13)."""
-        raise _not_in_slice("ServeSession.snapshot()", "13")
+        """Persist the full serving carry.  Occupancy mask, per-slot query
+        ids/step frames/refill counts, the pending queue and completed
+        results ride along, so :meth:`restore` resumes *mid-refill*, not
+        from the initial admission.  The state's tensors are copied to the
+        host before this returns (``blocking=False`` only leaves the disk
+        write to a thread)."""
+        self._prime()
+        tree = {"carry": {"state": self._state, "fin": self._fin,
+                          "steps_q": self._steps_q},
+                "completed": {str(q): v for q, v in self._completed.items()}}
+        extra = dict(
+            step=int(self._step), windows=self.windows,
+            refills=self.refills, next_qid=self._next_qid,
+            occupied=self.occupied.tolist(),
+            slot_query=self.slot_query.tolist(),
+            slot_source=self.slot_source.tolist(),
+            slot_step0=self.slot_step0.tolist(),
+            slot_refills=self.slot_refills.tolist(),
+            pending=[[int(qid), int(src),
+                      None if dl is None else float(dl)]
+                     for (qid, src), dl in list(self.admission._queue)],
+            qsource={str(q): int(s) for q, s in self._qsource.items()},
+            completed_steps={str(q): int(s)
+                             for q, s in self._completed_steps.items()},
+            quarantined=sorted(self.quarantined_qids))
+        manager.save_tree(step if step is not None else self.windows,
+                          tree, extra=extra, blocking=blocking)
 
     def restore(self, manager, step: Optional[int] = None) -> int:
-        """See :meth:`snapshot`: item 13."""
-        raise _not_in_slice("ServeSession.restore()", "13")
+        """Load a :meth:`snapshot` (the latest without ``step``) into this
+        session; the state comes back on the engine's device.  Returns the
+        snapshot's step."""
+        step = step if step is not None else manager.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no session snapshot in {manager.dir}")
+        extra = manager.manifest_extra(step)
+        n = self.engine.pg.num_vertices
+        like = {"carry": self._like_carry(),
+                "completed": {q: np.zeros(n, np.float32)
+                              for q in extra["completed_steps"]}}
+        _, tree = manager.restore_tree(like, step)
+        self._state = tree["carry"]["state"]
+        self._fin = np.asarray(tree["carry"]["fin"], bool)
+        self._steps_q = np.asarray(tree["carry"]["steps_q"], np.int32)
+        self._step = int(extra["step"])
+        self.windows = int(extra["windows"])
+        self.refills = int(extra["refills"])
+        self._next_qid = int(extra["next_qid"])
+        self.occupied = np.asarray(extra["occupied"], bool)
+        self.slot_query = np.asarray(extra["slot_query"], np.int64)
+        self.slot_source = np.asarray(extra["slot_source"], np.int64)
+        self.slot_step0 = np.asarray(extra["slot_step0"], np.int64)
+        self.slot_refills = np.asarray(extra["slot_refills"], np.int64)
+        self._qsource = {int(q): int(s)
+                         for q, s in extra["qsource"].items()}
+        self._completed = {int(q): np.asarray(v)
+                           for q, v in tree["completed"].items()}
+        self._completed_steps = {int(q): int(s)
+                                 for q, s in extra["completed_steps"].items()}
+        self.quarantined_qids = set(extra["quarantined"])
+        self.admission._queue.clear()
+        for qid, src, dl in extra["pending"]:
+            self.admission._queue.append(((int(qid), int(src)), dl))
+            self._qsource[int(qid)] = int(src)
+            self._qdeadline[int(qid)] = dl
+        if self.quarantine is not None:
+            self.quarantine.begin(self.slots)
+        # a restored session may run on a rebuilt engine: its first window
+        # and refill are warm-up again for the rebuild count
+        self._entries0 = None
+        self._warm_events = set()
+        return step
 
     # ----------------------------------------------------------- degradation
 
@@ -471,6 +608,8 @@ class ServeSession:
         engine on the same device with a kernel backend (not the
         reference backend's plain PyTorch), or this raises ``ValueError``.
         A failed CUDA kernel is re-raised, never served around."""
+        from repro_torch.core.bsp import REFERENCE
+
         mine, theirs = self.engine.device, fallback.engine.device
         if _where(theirs) != _where(mine):
             raise ValueError(

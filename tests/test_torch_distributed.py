@@ -166,13 +166,15 @@ def test_validation_errors():
     with pytest.raises(ValueError, match="inconsistent with the group"):
         eng._exchange(torch.zeros(1, 2, 3, 4))
     # chunked windows are ported: they validate the state as execute()
-    # does, and their chaos sites are item 13
+    # does, and take their chaos sites' context (item 13)
     with pytest.raises(ValueError, match="expected \\[Q, num_parts=2"):
         eng.execute(BFS_PROGRAM, {"level": torch.zeros(1, 3, pg.v_max)},
                     chunk=2)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        eng.execute(BFS_PROGRAM, {"level": torch.zeros(1, 2, pg.v_max)},
-                    chunk=2, chaos_ctx={})
+    out, _, info = eng.execute(
+        BFS_PROGRAM, {"level": torch.zeros(1, 2, pg.v_max)}, chunk=2,
+        chaos_ctx={})
+    assert torch.equal(out["level"], torch.zeros(1, 2, pg.v_max))
+    assert info["finished"].tolist() == [True]
 
 
 def test_gloo_group_of_one_refuses_cuda_and_runs_cpu(tmp_path):

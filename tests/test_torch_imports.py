@@ -47,7 +47,9 @@ def test_every_module_imports_without_jax_or_repro():
                  "launch.selftest", "launch.hybrid_selftest",
                  "runtime.session", "runtime.sla", "algorithms.continuous",
                  "launch.graph_serve", "launch.batched_selftest",
-                 "launch.continuous_selftest"):
+                 "launch.continuous_selftest", "runtime.chaos",
+                 "runtime.verify", "runtime.watchdog", "runtime.failures",
+                 "checkpoint", "checkpoint.manager", "launch.ft_selftest"):
         assert f"repro_torch.{name}" in names
 
 
@@ -82,6 +84,7 @@ def test_engine_without_device_raises_when_no_card(monkeypatch):
                                       "launch.hybrid_selftest",
                                       "launch.batched_selftest",
                                       "launch.continuous_selftest",
+                                      "launch.ft_selftest",
                                       "launch.graph_serve"])
 def test_launchers_default_to_the_card(monkeypatch, launcher):
     """Run with no device named, the multi-rank launchers ask for cards and
@@ -124,9 +127,11 @@ def test_unported_modes_raise_naming_the_roadmap_item():
         assert BSPEngine(dg, device="cpu", backend=backend).dg is dg
         eng = BSPEngine(pg, device="cpu", backend=backend)
         state = {"level": torch.zeros(1, 2, pg.v_max)}
-        # the chunked mode is ported; its chaos sites are item 13
-        with pytest.raises(NotImplementedError, match="item 13"):
-            eng.execute(BFS_PROGRAM, state, chunk=2, chaos_ctx={})
+        # the chunked mode and its chaos sites (item 13) are ported
+        out, steps_q, info = eng.execute(BFS_PROGRAM, state, chunk=2,
+                                         chaos_ctx={})
+        assert torch.equal(out["level"], state["level"])
+        assert info["finished"].tolist() == [True]
         # the incremental mode is ported: BFS warm-starts its relaxation
         out, steps = eng.execute(BFS_PROGRAM, state, incremental=np.ones(
             (2, pg.v_max), bool))

@@ -1200,3 +1200,151 @@ def test_dynamic_engine_matches_rebuilt_graph_on_card(cuda, backend):
     assert all(fn.launches > 0 for fn in counters)
     if backend == "fused":
         assert relax_launches == int(warm_steps.max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["reference", "fused"])
+def test_checked_exchange_flags_one_mismatch_on_card(cuda, backend):
+    """The checked exchange on CUDA tensors: a one-superstep window counts
+    no mismatch clean and exactly one under the ``exchange.payload``
+    poison (one flipped element), and the poisoned window leaves the
+    carry as it was; the fused kernel launches in the window."""
+    import importlib
+
+    from repro_torch.core.bsp import BSPEngine
+
+    tbfs = importlib.import_module("repro_torch.algorithms.bfs")
+    g = TG.rmat(10, 8, seed=13)
+    pg = TPT.partition(g, 2, TPT.HIGH)
+    eng = BSPEngine(pg, backend=backend, block_e=256)
+    state = {"level": tbfs.multi_source_state(pg, [0, 3, 17, 91],
+                                              device=cuda)}
+    before = state["level"].clone()
+    fin = torch.zeros(4, dtype=torch.bool, device=cuda)
+    steps_q = torch.zeros(4, dtype=torch.int32, device=cuda)
+    kfs.fused_superstep.launches = 0
+    counts = []
+    for poison in (False, True):
+        *_, bad = eng._chunk_call(tbfs.BFS_PROGRAM, 1, state, 0, fin,
+                                  steps_q, poison)
+        assert bad.device.type == "cuda"
+        counts.append(int(bad))
+    assert counts == [0, 1]
+    assert torch.equal(state["level"], before)
+    assert (kfs.fused_superstep.launches > 0) == (backend == "fused")
+
+
+@pytest.mark.gpu
+def test_device_monitor_records_equal_the_cpu_monitor_on_card(cuda):
+    """``InvariantMonitor`` on CUDA snapshots gives the CPU monitor's
+    records for the same window sequence: a clean window, a regression, a
+    NaN slot, a refill (rebase), a regressed vote and a step jump."""
+    from repro_torch.runtime import InvariantMonitor
+
+    rng = np.random.default_rng(0)
+    level = rng.integers(0, 5, size=(4, 2, 64)).astype(np.float32)
+    windows = []
+    cur = level.copy()
+    for w in range(5):
+        cur = cur.copy()
+        if w == 1:
+            cur[2, 1, 7] += 1.0                          # monotonicity
+        if w == 2:
+            cur[1, 0, 3] = np.nan                        # finiteness
+        fin = np.array([w >= 3, False, w == 2, False])   # slot 0, slot 2
+        steps = np.array([2, 2, 2, 2 + 5 * (w == 4)]) * (w + 1)
+        windows.append((cur, fin, steps.astype(np.int32), 2 * (w + 1)))
+    monitors = {dev: InvariantMonitor(keys=("level",), combine="min",
+                                      chunk=2) for dev in ("cpu", "cuda")}
+    for w, (lv, fin, steps, step) in enumerate(windows):
+        recs = []
+        for dev, mon in monitors.items():
+            if w == 3:
+                mon.rebase(np.array([False, False, False, True]))
+            recs.append(mon.observe(dict(
+                state={"level": torch.as_tensor(lv, device=dev)},
+                finished=fin, steps_q=steps, step=step)))
+        assert recs[0] == recs[1]
+    assert monitors["cpu"].fired == monitors["cuda"].fired
+    assert {c["check"] for r in monitors["cuda"].fired
+            for c in r["checks"]} >= {"monotonicity", "finiteness",
+                                      "finished_regressed", "steps_delta"}
+
+
+@pytest.mark.gpu
+def test_checkpoint_of_cuda_tensors_restores_on_card(cuda, tmp_path):
+    """A tree of CUDA tensors (f32, bool, int32, int64) saved and restored
+    onto ``cuda`` bit for bit, with their dtypes; the save copies them to
+    the host before its writer thread starts."""
+    from repro_torch.checkpoint import CheckpointManager
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    tree = {"state": {"level": torch.randn(8, 2, 1000, device=cuda,
+                                           generator=gen),
+                      "active": torch.rand(8, 2, 1000, device=cuda,
+                                           generator=gen) < 0.5},
+            "steps_q": torch.arange(8, dtype=torch.int32, device=cuda),
+            "ids": torch.arange(5, dtype=torch.int64, device=cuda) << 40}
+    mgr = CheckpointManager(tmp_path)
+    mgr.save_tree(3, tree, blocking=False)
+    like = {"state": {k: torch.zeros_like(v) for k, v in
+                      tree["state"].items()},
+            "steps_q": torch.zeros_like(tree["steps_q"]),
+            "ids": torch.zeros_like(tree["ids"])}
+    step, got = mgr.restore_tree(like)
+    assert step == 3
+    for a, b in ((got["state"]["level"], tree["state"]["level"]),
+                 (got["state"]["active"], tree["state"]["active"]),
+                 (got["steps_q"], tree["steps_q"]),
+                 (got["ids"], tree["ids"])):
+        assert a.device.type == "cuda" and a.dtype == b.dtype
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("alg", ["bfs", "sssp"])
+def test_certified_cuda_session_never_serves_a_host_row_on_card(cuda, alg):
+    """A certified session on the card recomputes a rejected result through
+    its engine: with a certifier that rejects every query's first answer
+    and whose numpy recompute must never run, every query is recomputed,
+    recovered and served bit for bit as the engine's drain batches give
+    it; the fused kernel launches."""
+    from repro_torch.core.bsp import BSPEngine
+    from repro_torch.runtime import (ResultCertifier, ServeSession,
+                                     drain_reference)
+    from repro_torch.runtime.verify import CheckResult, Verdict
+
+    class FirstRejected(ResultCertifier):
+        def __init__(self, *args):
+            super().__init__(*args)
+            self.seen = set()
+
+        def certify(self, result, source=None):
+            v = super().certify(result, source=source)
+            if source in self.seen:
+                return v
+            self.seen.add(source)
+            return Verdict(v.algorithm, False,
+                           v.checks + (CheckResult("drill", False, 1),))
+
+        def recompute(self, source=None):
+            raise AssertionError("a host oracle's row was served on the card")
+
+    g = TG.rmat(10, 8, seed=13).with_uniform_weights(seed=1)
+    eng = BSPEngine(TPT.partition(g, 2, TPT.HIGH), backend="fused",
+                    block_e=256)
+    sources = np.random.default_rng(0).integers(0, g.num_vertices, 8)
+    want = drain_reference(eng, alg, sources, 4)
+    kfs.fused_superstep.launches = 0
+    s = ServeSession(eng, alg, slots=4, chunk=2,
+                     certifier=FirstRejected(alg, g))
+    s.submit(sources)
+    s.drain()
+    rep = s.report()
+    got = {r["query"]: r["result"] for r in s.poll()}
+    assert rep["recomputed"] == len(sources)
+    assert all(r["recovered"] for r in rep["certify_failed"])
+    assert not s.quarantined_qids
+    for q in range(len(sources)):
+        np.testing.assert_array_equal(got[q], want[q])
+    assert kfs.fused_superstep.launches > 0

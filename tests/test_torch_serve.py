@@ -545,27 +545,47 @@ def test_tiered_engine_refuses_chunk_as_jax(graphs):
         session.drain()
 
 
-def test_unported_parts_raise_naming_the_roadmap_item(graphs):
-    """Checkpoints, chaos and certifiers are item 13.  Mutations (item 11)
-    are ported: on a static engine ``mutate`` refuses as JAX's does."""
-    tp = graphs[1]["main"][1]
+def test_unported_parts_raise_naming_the_roadmap_item(graphs, stream,
+                                                      tmp_path, capsys):
+    """Checkpoints, chaos and certifiers (item 13) are ported: each call
+    that raised naming the item now runs.  Mutations (item 11) are ported:
+    on a static engine ``mutate`` refuses as JAX's does."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.runtime import ResultCertifier
+
+    tg, tp = graphs[0], graphs[1]["main"][1]
     eng = _port(tp, "reference")
     session = ServeSession(eng, "bfs", slots=SLOTS)
     with pytest.raises(ValueError, match="needs a dynamic engine"):
         session.mutate(None)
-    for call, item in ((lambda: session.snapshot(None), "13"),
-                       (lambda: session.restore(None), "13"),
-                       (lambda: ServeSession(eng, "bfs", slots=SLOTS,
-                                             certifier=object()), "13"),
-                       (lambda: eng.execute(
-                           tbfs.BFS_PROGRAM,
-                           {"level": tbfs.multi_source_state(tp, [1])},
-                           chunk=2, chaos_ctx={"round": 0}), "13")):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            call()
-    for flag, item in (("--chaos", "13"), ("--corrupt", "13")):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            tgs.main(["--smoke", "--device", "cpu", flag])
+    # snapshot and restore: a restored session drains to the same results
+    session.submit(stream[:2 * SLOTS])
+    session.step()
+    mgr = CheckpointManager(tmp_path / "ckpt")
+    session.snapshot(mgr)
+    windows = session.windows
+    session.drain()
+    want = {r["query"]: r["result"] for r in session.poll()}
+    again = ServeSession(eng, "bfs", slots=SLOTS)
+    assert again.restore(mgr) == windows == again.windows
+    again.drain()
+    got = {r["query"]: r["result"] for r in again.poll()}
+    assert got.keys() == want.keys()
+    assert all(np.array_equal(got[q], want[q]) for q in want)
+    # a certified session certifies every completion
+    cert = ServeSession(eng, "bfs", slots=SLOTS,
+                        certifier=ResultCertifier("bfs", tg))
+    cert.submit(stream[:SLOTS])
+    rep = cert.drain()
+    assert rep["certified_ok"] == SLOTS and rep["recomputed"] == 0
+    # execute(chaos_ctx=) runs the chunked loop with the context
+    out, steps, info = eng.execute(
+        tbfs.BFS_PROGRAM, {"level": tbfs.multi_source_state(tp, [1])},
+        chunk=2, chaos_ctx={"round": 0})
+    assert info["chunks"] >= 1
+    for flag, ok in (("--chaos", "CHAOS OK"), ("--corrupt", "CORRUPT OK")):
+        assert tgs.main(["--smoke", "--device", "cpu", flag]) == 0
+        assert capsys.readouterr().out.splitlines()[-1] == ok
     with pytest.raises(ValueError, match="no continuous form"):
         ServeSession(eng, "bc", slots=SLOTS)
 
@@ -575,7 +595,10 @@ def test_unported_parts_raise_naming_the_roadmap_item(graphs):
     dict(depth_buckets=2, deadline_ms=50.0),
     dict(mutate=True, depth_buckets=2), dict(mutate=True, deadline_ms=50.0),
     dict(mutate=True, queue_capacity=8),
-    dict(continuous=True, alg="bc"), dict(continuous=True, alg="ppr")])
+    dict(continuous=True, alg="bc"), dict(continuous=True, alg="ppr"),
+    dict(chaos=True, mutate=True), dict(chaos=True, continuous=True),
+    dict(chaos=True, corrupt=True), dict(corrupt=True, deadline_ms=50.0),
+    dict(corrupt=True, alg="bc")])
 def test_serve_config_errors_equal_jax(kw):
     got = _messages(lambda: tgs.ServeConfig(**kw).validate())
     want = _messages(lambda: jgs.ServeConfig(**kw).validate())
@@ -591,9 +614,12 @@ def test_serve_config_composes():
                     deadline_ms=50.0)):
         cfg = tgs.ServeConfig(**kw).validate()
         assert cfg.mode == jgs.ServeConfig(**kw).validate().mode
-    for kw, item in ((dict(chaos=True), "13"), (dict(corrupt=True), "13")):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            tgs.ServeConfig(**kw).validate()
+    # the drills (item 13) are ported: their flags validate to JAX's modes
+    for kw in (dict(chaos=True), dict(corrupt=True),
+               dict(corrupt=True, alg="sssp")):
+        cfg = tgs.ServeConfig(**kw).validate()
+        assert cfg.mode == jgs.ServeConfig(**kw).validate().mode
+        assert cfg.mode in ("chaos", "corrupt")
 
 
 # ---------------------------------------------------------------------------
