@@ -124,6 +124,14 @@ Phases (any failed check exits non-zero; nothing is caught and passed over):
    detected, the clean run bit for bit the single-device hybrid's); the
    fused kernel, ``ell_spmv``, ``dense_spmv_minplus`` and
    ``outbox_reduce`` must launch;
+   then ``[tiered-dynamic]`` (``tiered_dynamic_phase``): ``[dynamic]``'s
+   graph and stream with the payload in pinned host memory, a tiered
+   engine (one partition streamed) beside a resident one on the fused and
+   reference backends: BFS bit for bit after every batch, SSSP, PageRank
+   within ``pagerank_f32_bound``, warm BFS, a forced compaction that
+   re-plans, ``hbm_bytes`` against the arena bytes, peak device memory
+   below resident's, the hybrid refusing, the fused kernel launched on
+   the hot partition and every window;
 5. the numpy oracles at RMAT12 on the card, all five algorithms, on the
    fused and the hybrid backends;
 6. ``[segment_reduce]``: the sorted segment reduce through its entry point
@@ -148,7 +156,15 @@ Phases (any failed check exits non-zero; nothing is caught and passed over):
    Timed: prefill and decode wall and tok/s beside their bounds, the flash
    kernel beside its operations bound, its plain version and
    ``scaled_dot_product_attention`` (the yardstick only; the port never
-   calls it).
+   calls it);
+8. ``[train]`` (``train_phase``): tinyllama-1.1b training at full width
+   (1,100,048,384 f32 parameters, bf16 compute, remat, 4 microbatches):
+   the loss at init, four steps on one B=8, S=2048 batch, f32 against
+   float64 at 2 layers, 4 microbatches against 1, the flash route
+   refusing a graph, ``launch/train.py`` for 3 steps with its 12.3 GiB
+   checkpoint, and a deterministic restart drill at 2 layers.  No kernel
+   of the repo is on this path: the JAX training path reaches no Pallas
+   kernel either.
 
 Phase 2 also holds the hybrid kernels at the planner's RMAT20 split (|H|,
 Q=8): ``ell_spmv`` in its three semirings on the forward remainder with the
@@ -199,6 +215,7 @@ import dataclasses
 import importlib
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -927,30 +944,32 @@ def lm_phase(dev, check):
     return row, worst, launches
 
 
-def planning_win_blocks(pg, row: int, fused: bool):
+def planning_win_blocks(pg, row: int, fused: bool, dynamic=None):
     """The least power-of-two ``win_blocks`` whose tier plan at table row
-    ``row`` (the ``row`` densest partitions hot) exists, and that plan."""
+    ``row`` (the ``row`` densest partitions hot) exists, and that plan
+    (with a dynamic graph's overlay counted when ``dynamic`` is given)."""
     from repro_torch.core import partition as PT
     wb = 1
     while True:
         try:
             probe = PT.build_tier_plan(pg, 1 << 62, block_e=BLOCK_E,
-                                       win_blocks=wb, fused=fused)
+                                       win_blocks=wb, fused=fused,
+                                       dynamic=dynamic)
             return wb, PT.build_tier_plan(
                 pg, int(probe.table[row]["hbm_bytes"]), block_e=BLOCK_E,
-                win_blocks=wb, fused=fused)
+                win_blocks=wb, fused=fused, dynamic=dynamic)
         except ValueError:
             wb *= 2
 
 
-def streaming_plan(pg, fused: bool):
+def streaming_plan(pg, fused: bool, dynamic=None):
     """``(row, win_blocks, plan)``: table row 1 (the denser partition hot),
     or row 0 (all cold) where row 1's windows are so large that its budget
     holds every partition (the plan then keeps all hot)."""
-    wb, plan = planning_win_blocks(pg, 1, fused)
+    wb, plan = planning_win_blocks(pg, 1, fused, dynamic)
     if len(plan.cold):
         return 1, wb, plan
-    return (0,) + planning_win_blocks(pg, 0, fused)
+    return (0,) + planning_win_blocks(pg, 0, fused, dynamic)
 
 
 def longest_runs(ea):
@@ -1662,6 +1681,416 @@ def dynamic_phase(gw, sources, dev, check):
     return launches
 
 
+def tiered_dynamic_phase(gw, sources, dev, check):
+    """``[tiered-dynamic]``: ``tiered=`` on a dynamic graph at ``[dynamic]``'s
+    shapes (the weighted RMAT20, P=2, HIGH, ``mutation_capacity=256``,
+    ``edge_stream`` 8 x 256 at churn 0.7, seed 20).
+
+    One ``DynamicGraph`` with its payload in pinned host memory feeds, on
+    the fused and on the reference backend, a tiered engine (budget
+    ``build_tier_plan(..., dynamic=)``'s ``table[1]``: one partition
+    streamed, ``win_blocks`` the least that plans) and a resident one.
+    After every batch: BFS at Q=8 on both, bit for bit with equal steps,
+    and the tiered engines' ``cache_entries()`` held but at a compaction.
+    After the stream: SSSP bit for bit; PageRank within
+    ``pagerank_f32_bound`` of float64 (the delta slots sum with atomics on
+    the card); the fused kernel launched on the hot partition and every
+    window of every superstep; an insert-only window whose warm BFS equals
+    cold in fewer supersteps; one forced compaction that re-plans the
+    tiers, ``tiered_buffers_made`` growing only then;
+    ``TierPlan.hbm_bytes`` equal to the engine's device arena bytes; the
+    peak device memory of each tiered engine (and its first run) below
+    the resident one's; the hybrid refusing.  Printed: windows, streamed
+    bytes, copy GB/s and overlap, and each wall against resident.
+    Returns the fused kernel's launches on the tiered engines' runs."""
+    import numpy as np
+    import torch
+
+    from repro_torch.algorithms import (bfs_batched, bfs_incremental,
+                                        pagerank, sssp_batched)
+    from repro_torch.core import partition as PT
+    from repro_torch.core.bsp import BSPEngine
+    from repro_torch.core.dynamic import DynamicGraph
+    from repro_torch.core.partition import _delta_slot_bytes
+    from repro_torch.core.tiered import stream_times
+    from repro_torch.data.graphs import edge_stream
+    from repro_torch.kernels import fused_superstep as kfs
+
+    card = torch.cuda.get_device_name(0)
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    dg = DynamicGraph(gw, 2, PT.HIGH, mutation_capacity=256, device="cpu",
+                      pin=True)
+    stream = edge_stream(gw, 8, 256, churn=0.7, seed=SEED)
+    log(f"[tiered-dynamic] DynamicGraph with its payload in pinned host "
+        f"memory and the stream {time.perf_counter() - t0:.2f} s; "
+        f"delta_slots={dg.delta_slots}, o_max={dg.pg.fwd.o_max}")
+    backends = ("fused", "reference")
+    launches = 0
+
+    def run(eng, fn, *args):
+        """``(fn's result, wall)``; the fused kernel's launches on a tiered
+        engine counted (a resident engine is the yardstick)."""
+        nonlocal launches
+        before = kfs.fused_superstep.launches
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(eng, *args)
+        torch.cuda.synchronize()
+        if eng.tier_plan is not None:
+            launches += kfs.fused_superstep.launches - before
+        return out, time.perf_counter() - t
+
+    def same(x, y):
+        return all(np.array_equal(np.asarray(a), np.asarray(b))
+                   for a, b in zip(x, y))
+
+    tiered, resident, peak, budget = {}, {}, {}, {}
+    for b in backends:
+        row, wb, plan = streaming_plan(dg.pg, b == "fused", dg)
+        budget[b] = (int(plan.hbm_budget_bytes), wb)
+        log(f"[tiered-dynamic] plan {b}: table[{row}], win_blocks={wb} (the "
+            f"least that plans), hot {plan.hot.tolist()} cold "
+            f"{plan.cold.tolist()}, windows fwd {plan.fwd.num_windows}, "
+            f"hbm_bytes {plan.hbm_bytes} (budget {plan.hbm_budget_bytes}), "
+            f"host_bytes {plan.host_bytes}, window buffers "
+            f"{plan.stream_buffer_bytes}")
+        for side in ("resident", "tiered"):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            m0 = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            extra = ({} if side == "resident" else
+                     dict(tiered=budget[b][0], win_blocks=budget[b][1]))
+            eng = BSPEngine(dg, backend=b, block_e=BLOCK_E, **extra)
+            run(eng, bfs_batched, sources)
+            peak[b, side] = torch.cuda.max_memory_allocated() - m0
+            (tiered if side == "tiered" else resident)[b] = eng
+            log(f"[tiered-dynamic] {b} {side} engine and its first BFS "
+                f"{time.perf_counter() - t0:.2f} s")
+        eng = tiered[b]
+        check(len(eng.tier_plan.cold) >= 1 and eng.tiered_stats()[
+            "device_arena_bytes"] == eng.tier_plan.hbm_bytes,
+              f"[tiered-dynamic] {b}: {len(eng.tier_plan.cold)} partition "
+              f"streamed; TierPlan.hbm_bytes {eng.tier_plan.hbm_bytes} == "
+              f"the engine's device arena bytes "
+              f"{eng.tiered_stats()['device_arena_bytes']}")
+        check(peak[b, "tiered"] < peak[b, "resident"],
+              f"[tiered-dynamic] {b}: peak device memory of the engine and "
+              f"its first BFS, tiered {peak[b, 'tiered'] / 2**20:.1f} MiB < "
+              f"resident {peak[b, 'resident'] / 2**20:.1f} MiB")
+
+    # the stream: BFS on both sides after every batch
+    walls = {k: [] for k in backends}
+    equal = held = True
+    compacted = set()
+    for i, batch in enumerate(stream):
+        entries = {b: tiered[b].cache_entries() for b in backends}
+        made = {b: tiered[b].tiered_buffers_made for b in backends}
+        rep = dg.apply_mutations(batch)
+        if rep["compacted"]:
+            compacted.add(i)
+        line = []
+        for b in backends:
+            got, wt = run(tiered[b], bfs_batched, sources)
+            want, wr = run(resident[b], bfs_batched, sources)
+            equal &= same(got, want)
+            walls[b].append((wt, wr))
+            if not rep["compacted"] and (
+                    tiered[b].cache_entries() != entries[b]
+                    or tiered[b].tiered_buffers_made != made[b]):
+                held = False
+            line.append(f"{b} {wt:.3f} / {wr:.3f} s")
+        log(f"[tiered-dynamic] batch {i}: {rep['inserts']} inserts, "
+            f"{rep['deletes']} deletes, compacted {rep['compacted']}; BFS "
+            f"wall tiered / resident: {', '.join(line)}")
+    check(equal, "[tiered-dynamic] BFS (Q=8) after each of the 8 batches: "
+          "tiered bit-equal to resident, equal steps, fused and reference")
+    check(held, f"[tiered-dynamic] cache_entries() and tiered_buffers_made "
+          f"held across the batches but at a compaction (compactions "
+          f"{dg.compactions}, rebinds "
+          f"{[tiered[b].dynamic_rebinds for b in backends]})")
+
+    # after the stream: SSSP, PageRank, the launches per superstep
+    g_mut = dg.mutated_csr()
+    r64, bound = pagerank_f32_bound(g_mut, PR_ITERS, dev)
+    for b in backends:
+        got, wt = run(tiered[b], sssp_batched, sources)
+        want, wr = run(resident[b], sssp_batched, sources)
+        check(same(got, want), f"[tiered-dynamic] sssp {b}: tiered "
+              f"bit-equal to resident, equal steps "
+              f"{np.asarray(got[1]).tolist()} (wall {wt:.3f} / {wr:.3f} s)")
+        eng = tiered[b]
+        stream_ = eng._tier_stream
+        stream_.timing = []
+        pr, wt = run(eng, pagerank, PR_ITERS)
+        stream_.timing, timing = None, stream_.timing
+        pr_res, wr = run(resident[b], pagerank, PR_ITERS)
+        slack = max(float(np.max(np.abs(x - r64) - bound))
+                    for x in (pr, pr_res))
+        check(slack <= 0, f"[tiered-dynamic] pagerank {b}: tiered and "
+              f"resident within the f32 rounding bound of float64 on the "
+              f"mutated graph (max rel err tiered {max_rel_err(pr, r64):.3e},"
+              f" resident {max_rel_err(pr_res, r64):.3e}; tiered vs "
+              f"resident max |diff| {float(np.max(np.abs(pr - pr_res))):.3e};"
+              f" wall {wt:.3f} / {wr:.3f} s)")
+        td, plan = eng._tier[False], eng.tier_plan
+        nw = len(timing) // PR_ITERS
+        streamed = (td.arena.nbytes + sum(c for _, _, c in td.spans)
+                    + len(plan.cold) * dg.delta_slots
+                    * _delta_slot_bytes(dg.weighted))
+        per = [stream_times(timing[i:i + nw])
+               for i in range(0, len(timing), nw)]
+        copy_ms = float(np.mean([x["copy_ms"] for x in per]))
+        log(f"[tiered-dynamic] {b} pagerank stream, per superstep: {nw} "
+            f"windows ({plan.fwd.num_windows} base, {len(plan.cold)} "
+            f"delta), {streamed} bytes streamed, copy {copy_ms:.4f} ms "
+            f"({streamed / copy_ms / 1e6:.2f} GB/s), window compute "
+            f"{float(np.mean([x['compute_ms'] for x in per])):.4f} ms, "
+            f"overlap {float(np.mean([x['overlap'] for x in per])):.3f}; "
+            f"{card}")
+        if b == "fused":
+            before = launches
+            (_, steps), _ = run(eng, bfs_batched, sources)
+            want = int(np.max(steps)) * (int(len(plan.hot) > 0)
+                                         + plan.fwd.num_windows)
+            check(launches - before == want,
+                  f"[tiered-dynamic] fused BFS: the fused kernel launched "
+                  f"{launches - before} times, once on the hot partition "
+                  f"and once on each of the {plan.fwd.num_windows} windows "
+                  f"of each of {int(np.max(steps))} supersteps")
+
+    # an insert-only window: warm BFS on the tiered engines
+    prev = {b: run(tiered[b], bfs_batched, sources)[0][0] for b in backends}
+    mark = dg.mark()
+    dg.apply_mutations(edge_stream(g_mut, 1, 256, churn=1.0,
+                                   seed=SEED + 1)[0])
+    dirty, monotone = dg.dirty_since(mark)
+    for b in backends:
+        (warm, wsteps), w_wall = run(tiered[b], bfs_incremental, prev[b],
+                                     dirty)
+        (cold, csteps), c_wall = run(tiered[b], bfs_batched, sources)
+        want, _ = run(resident[b], bfs_batched, sources)
+        check(monotone and np.array_equal(warm, cold)
+              and np.array_equal(cold, want[0])
+              and int(np.max(wsteps)) < int(np.max(csteps)),
+              f"[tiered-dynamic] warm BFS {b}: bit-equal to cold and to "
+              f"resident, supersteps {int(np.max(wsteps))} vs "
+              f"{int(np.max(csteps))}, wall {w_wall:.3f} vs {c_wall:.3f} s")
+
+    # one forced compaction re-plans the tiers
+    made = {b: tiered[b].tiered_buffers_made for b in backends}
+    plans = {b: tiered[b].tier_plan for b in backends}
+    pause = dg.compact()
+    for b in backends:
+        got, wt = run(tiered[b], bfs_batched, sources)
+        want, wr = run(resident[b], bfs_batched, sources)
+        eng = tiered[b]
+        check(same(got, want) and eng.tier_plan is not plans[b]
+              and eng.tiered_buffers_made > made[b]
+              and eng.tiered_stats()["device_arena_bytes"]
+              == eng.tier_plan.hbm_bytes,
+              f"[tiered-dynamic] compaction ({pause:.1f} ms pause), {b}: "
+              f"re-planned (hot {eng.tier_plan.hot.tolist()}, hbm_bytes "
+              f"{eng.tier_plan.hbm_bytes} == device arena bytes), buffers "
+              f"made {made[b]} -> {eng.tiered_buffers_made}, BFS bit-equal "
+              f"to resident (first run after it {wt:.2f} / {wr:.2f} s)")
+
+    try:
+        BSPEngine(dg, backend="hybrid", tiered=budget["fused"][0])
+        refused = ""
+    except ValueError as exc:
+        refused = str(exc)
+    check("does not support dynamic graphs" in refused,
+          f"[tiered-dynamic] the hybrid backend refuses a tiered dynamic "
+          f"graph: {refused[:60]}...")
+    for b in backends:
+        wt = np.array(walls[b])[[i for i in range(len(stream))
+                                 if i not in compacted]]
+        log(f"[tiered-dynamic] {b} BFS wall over the {len(wt)} batches "
+            f"without a compaction, tiered / resident: mean "
+            f"{wt[:, 0].mean():.4f} / {wt[:, 1].mean():.4f} s "
+            f"({wt[:, 0].mean() / wt[:, 1].mean():.2f}x); {card}")
+    log(f"[tiered-dynamic] phase {time.perf_counter() - t_phase:.1f} s; "
+        f"fused launches on the tiered runs {launches}")
+    del tiered, resident, dg
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_phase(dev, check):
+    """``[train]``: tinyllama-1.1b training at full width (f32 parameters,
+    bf16 compute, remat, the config's 4 microbatches), seeded 0: (a) the
+    loss at init within 1.5 of ln(vocab); (b) four ``make_train_step``
+    steps on one fixed B=8, S=2048 batch with ``AdamW(learning_rate=1e-3,
+    warmup_steps=1)``: the loss falls, no parameter is NaN (at 1e-2 the
+    first update moves each weight by about its own scale, 0.013-0.022
+    here, and the loss climbs after two steps, in the JAX package as in
+    the port: ``PERF.md`` §6, the training findings); (c) at 2
+    layers, B=1, S=256, f32 compute: the loss and every gradient against a
+    float64 run of the same forward and backward; (d) there, the
+    gradients at 4 microbatches against 1; (e) the flash route refuses an
+    input that requires grad; (f) ``launch/train.py`` for 3 steps at full
+    width with its checkpoints in a temporary directory; (g) a restart
+    drill at 2 layers under ``torch.use_deterministic_algorithms``: one
+    injected failure, the losses and parameters after resuming bit for bit
+    the run's without failures.  Printed: step ms, tokens/s and the step's
+    operations bound, peak device memory, checkpoint bytes and save
+    seconds."""
+    import math
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch import train as ltrain
+    from repro_torch.models import api
+    from repro_torch.models import attention as attn
+    from repro_torch.optim import AdamW, tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    cfg = configs.get("tinyllama-1.1b")
+    model = api.build(cfg, dev, serve=False)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    check(n_params == 1_100_048_384 and all(
+        p.dtype == torch.float32 for p in tree_leaves(params)),
+          f"[train] {cfg.name}: {n_params:,} f32 parameters, compute "
+          f"{cfg.compute_dtype}, remat {cfg.remat}, microbatches "
+          f"{cfg.microbatches}")
+    b, s = 8, 2048
+    batch = api.synth_batch(cfg, api.ShapeSpec("train", "train", s, b),
+                            seed=0, device=dev)
+    with torch.no_grad():
+        loss0 = float(model.loss(params, {"tokens": batch["tokens"][:2]}))
+    check(abs(loss0 - math.log(cfg.vocab)) < 1.5,
+          f"[train] (a) the loss at init {loss0:.4f}, within 1.5 of "
+          f"ln({cfg.vocab}) = {math.log(cfg.vocab):.4f}")
+
+    # (b) four steps on one batch
+    opt = AdamW(learning_rate=1e-3, warmup_steps=1)
+    step_fn = api.make_train_step(model, opt)
+    state = opt.init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = [], []
+    p = params
+    for _ in range(4):
+        t = time.perf_counter()
+        p, state, met = step_fn(p, state, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        losses.append(float(met["loss"]))
+    peak = torch.cuda.max_memory_allocated() - m0
+    finite = all(bool(torch.isfinite(x).all()) for x in tree_leaves(p))
+    check(losses[-1] < losses[0] and finite,
+          f"[train] (b) 4 steps on one batch (B={b}, S={s}): losses "
+          f"{[round(x, 4) for x in losses]} fall, no NaN in the parameters")
+    tokens = b * s
+    n_mm = n_params - cfg.vocab * cfg.d_model       # the embedding gathers
+    attn_fwd = 4 * b * s * s * cfg.n_heads * cfg.hd * cfg.n_layers
+    # forward, its recompute and the backward (twice a forward's products)
+    bound_s = (4 * 2 * n_mm * tokens / BF16_OPS_PER_S
+               + 4 * attn_fwd / F32_OPS_PER_S)
+    step_ms = float(np.mean(secs[1:])) * 1e3
+    log(f"[train] step {step_ms:.1f} ms (steps 2-4; the first "
+        f"{secs[0] * 1e3:.1f} ms), {tokens / step_ms * 1e3:.0f} tokens/s; "
+        f"operations bound {bound_s * 1e3:.1f} ms (bf16 products at "
+        f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s, the f32 attention at "
+        f"{F32_OPS_PER_S / 1e12:.0f}); peak device memory of the phase "
+        f"{peak / 2**30:.2f} GiB; {torch.cuda.get_device_name(0)}")
+    del p, state, params, step_fn, batch, met
+    torch.cuda.empty_cache()
+
+    # (c) f32 against float64 at 2 layers; (d) 4 microbatches against 1
+    cfg2 = dataclasses.replace(cfg, n_layers=2, compute_dtype="float32")
+    m32 = api.build(cfg2, dev, serve=False)
+    m64 = api.build(dataclasses.replace(cfg2, compute_dtype="float64",
+                                        param_dtype="float64"), dev,
+                    serve=False)
+    p32 = m32.init_params(torch.Generator(device=dev).manual_seed(1))
+    b2 = api.synth_batch(cfg2, api.ShapeSpec("t", "train", 256, 4), seed=1,
+                         device=dev)
+    one = {"tokens": b2["tokens"][:1]}
+    g32, l32 = api.accumulate_grads(m32, p32, one, 1)
+    g64, l64 = api.accumulate_grads(m64, tree_map(torch.Tensor.double, p32),
+                                    one, 1)
+    loss_rel = abs(float(l32[0]) - float(l64[0])) / abs(float(l64[0]))
+    grad_rel = max(float((a.double() - c).abs().max() / c.abs().max())
+                   for a, c in zip(tree_leaves(g32), tree_leaves(g64)))
+    check(loss_rel <= 1e-5 and grad_rel <= 1e-4,
+          f"[train] (c) 2 layers, B=1, S=256, f32 against float64: loss "
+          f"rel err {loss_rel:.3e} (<= 1e-5), gradients max |diff| / max "
+          f"|g| {grad_rel:.3e}, the worst of the {len(tree_leaves(g32))} "
+          f"leaves (<= 1e-4)")
+    del g64, m64
+    ga, _ = api.accumulate_grads(m32, p32, b2, 4)
+    gb, _ = api.accumulate_grads(m32, p32, b2, 1)
+    mb_rel = max(float((a - c).abs().max() / c.abs().max())
+                 for a, c in zip(tree_leaves(ga), tree_leaves(gb)))
+    check(mb_rel <= 1e-4, f"[train] (d) gradients at 4 microbatches "
+          f"against 1 (B=4): max |diff| / max |g| {mb_rel:.3e} (<= 1e-4)")
+    del ga, gb, g32, p32, m32
+    torch.cuda.empty_cache()
+
+    # (e) the flash route refuses a graph
+    q = torch.zeros(1, 128, 4, 8, 64, device=dev, dtype=torch.bfloat16,
+                    requires_grad=True)
+    kv = torch.zeros(1, 128, 4, 64, device=dev, dtype=torch.bfloat16)
+    try:
+        attn.chunked_attention(q, kv, kv)
+        refused = ""
+    except RuntimeError as exc:
+        refused = str(exc)
+    check("no backward" in refused, f"[train] (e) the flash route refuses "
+          f"an input that requires grad: {refused[:60]}...")
+
+    # (f) the launcher at full width
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        rep = ltrain.train(ltrain.build_parser().parse_args(
+            ["--arch", cfg.name, "--steps", "3", "--batch", str(b),
+             "--seq", str(s), "--microbatches", str(cfg.microbatches),
+             "--ckpt-dir", tmp]))
+        wall = time.perf_counter() - t0
+    ckpts = ", ".join(f"step {st}: {nb / 2**30:.2f} GiB in {sec:.1f} s"
+                      for st, nb, sec in rep["checkpoints"])
+    check(rep["failures"] == 0 and len(rep["losses"]) == 3
+          and bool(np.isfinite(rep["losses"]).all()),
+          f"[train] (f) launch/train.py, 3 steps at full width: losses "
+          f"{[round(x, 4) for x in rep['losses']]}, mean step "
+          f"{rep['mean_step_s'] * 1e3:.0f} ms; checkpoints {ckpts}; "
+          f"{wall:.1f} s in all")
+    del rep
+    torch.cuda.empty_cache()
+
+    # (g) the restart drill at 2 layers, deterministic
+    drill = {}
+    for name, extra in (("clean", []), ("failure", ["--fail-at", "3"])):
+        with tempfile.TemporaryDirectory() as tmp:
+            drill[name] = ltrain.train(ltrain.build_parser().parse_args(
+                ["--arch", cfg.name, "--layers", "2", "--steps", "4",
+                 "--batch", "8", "--seq", "256", "--microbatches", "4",
+                 "--ckpt-every", "3", "--deterministic", "--ckpt-dir",
+                 tmp] + extra))
+    a, f = drill["clean"], drill["failure"]
+    same = all(torch.equal(x, y) for x, y in zip(
+        tree_leaves(a["state"]["params"]), tree_leaves(f["state"]["params"])))
+    check(f["failures"] == 1 and a["failures"] == 0
+          and f["losses"] == a["losses"] and same,
+          f"[train] (g) restart drill, 2 layers, deterministic: one "
+          f"injected failure at step 3, resumed from step 3's checkpoint; "
+          f"losses {[round(x, 6) for x in f['losses']]} and the parameters "
+          f"bit-equal to the run without failures")
+    del drill, a, f
+    torch.cuda.empty_cache()
+    log(f"[train] phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def robust_phase(g, pg, sources, resident, check):
     """``[robust]``: the robustness layer at RMAT20 / P=2 / HIGH, Q=8, chunk 2.
 
@@ -1967,6 +2396,10 @@ def direction_world_phase(check):
 
 
 def main() -> int:
+    # [train]'s restart drill runs cuBLAS under
+    # torch.use_deterministic_algorithms, which torch allows only with a
+    # fixed workspace configuration, read at the process's first product
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -2832,6 +3265,9 @@ def main() -> int:
     robust_launches = robust_phase(g, pg, sources, resident, check)
     log(f"[robust] launches on the robustness path: {robust_launches}")
 
+    # -- phase 4e: [tiered-dynamic] tiered= on a dynamic graph ---------------
+    tdyn_launches = tiered_dynamic_phase(gw, sources, dev, check)
+
     # -- phase 5: numpy oracles at RMAT12 on the card ------------------------
     small = G.rmat(12, 16, seed=SEED)
     sw = small.with_uniform_weights(seed=SEED)
@@ -2883,6 +3319,9 @@ def main() -> int:
     # -- phase 7: the LM serving path, tinyllama-1.1b at full width ---------
     lm_row, lm_err, lm_launches = lm_phase(dev, check)
 
+    # -- phase 8: LM training, tinyllama-1.1b at full width -----------------
+    train_phase(dev, check)
+
     if check.failed:
         log(f"FAILED {len(check.failed)} check(s):")
         for what in check.failed:
@@ -2908,6 +3347,7 @@ def main() -> int:
     launches["segment_reduce"] = seg_launches
     launches["flash_attention"] = lm_launches
     launches["fused_superstep.bfs_relax"] = dyn_launches["bfs_relax"]
+    launches["fused_superstep"] += tdyn_launches
     record = {"kernels": [dict(
         name=name, route="cuda", source=KERNELS[name][0],
         replaces=KERNELS[name][1], launches=launches[name],

@@ -28,6 +28,7 @@ from __future__ import annotations
 import json
 import os
 import threading
+import time
 import zlib
 from pathlib import Path
 from typing import Any, Optional, Tuple
@@ -96,6 +97,9 @@ class CheckpointManager:
         self.dir.mkdir(parents=True, exist_ok=True)
         self.keep = keep
         self._thread: Optional[threading.Thread] = None
+        # (step, bytes written, seconds from save_tree's call to the file's
+        # publication) of every save
+        self.save_log: list = []
 
     # -- save ---------------------------------------------------------------
 
@@ -113,6 +117,7 @@ class CheckpointManager:
         reads back via :meth:`manifest_extra`.
         """
         self.wait()
+        t0 = time.perf_counter()
         flat = _flatten(tree)
         if "" in flat:                       # bare-leaf tree
             flat = {"_": flat.pop("")}
@@ -139,6 +144,8 @@ class CheckpointManager:
             manifest.write_text(json.dumps(
                 {"step": step, "leaves": sorted(host),
                  "checksums": checksums, "extra": extra or {}}))
+            self.save_log.append((step, final.stat().st_size,
+                                  time.perf_counter() - t0))
             self._gc()
 
         if blocking:

@@ -1,8 +1,8 @@
 """Carry the JAX package's data across to the port.
 
 Reads a JAX-side ``PartitionedGraph``, ``BlockMetadata``, ``HybridGraph``,
-``ShardHybridData``, ``DynamicGraph`` payload, state dict or LM parameter
-pytree —
+``ShardHybridData``, ``DynamicGraph`` payload, state dict, LM parameter
+pytree or ``AdamWState`` —
 any object with the same attributes holding numpy arrays (or anything
 ``np.asarray`` takes) — without importing ``repro``, and returns the port's
 objects and tensors.  Tests use it to feed both packages the same graph,
@@ -23,6 +23,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.ell_spmv import row_plan
 from repro_torch.models.common import ArchConfig
 from repro_torch.models.transformer import layer_param_shapes
+from repro_torch.optim.adamw import AdamWState
 
 
 def _opt(x) -> Optional[np.ndarray]:
@@ -208,3 +209,28 @@ def lm_params(params, cfg: ArchConfig) -> Dict[str, torch.Tensor]:
         out["lm_head"] = put("lm_head", params["lm_head"],
                              (cfg.d_model, cfg.vocab))
     return out
+
+
+def train_params(params, device: DeviceLike = None,
+                 dtype: Optional[torch.dtype] = None):
+    """A JAX parameter pytree (nested dicts of arrays, e.g. the transformer's
+    ``init_params``) → the same tree of tensors on ``device`` (default
+    ``cuda``), each leaf in its own dtype or ``dtype``: the port's master
+    parameters for ``loss_fn`` and ``make_train_step``."""
+    dev = resolve_device(device)
+    if isinstance(params, dict):
+        return {k: train_params(v, dev, dtype) for k, v in params.items()}
+    a = np.array(params)                           # a writable copy
+    return torch.as_tensor(a, device=dev, dtype=dtype)
+
+
+def adamw_state(state, device: DeviceLike = None) -> AdamWState:
+    """A JAX ``AdamWState`` (``step``, ``mu``, ``nu``) → the port's, its
+    moments f32 tensors on ``device`` (default ``cuda``) and its step an
+    int32 scalar there."""
+    dev = resolve_device(device)
+    return AdamWState(
+        step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                          device=dev),
+        mu=train_params(state.mu, dev, torch.float32),
+        nu=train_params(state.nu, dev, torch.float32))

@@ -64,12 +64,13 @@ from repro_torch.core.hybrid import (MIN_PLUS, PLUS_TIMES, add_identity,
                                      hybrid_spmv_scan, split_layout,
                                      splits_of)
 from repro_torch.core.partition import (BlockMetadata, EdgeArrays,
-                                        PartitionedGraph, TierPlan,
+                                        NoCleanCutError, PartitionedGraph,
+                                        TierPlan,
                                         build_block_metadata, build_tier_plan,
                                         build_transposed_csc,
                                         memory_residency_bytes, slice_parts)
 from repro_torch.core.perf_model import fit_shard_pull_thresholds
-from repro_torch.core.tiered import HostArena, WindowStream
+from repro_torch.core.tiered import HostArena, OverlayArena, WindowStream
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.distributed import ShardGroup
 from repro_torch.kernels.ell_spmv import (EllPlan, plan_lanes,
@@ -901,18 +902,26 @@ def _slot_swap(state: State, new_rows: State, admit: torch.Tensor,
 # memory, streamed through the superstep window by window (core/tiered.py)
 # ---------------------------------------------------------------------------
 
-@dataclasses.dataclass(frozen=True)
+@dataclasses.dataclass
 class _TierDir:
     """One direction of a tiered engine: the hot partitions' edge arrays
     on the device (None when every partition is cold), the cold windows'
-    host arena (None when none is cold) and each window's ``(partition,
-    first segment, segments)``."""
+    host arena (None when none is cold), each window's ``(partition,
+    first segment, segments)`` and ``(partition, first slot, slots)``.
+
+    On a dynamic graph ``ov`` holds the hot partitions' tombstones and
+    delta slots on the device (None when none is hot), copied from the
+    host payload at the first run after a batch (``ov_mark``, the batch
+    count of the copy), and ``inbox_dst`` the live inbox map."""
 
     dims: _Dims
     inbox_dst: torch.Tensor                 # [P, P, o_max] int64
     hot: Optional[Dict[str, torch.Tensor]]
     arena: Optional[HostArena]
     meta: Tuple[Tuple[int, int, int], ...]
+    spans: Tuple[Tuple[int, int, int], ...] = ()
+    ov: Optional[Dict[str, torch.Tensor]] = None
+    ov_mark: int = -1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -937,11 +946,6 @@ def _identity_acc(program: VertexProgram, state: State, dims: _Dims,
     return torch.full((first.shape[0], dims.num_parts, dims.seg),
                       identity(program.combine), dtype=dtype,
                       device=first.device)
-
-
-def _not_in_slice(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet; ROADMAP.md Queue 1 item {item} brings it")
 
 
 class BSPEngine:
@@ -994,7 +998,8 @@ class BSPEngine:
     results bit for bit wherever the sums have a fixed order (everywhere
     but the reference backend's scatter on the card).  The engine makes
     its host arenas and window buffers before the first superstep and
-    none after (``tiered_stats()["buffers_made"]``).  ``residency_bytes``
+    none after but at a dynamic graph's compaction
+    (``tiered_stats()["buffers_made"]``).  ``residency_bytes``
     and ``tiered_stats`` report the split.
 
     ``execute(chunk=k)`` runs the converge loop in windows of ``k``
@@ -1015,8 +1020,21 @@ class BSPEngine:
     the rows' slots and the push arrays, and a row without a free slot
     rebuilds the split (``hybrid_dyn_rebuilds``).  ``execute(
     incremental=dirty)`` warm-starts a program's :class:`IncrementalForm`.
-    ``tiered=`` on a dynamic graph is not ported yet (ROADMAP Queue 1
-    item 11).
+
+    ``tiered=`` on a dynamic graph runs on the reference and fused
+    backends (the hybrid refuses, as in the JAX package).  The graph's
+    payload stays in host memory (``DynamicGraph(device="cpu")``, pinned
+    with ``pin=True`` for a card): the hot partitions' tombstones and delta
+    slots are copied to the device at the first run after a batch and
+    folded into the hot compute as on a resident engine; each cold
+    window streams its slice of the current tombstones beside its edges,
+    and after the base windows each cold partition's delta slots stream
+    as one reference-compute window, combined into the partition's
+    accumulator row (base ⊕ delta).  ``build_tier_plan(dynamic=)`` counts
+    the overlay, so ``tier_plan.hbm_bytes`` stays the engine's device
+    bytes.  A compaction re-plans the tiers over the new layout at the
+    same budget (doubling ``win_blocks`` if a destination run outgrew the
+    windows) and rebuilds the arenas and buffers at the next run.
     """
 
     def __init__(self, pg, *, backend: Optional[str] = None,
@@ -1045,8 +1063,19 @@ class BSPEngine:
         # session counts as expected, like compaction rebinds
         self.hybrid_dyn_rebuilds = 0
         if isinstance(pg, DynamicGraph):
-            if tiered is not None:
-                raise _not_in_slice("tiered= on a dynamic graph", "11")
+            if tiered is not None and backend == HYBRID:
+                raise ValueError(
+                    "tiered= with backend='hybrid' does not support dynamic "
+                    "graphs: delta slots stream with their base edge "
+                    "blocks, which the row-tiered ELL split has no blocks "
+                    "for; use backend='reference' or 'fused' for tiered "
+                    "dynamic runs")
+            if tiered is not None and pg.device.type != "cpu":
+                raise ValueError(
+                    "a tiered engine streams the cold partitions' "
+                    "tombstones and delta slots from host memory: build "
+                    "the DynamicGraph with device='cpu' (and pin=True "
+                    "for an engine on a card)")
             self.dg = pg
             self._dyn_version = pg.version
             pg = pg.pg
@@ -1065,6 +1094,7 @@ class BSPEngine:
         self._dyn_ell_spare = int(dynamic_ell_spare)
         self.tier_plan: Optional[TierPlan] = None
         self.tiered_buffers_made = 0
+        self._tiered_req, self._win_blocks = tiered, win_blocks
         self._bind(pg, tiered=tiered is not None)
         if tiered is not None:
             self._bind_tiered(tiered, win_blocks)
@@ -1407,8 +1437,24 @@ class BSPEngine:
             # version first: _bind reads self.pg, whose getter re-enters
             # this sync, and the new version makes that a no-op
             self._dyn_version = self.dg.version
-            self._bind(self.dg.pg)
+            tiered = self._tiered_req is not None
+            self._bind(self.dg.pg, tiered=tiered)
+            if tiered:
+                self._replan_tiered()
             self.dynamic_rebinds += 1
+
+    def _replan_tiered(self) -> None:
+        """The tiers of a compacted layout, planned at the request's budget
+        (a prebuilt plan described the old layout).  A compaction can make
+        a destination run longer than the windows; the windows then double
+        until the new layout cuts cleanly (``tier_plan.fwd.win_blocks``)."""
+        req = self._tiered_req
+        budget = req.hbm_budget_bytes if isinstance(req, TierPlan) else req
+        while True:
+            try:
+                return self._bind_tiered(budget, self._win_blocks)
+            except NoCleanCutError:
+                self._win_blocks *= 2
 
     def _dyn_edges(self, program: VertexProgram, edges: dict,
                    flip_tomb: bool = False) -> Tuple[dict, dict]:
@@ -1690,11 +1736,16 @@ class BSPEngine:
         reference compute's ``src``/``dst_ext``/``weight`` (the hybrid
         streams them for programs it cannot split; its split tiers by
         rows, ``_hybrid_tiered_for``).
+
+        On a dynamic graph the plan counts the overlay, the hot partitions'
+        tombstones and delta slots get device buffers (``_TierDir.ov``)
+        and the window buffers gain a tombstone slice and a delta window.
+        A compaction lands here again through ``_sync_dynamic``.
         """
-        pg, block_e, dev = self.pg, self._block_e, self.device
+        pg, block_e, dev, dg = self._pg, self._block_e, self.device, self.dg
         plan = tiered if isinstance(tiered, TierPlan) else build_tier_plan(
             pg, int(tiered), block_e=block_e, win_blocks=win_blocks,
-            fused=self.fused)
+            fused=self.fused, dynamic=dg)
         if plan.fwd.block_e != block_e:
             raise ValueError(f"the tier plan cuts windows at block_e="
                              f"{plan.fwd.block_e}, the engine's is {block_e}")
@@ -1727,9 +1778,10 @@ class BSPEngine:
                     arrays["weight"] = (ea.weight, f32)
             hot_dev = ({k: self._put(a[hot], dt)
                         for k, (a, dt) in arrays.items()} if hot else None)
-            windows, meta = [], []
+            windows, meta, spans = [], [], []
             for p, st, cnt in zip(sched.part, sched.start, sched.count):
                 p, st, cnt = int(p), int(st), int(cnt)
+                spans.append((p, st, cnt))
                 lo = int(ea.dst_ext[p, st])
                 nseg = int(ea.dst_ext[p, st + cnt - 1]) - lo + 1
                 if self.fused:
@@ -1753,30 +1805,96 @@ class BSPEngine:
                 for k, (_, dt) in arrays.items():
                     sizes[k] = (dt, sched.win_blocks if k == "blk_base"
                                 else win_e)
+            ov = None
+            if dg is not None:
+                pl = dg.payload(use_rev)
+                if hot:
+                    ov = {k: torch.empty((len(hot),) + tuple(pl[k].shape[1:]),
+                                         dtype=pl[k].dtype, device=dev)
+                          for k in ("tomb", "d_src", "d_dst_ext", "d_weight")
+                          if k in pl}
+                if windows:
+                    sizes["tomb"] = (torch.bool, win_e)
+                    for k in ("d_src", "d_dst_ext", "d_weight"):
+                        if k in pl:
+                            sizes[k] = (pl[k].dtype, dg.delta_slots)
             self._tier[use_rev] = _TierDir(
                 dims=_Dims(pg.num_parts, pg.v_max, ea.e_max, ea.o_max),
                 inbox_dst=self._put(ea.inbox_dst, i64), hot=hot_dev,
-                arena=arena, meta=tuple(meta))
+                arena=arena, meta=tuple(meta), spans=tuple(spans), ov=ov)
         self._tier_stream = None
         if sizes:
             self._tier_stream = WindowStream(sizes, dev)
             self.tiered_buffers_made += 1
+
+    def _tier_overlay(self, use_rev: bool, td: _TierDir) -> dict:
+        """A tiered dynamic direction's host payload, with the hot
+        partitions' tombstones and delta slots and the inbox map copied to
+        the device if a batch came since the last copy."""
+        pl = self.dg.payload(use_rev)
+        if td.ov_mark != self.dg.num_batches:
+            if td.ov is not None:
+                hot = torch.as_tensor(self.tier_plan.hot, dtype=torch.int64)
+                for k, buf in td.ov.items():
+                    buf.copy_(pl[k].index_select(0, hot))
+            td.inbox_dst.copy_(pl["inbox_dst"])
+            td.ov_mark = self.dg.num_batches
+        return pl
 
     def _tiered_step_fn(self, program: VertexProgram) -> Callable:
         """One tiered superstep (reference and fused backends): the hot
         partitions' compute into the identity-filled ``[Q, P, seg]``
         accumulator, each streamed window's compute written over its own
         segment range of row ``p`` (clean cuts: no other window has an edge
-        there), then the resident superstep's tail."""
-        td = self._tier.get(bool(program.use_reverse))
+        there), then the resident superstep's tail.
+
+        On a dynamic graph the hot compute folds the hot tombstones in and
+        combines the hot delta slots' reference compute, as the resident
+        superstep does; a base window folds its tombstone slice in (out
+        of the block mask, or to a sink segment past the window's range),
+        and each cold partition's delta window, streamed after the base
+        windows, is combined into its row."""
+        use_rev = bool(program.use_reverse)
+        td = self._tier.get(use_rev)
         if td is None:
             raise ValueError("program needs reverse edges; partition with "
                              "include_reverse=True")
         spec = program.edge_msg
         fused = self.fused and spec is not None
+        combine = program.combine
         dims, hot, stream = td.dims, self._tier_hot, self._tier_stream
+        hot_e, arena, hot_delta, cold = td.hot, td.arena, None, ()
+        if self.dg is not None:
+            pl = self._tier_overlay(use_rev, td)
+            if td.ov is not None:
+                tomb = td.ov["tomb"]
+                hot_e = dict(hot_e)
+                if fused:
+                    alive = torch.zeros(hot_e["blk_mask"].shape,
+                                        dtype=torch.int32, device=self.device)
+                    alive[:, :tomb.shape[1]] = ~tomb
+                    hot_e["blk_mask"] = hot_e["blk_mask"] * alive
+                else:
+                    hot_e["dst_ext"] = torch.where(tomb, dims.v_max,
+                                                   hot_e["dst_ext"])
+                hot_delta = dict(src=td.ov["d_src"],
+                                 dst_ext=td.ov["d_dst_ext"])
+                if "d_weight" in td.ov:
+                    hot_delta["weight"] = td.ov["d_weight"]
+            if arena is not None:
+                cold = [int(p) for p in self.tier_plan.cold]
+                arena = OverlayArena(
+                    arena, td.spans, pl["tomb"],
+                    {k: pl[k] for k in ("d_src", "d_dst_ext", "d_weight")
+                     if k in pl}, cold)
+        nbase = len(td.meta)
 
         def step_fn(state, step):
+            def ref_compute(e, sel, nseg):
+                msgs = program.edge_fn({k: v[:, sel] for k, v in state.items()},
+                                       e["src"], e.get("weight"), float(step))
+                return segment_reduce_ref(msgs, e["dst_ext"], nseg, combine)
+
             if fused:
                 vstate, scal = _fused_inputs(spec, state, step)
 
@@ -1786,31 +1904,48 @@ class BSPEngine:
                         e.get("weight_blk") if spec.use_weight else None,
                         scal[:, sel], e["blk_src"], e["blk_local"],
                         e["blk_mask"], e["blk_base"], None,
-                        num_segments=nseg, combine=program.combine,
+                        num_segments=nseg, combine=combine,
                         block_e=self._block_e)
             else:
-                def compute(e, sel, nseg):
-                    msgs = program.edge_fn({k: v[:, sel]
-                                            for k, v in state.items()},
-                                           e["src"], e.get("weight"),
-                                           float(step))
-                    return segment_reduce_ref(msgs, e["dst_ext"], nseg,
-                                              program.combine)
+                compute = ref_compute
 
-            wins = (stream.windows(td.arena) if td.arena is not None
+            wins = (stream.windows(arena) if arena is not None
                     else iter(()))
             acc = None
-            if td.hot is not None:
-                acc_h = compute(td.hot, hot, dims.seg)
+            if hot_e is not None:
+                acc_h = compute(hot_e, hot, dims.seg)
+                if hot_delta is not None:
+                    acc_h = _combine(combine, acc_h,
+                                     ref_compute(hot_delta, hot, dims.seg))
                 acc = _identity_acc(program, state, dims, acc_h.dtype)
                 acc[:, hot] = acc_h
             for w, views in wins:
+                if w >= nbase:          # a cold partition's delta window
+                    p = cold[w - nbase]
+                    d = dict(src=views["d_src"][None],
+                             dst_ext=views["d_dst_ext"][None])
+                    if "d_weight" in views:
+                        d["weight"] = views["d_weight"][None]
+                    acc_d = ref_compute(d, slice(p, p + 1), dims.seg)[:, 0]
+                    if acc is None:
+                        acc = _identity_acc(program, state, dims, acc_d.dtype)
+                    acc[:, p] = _combine(combine, acc[:, p], acc_d)
+                    continue
                 p, lo, nseg = td.meta[w]
+                tomb, sink = views.pop("tomb", None), 0
+                if tomb is not None:
+                    # the buffers are this window's own until its compute
+                    # is enqueued: fold the tombstones in place
+                    if fused:
+                        views["blk_mask"][:tomb.shape[0]].masked_fill_(tomb, 0)
+                    else:
+                        views["dst_ext"].masked_fill_(tomb, nseg)
+                        sink = 1
                 acc_w = compute({k: v[None] for k, v in views.items()},
-                                slice(p, p + 1), nseg)
+                                slice(p, p + 1), nseg + sink)
                 if acc is None:
                     acc = _identity_acc(program, state, dims, acc_w.dtype)
-                acc[:, p, lo:lo + nseg] = acc_w[:, 0]
+                acc[:, p, lo:lo + nseg] = acc_w[:, 0, :nseg]
             if acc is None:
                 acc = _identity_acc(program, state, dims, torch.float32)
             return _finish_superstep(dims, program, td.inbox_dst,
@@ -1959,8 +2094,8 @@ class BSPEngine:
         """The tier split's counters, or None on an all-resident engine.
 
         Beside the plan's figures: ``device_arena_bytes``, the bytes of the
-        hot arenas and the window buffers the engine holds (equal to
-        ``tier_plan.hbm_bytes``), ``host_arena_bytes``, the pinned arenas'
+        hot arenas (with a dynamic graph's hot overlay) and the window
+        buffers the engine holds (equal to ``tier_plan.hbm_bytes``), ``host_arena_bytes``, the pinned arenas'
         bytes, ``row_tier_device_bytes``/``row_tier_host_bytes``, those of
         the hybrid's row-tiered splits built so far, and ``buffers_made``,
         the host arenas and window buffer pairs made so far.  The JAX
@@ -1971,7 +2106,8 @@ class BSPEngine:
             return None
         plan = self.tier_plan
         dev_bytes = sum(t.nbytes for td in self._tier.values()
-                        if td.hot is not None for t in td.hot.values())
+                        for arrs in (td.hot, td.ov) if arrs is not None
+                        for t in arrs.values())
         if self._tier_stream is not None:
             dev_bytes += self._tier_stream.nbytes
         host = sum(td.arena.nbytes for td in self._tier.values()

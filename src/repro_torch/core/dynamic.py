@@ -30,7 +30,9 @@ The payload (``tomb``, ``d_src``, ``d_dst_ext``, ``d_weight``,
 ``inbox_dst``) lives as tensors on ``device`` (``cuda`` unless named); the
 host mirrors equal the JAX package's arrays after the same stream.  The
 engine (``core/bsp.py``) reads the payload at every run, so a mutation
-batch rebuilds nothing there.
+batch rebuilds nothing there.  A tiered engine takes a graph whose
+payload is on the CPU (pinned with ``pin=True`` for a card) and streams
+the cold partitions' part of it.
 
 Recovery: ``snapshot()`` gives the payload and the replay cursor for
 ``CheckpointManager.save_tree``; a restart rebuilds the graph from base
@@ -100,7 +102,8 @@ class DynamicGraph:
     ``mutation_capacity`` the most edges a batch may hold.  When a batch
     does not fit the remaining headroom the graph compacts first (the
     explicit pause), then applies it.  ``device`` holds the payload
-    (``cuda`` unless named).
+    (``cuda`` unless named); ``pin=True`` keeps a CPU payload in pinned
+    memory, which a tiered engine on a card streams from.
     """
 
     def __init__(self, g: CSRGraph, num_parts: int, strategy: str = "rand",
@@ -110,8 +113,12 @@ class DynamicGraph:
                  include_reverse: bool = False,
                  cpu_edge_fraction: Optional[float] = None,
                  seed: int = 0, align: int = 8,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, pin: bool = False):
         self.device = resolve_device(device)
+        if pin and self.device.type != "cpu":
+            raise ValueError(f"pin=True keeps the payload in pinned host "
+                             f"memory; the device is {self.device}")
+        self.pin = bool(pin)
         self.mutation_capacity = int(mutation_capacity)
         if delta_slots is None:
             delta_slots = _round_up(4 * self.mutation_capacity, align)
@@ -206,8 +213,9 @@ class DynamicGraph:
 
     def _device_payload(self, ds: _DirState) -> Dict[str, torch.Tensor]:
         def put(x, dtype):
-            return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
-                                   device=self.device)
+            t = torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
+                                device=self.device)
+            return t.pin_memory() if self.pin else t
 
         pl = {"tomb": put(ds.tomb, torch.bool),
               "d_src": put(ds.d_src, torch.int64),

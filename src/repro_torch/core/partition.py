@@ -649,6 +649,11 @@ class WindowSchedule:
         return len(self.part)
 
 
+class NoCleanCutError(ValueError):
+    """A cold partition has a destination run longer than a window, so no
+    window schedule cuts it cleanly."""
+
+
 def _clean_cut_windows(ea: EdgeArrays, cold, block_e: int,
                        win_blocks: int) -> WindowSchedule:
     """Greedy clean-cut schedule: per cold partition, walk the blocks and
@@ -673,7 +678,7 @@ def _clean_cut_windows(ea: EdgeArrays, cold, block_e: int,
             if b == cur:
                 run = int(np.max(np.bincount(
                     dst[cur * block_e: min(k, want * block_e)])))
-                raise ValueError(
+                raise NoCleanCutError(
                     f"partition {p}: a destination run of {run} edges "
                     f"spans more than win_blocks*block_e = "
                     f"{win_blocks * block_e} edge slots, so no clean "
@@ -734,9 +739,15 @@ def _arena_bytes_per_edge(weighted: bool, fused: bool) -> int:
     return 12 + w if fused else 16 + w
 
 
+def _delta_slot_bytes(weighted: bool) -> int:
+    """Device bytes per delta slot of a dynamic graph's overlay, in the
+    payload's dtypes: ``d_src``/``d_dst_ext`` int64, ``d_weight`` f32."""
+    return 16 + (4 if weighted else 0)
+
+
 def build_tier_plan(pg: PartitionedGraph, hbm_budget_bytes: int, *,
                     block_e: int = 1024, win_blocks: int = 8,
-                    fused: bool = True) -> TierPlan:
+                    fused: bool = True, dynamic=None) -> TierPlan:
     """The :class:`TierPlan` of ``pg`` under a device byte budget.
 
     ``perf_model.choose_tier_split`` picks the hot partitions (densest
@@ -744,8 +755,13 @@ def build_tier_plan(pg: PartitionedGraph, hbm_budget_bytes: int, *,
     and the byte accounting of the arenas the tiered engine puts on the
     card: ``fused=True`` the fused backend's block arrays (``[P, e_pad]``
     and a base per block), ``fused=False`` the reference compute's edge
-    arrays (``[P, e_max]``).  The hot/cold choice and the schedules equal
-    the JAX package's for the same table row; the bytes differ by dtype.
+    arrays (``[P, e_max]``).  ``dynamic`` (a ``DynamicGraph`` over ``pg``)
+    adds its overlay: a partition gains a tombstone byte per base slot per
+    direction and ``directions * delta_slots`` delta slots; a window buffer
+    gains its ``win_e`` tombstone bytes and the ``delta_slots`` slots a
+    cold partition's delta window streams in.  The hot/cold choice and the
+    schedules equal the JAX package's for the same table row; the bytes
+    differ by dtype.
     """
     from repro_torch.core import perf_model
 
@@ -755,15 +771,21 @@ def build_tier_plan(pg: PartitionedGraph, hbm_budget_bytes: int, *,
     win_e = win_blocks * block_e
 
     def _dir_bytes(ea: EdgeArrays) -> int:
+        b = ea.e_max if dynamic is not None else 0     # tombstones, 1 B
         if not fused:
-            return per_edge * ea.e_max
+            return b + per_edge * ea.e_max
         e_pad = max(_round_up(ea.e_max, block_e), block_e)
-        return per_edge * e_pad + 4 * (e_pad // block_e)
+        return b + per_edge * e_pad + 4 * (e_pad // block_e)
 
     part_bytes = np.full(P, _dir_bytes(pg.fwd), dtype=np.int64)
     if pg.rev is not None:
         part_bytes += _dir_bytes(pg.rev)
     window_bytes = per_edge * win_e + (4 * win_blocks if fused else 0)
+    if dynamic is not None:
+        delta = int(dynamic.delta_slots) * _delta_slot_bytes(
+            dynamic.weighted)
+        part_bytes += int(dynamic.directions) * delta
+        window_bytes += win_e + delta
 
     part_edges = np.asarray(pg.fwd.num_edges, dtype=np.int64).copy()
     if pg.rev is not None:

@@ -5,7 +5,10 @@ in host memory and streams them through the superstep window by window.
 :class:`HostArena` holds one direction's windows: one contiguous host
 tensor per window array, pinned when the engine runs on a CUDA device, each
 window a slice of it.  :class:`WindowStream` holds the two device buffers
-a window is copied into, allocated once, and issues the copies.
+a window is copied into, allocated once, and issues the copies.  On a
+dynamic graph :class:`OverlayArena` adds to one direction's windows their
+slices of the graph's current tombstones and, after them, one window of
+delta slots per cold partition, read from the graph's host payload.
 
 On a CUDA device the copies are ``non_blocking`` copies from pinned memory
 on a side stream.  The compute stream waits on the event recorded after a
@@ -47,6 +50,9 @@ class HostArena:
             self.offsets[k] = np.concatenate(
                 [[0], np.cumsum([len(a) for a in parts])]).astype(np.int64)
 
+    def names_of(self, w: int) -> Tuple[str, ...]:
+        return self.names
+
     def length(self, name: str, w: int) -> int:
         off = self.offsets[name]
         return int(off[w + 1] - off[w])
@@ -61,6 +67,47 @@ class HostArena:
     @property
     def nbytes(self) -> int:
         return sum(t.nbytes for t in self.tensors.values())
+
+
+class OverlayArena:
+    """One direction's stream on a tiered dynamic graph: the base windows
+    of ``base``, each with its slice of the tombstones (``tomb``), then
+    one window per cold partition of its delta slots (``delta``: ``d_src``
+    and ``d_dst_ext``, and ``d_weight`` on a weighted graph).
+
+    ``tomb`` and ``delta`` are the graph's host payload, which mutation
+    batches write in place; a window reads it when its copy is issued, so
+    every run streams the current overlay.  ``spans[w]`` is base window
+    ``w``'s ``(partition, first slot, slots)``.
+    """
+
+    def __init__(self, base: HostArena, spans, tomb: torch.Tensor,
+                 delta: Dict[str, torch.Tensor], cold):
+        self.base, self.spans, self.tomb, self.delta = base, spans, tomb, delta
+        self.cold = [int(p) for p in cold]
+        self.num_windows = base.num_windows + len(self.cold)
+        self._base_names = base.names + ("tomb",)
+        self._delta_names = tuple(delta)
+
+    def names_of(self, w: int) -> Tuple[str, ...]:
+        return (self._base_names if w < self.base.num_windows
+                else self._delta_names)
+
+    def length(self, name: str, w: int) -> int:
+        if w >= self.base.num_windows:
+            return self.delta[name].shape[1]
+        if name == "tomb":
+            return self.spans[w][2]
+        return self.base.length(name, w)
+
+    def window(self, name: str, w: int) -> torch.Tensor:
+        nb = self.base.num_windows
+        if w >= nb:
+            return self.delta[name][self.cold[w - nb]]
+        if name == "tomb":
+            p, st, cnt = self.spans[w]
+            return self.tomb[p, st:st + cnt]
+        return self.base.window(name, w)
 
 
 class WindowStream:
@@ -93,7 +140,7 @@ class WindowStream:
     def _put(self, arena: HostArena, w: int, slot: int) -> None:
         bufs = self.bufs[slot]
         if not self.cuda:
-            for k in arena.names:
+            for k in arena.names_of(w):
                 bufs[k][:arena.length(k, w)].copy_(arena.window(k, w))
             return
         cs = self.copy_stream
@@ -104,7 +151,7 @@ class WindowStream:
             start = torch.cuda.Event(enable_timing=True)
             start.record(cs)
         with torch.cuda.stream(cs):
-            for k in arena.names:
+            for k in arena.names_of(w):
                 bufs[k][:arena.length(k, w)].copy_(arena.window(k, w),
                                                    non_blocking=True)
         self.ready[slot].record(cs)
@@ -136,7 +183,8 @@ class WindowStream:
                     c0 = torch.cuda.Event(enable_timing=True)
                     c0.record(cur)
             bufs = self.bufs[slot]
-            yield w, {k: bufs[k][:arena.length(k, w)] for k in arena.names}
+            yield w, {k: bufs[k][:arena.length(k, w)]
+                      for k in arena.names_of(w)}
             if self.cuda:
                 self.free[slot].record(cur)
                 if self.timing is not None:

@@ -33,7 +33,10 @@ harvested and refilled from the admission queue at chunk boundaries, and
 the report compares ``continuous_qps``/p99 against the drain-batch
 baseline on the same stream.  ``--depth-buckets`` orders the stream by
 estimated depth.  ``--hbm-budget`` builds a tiered engine, which the drain
-mode serves and the continuous mode refuses.
+and mutating modes serve and the continuous mode refuses; with
+``--mutate`` the dynamic graph's payload stays in host memory (pinned on
+a card), and the engine streams the cold partitions' tombstones and delta
+slots with their windows.
 
 ``--mutate`` serves an evolving graph: a resident ``DynamicGraph`` takes
 ``--mutation-rounds`` batches of ``--mutation-batch`` edges (``--churn``
@@ -303,11 +306,13 @@ def serve(engine, alg: str, sources: np.ndarray, batch: int,
 def build_engine(args, dynamic: bool = False):
     """``(graph, partitioned graph, engine)`` from the CLI arguments;
     with ``dynamic`` a ``DynamicGraph`` (mutation capacity
-    ``--mutation-batch``) in place of the partitioned graph."""
+    ``--mutation-batch``) in place of the partitioned graph, its payload
+    in host memory under ``--hbm-budget``."""
     from repro_torch.core import graph as G
     from repro_torch.core import partition as PT
     from repro_torch.core.bsp import BSPEngine
     from repro_torch.core.dynamic import DynamicGraph
+    from repro_torch.device import resolve_device
 
     gen = G.rmat if args.graph == "rmat" else G.uniform
     g = gen(args.scale, args.edge_factor, seed=args.seed)
@@ -318,10 +323,14 @@ def build_engine(args, dynamic: bool = False):
         kw["tiered"] = args.hbm_budget
         kw["win_blocks"] = args.win_blocks
     if dynamic:
+        # a tiered engine streams the cold overlay from host memory
+        host = args.hbm_budget is not None
+        on_card = resolve_device(args.device).type == "cuda"
         dg = DynamicGraph(g, args.parts, args.strategy,
                           include_reverse=(args.alg == "bc"),
                           mutation_capacity=args.mutation_batch,
-                          device=args.device)
+                          device="cpu" if host else args.device,
+                          pin=host and on_card)
         return g, dg, BSPEngine(dg, device=args.device, **kw)
     pg = PT.partition(g, args.parts, args.strategy,
                       include_reverse=(args.alg == "bc"))
@@ -1330,6 +1339,24 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def _report_tiers(engine, args) -> bool:
+    """Print a tiered engine's split; True when the plan exceeds the
+    budget.  Admission charges the device figure only against the budget:
+    host-tier partitions stream from host memory."""
+    stats = engine.tiered_stats()
+    resid = engine.residency_bytes()
+    print(f"tiered: {stats['num_hot']} hot / {stats['num_cold']} "
+          f"host-tier partitions; arena hbm={stats['hbm_resident_bytes']:,}"
+          f" B <= budget {args.hbm_budget:,} B; residency "
+          f"hbm={resid['hbm_bytes']:,} B host={resid['host_bytes']:,} B "
+          f"(streams {stats['streamed_bytes_per_superstep']:,} B/"
+          f"superstep over {stats['window_count']} windows)", flush=True)
+    if stats["hbm_resident_bytes"] > args.hbm_budget:
+        print("error: tier plan exceeds the HBM budget", file=sys.stderr)
+        return True
+    return False
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.smoke:
@@ -1406,6 +1433,8 @@ def main(argv=None) -> int:
               f"strategy={args.strategy} backend={args.backend} "
               f"delta_slots={dg.delta_slots}/partition "
               f"device={engine.device}", flush=True)
+        if engine.tier_plan is not None and _report_tiers(engine, args):
+            return 2
         report = serve_mutating(
             engine, dg, args.alg, batches=stream, batch=args.batch,
             standing=args.standing, query_batches_per_round=2,
@@ -1435,20 +1464,8 @@ def main(argv=None) -> int:
     print(f"resident graph: |V|={g.num_vertices:,} |E|={g.num_edges:,} "
           f"parts={args.parts} strategy={args.strategy} "
           f"backend={args.backend} device={engine.device}", flush=True)
-    if engine.tier_plan is not None:
-        # admission charges the device figure only against the budget:
-        # host-tier partitions stream from host memory
-        stats = engine.tiered_stats()
-        resid = engine.residency_bytes()
-        print(f"tiered: {stats['num_hot']} hot / {stats['num_cold']} "
-              f"host-tier partitions; arena hbm={stats['hbm_resident_bytes']:,}"
-              f" B <= budget {args.hbm_budget:,} B; residency "
-              f"hbm={resid['hbm_bytes']:,} B host={resid['host_bytes']:,} B "
-              f"(streams {stats['streamed_bytes_per_superstep']:,} B/"
-              f"superstep over {stats['window_count']} windows)", flush=True)
-        if stats["hbm_resident_bytes"] > args.hbm_budget:
-            print("error: tier plan exceeds the HBM budget", file=sys.stderr)
-            return 2
+    if engine.tier_plan is not None and _report_tiers(engine, args):
+        return 2
 
     if cfg.mode == "depth":
         rep = serve_depth_bucketed(engine, g, args.alg, sources, args.batch,

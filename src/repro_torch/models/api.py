@@ -1,26 +1,35 @@
-"""Model API: the serving entry points of one architecture.
+"""Model API: the serving and training entry points of one architecture.
 
 The counterpart of ``repro/models/api.py`` for the dense family:
 
-  build(cfg, device, generator) → Model (weights drawn from the generator)
+  build(cfg, device, generator) → Model (serving weights drawn from the
+      generator; ``serve=False`` skips them for a trainer)
+  model.init_params(generator) → params (the f32 master tree)
+  model.loss(params, microbatch) → scalar
   model.prefill(batch, max_len) → (last logits, cache)
   model.decode_step(cache, tokens) → (logits, cache)
   model.init_cache(batch, max_len) → cache
+  make_train_step(model, optimizer, microbatches) → train_step
+  accumulate_grads(model, params, batch, microbatches) → (grads, losses)
 
-``loss`` raises: training is a later slice (``ROADMAP.md`` Queue 1 item
-15), and so are the other families, which ``build`` refuses.  Entry points
-run on ``cuda`` unless the caller names another device.
+``input_specs``/``synth_batch`` make the train and prefill batches with the
+JAX package's numpy draws.  The other families, which ``build`` refuses,
+are a later slice (``ROADMAP.md`` Queue 1 item 15).  Entry points run on
+``cuda`` unless the caller names another device.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.models.common import ArchConfig
+from repro_torch.optim.adamw import (AdamW, AdamWState, apply_updates,
+                                     tree_leaves, tree_map)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,37 +51,141 @@ SHAPES = {
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ArchConfig
-    module: T.Transformer
+    module: Optional[T.Transformer]
+    device: torch.device
 
-    @property
-    def device(self) -> torch.device:
-        return self.module.device
+    def _serving(self) -> T.Transformer:
+        if self.module is None:
+            raise ValueError("this model was built with serve=False: it has "
+                             "no serving weights")
+        return self.module
 
     def prefill(self, batch: Dict[str, torch.Tensor],
                 max_len: Optional[int] = None) -> Tuple[torch.Tensor, Dict]:
-        return T.prefill(self.module, batch, max_len)
+        return T.prefill(self._serving(), batch, max_len)
 
     def decode_step(self, cache: Dict, tokens: torch.Tensor
                     ) -> Tuple[torch.Tensor, Dict]:
-        return T.decode_step(self.module, cache, tokens)
+        return T.decode_step(self._serving(), cache, tokens)
 
     def init_cache(self, batch: int, max_len: int) -> Dict:
         return T.init_cache(self.cfg, batch, max_len, self.device)
 
-    def loss(self, *args, **kwargs):
-        return T.loss_fn(*args, **kwargs)
+    def init_params(self, generator: Optional[torch.Generator] = None
+                    ) -> T.Params:
+        """The master parameters (``T.init_train_params``), drawn from
+        ``generator`` (default: one on the device seeded 0)."""
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        return T.init_train_params(self.cfg, generator, self.device)
+
+    def loss(self, params: T.Params,
+             batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        return T.loss_fn(params, batch, cfg=self.cfg)
 
 
 def build(cfg: ArchConfig, device: DeviceLike = None,
-          generator: Optional[torch.Generator] = None) -> Model:
+          generator: Optional[torch.Generator] = None, *,
+          serve: bool = True) -> Model:
     """The model of ``cfg`` on ``device`` (``cuda`` by default; raises
-    without a card), its weights drawn from ``generator`` (default: one on
-    the device seeded 0, as ``repro/launch/serve.py``'s ``key(0)``).  Raises
+    without a card), its serving weights drawn from ``generator``
+    (default: one on the device seeded 0, as ``repro/launch/serve.py``'s
+    ``key(0)``); ``serve=False`` makes none, for a trainer.  Raises
     ``NotImplementedError`` for a family the port does not run yet."""
     dev = resolve_device(device)
     T.check_supported(cfg)
-    if generator is None:
-        generator = torch.Generator(device=dev).manual_seed(0)
-    module = T.Transformer(cfg, dev)
-    T.init_params(module, generator)
-    return Model(cfg=cfg, module=module)
+    module = None
+    if serve:
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        module = T.Transformer(cfg, dev)
+        T.init_params(module, generator)
+    return Model(cfg=cfg, module=module, device=dev)
+
+
+# ---------------------------------------------------------------------------
+# Input specs and synthetic batches
+# ---------------------------------------------------------------------------
+
+class TensorSpec(NamedTuple):
+    """A batch input's shape and dtype (JAX's ``ShapeDtypeStruct``)."""
+
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> Dict[str, TensorSpec]:
+    """The token inputs of a train (``[B, S + 1]``) or prefill (``[B, S]``)
+    batch.  Decode shapes, whose inputs hold a cache, and the front ends'
+    inputs come with ``launch/dryrun.py`` and those families (item 15)."""
+    T.check_supported(cfg)
+    b, s = shape.batch, shape.seq
+    if shape.kind == "train":
+        return {"tokens": TensorSpec((b, s + 1), torch.int32)}
+    if shape.kind == "prefill":
+        return {"tokens": TensorSpec((b, s), torch.int32)}
+    raise NotImplementedError(
+        f"{shape.kind} input specs are not ported yet: ROADMAP.md Queue 1 "
+        f"item 15 brings launch/dryrun.py")
+
+
+def synth_batch(cfg: ArchConfig, shape: ShapeSpec, seed: int = 0,
+                device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """A random batch matching ``input_specs``: the JAX package's draws
+    (``default_rng(seed)``, integers in ``[0, vocab)``), on ``device``."""
+    rng = np.random.default_rng(seed)
+    dev = resolve_device(device)
+    return {k: torch.as_tensor(rng.integers(0, cfg.vocab, spec.shape),
+                               dtype=spec.dtype, device=dev)
+            for k, spec in sorted(input_specs(cfg, shape).items())}
+
+
+# ---------------------------------------------------------------------------
+# Step builders
+# ---------------------------------------------------------------------------
+
+def make_train_step(model: Model, optimizer: Optional[AdamW] = None,
+                    microbatches: Optional[int] = None):
+    """``(params, opt_state, batch) → (params, opt_state, metrics)``.
+
+    The batch is cut into ``microbatches`` (default ``cfg.microbatches``)
+    along its first axis; each one's gradients are accumulated in f32 and
+    the sum divided by their count, then AdamW updates the parameters.
+    Metrics: ``loss`` (the mean over microbatches) and ``grad_norm_sq``,
+    as 0-dim tensors.  The step returns new parameter tensors; ``params``
+    are read, not written.
+    """
+    optimizer = optimizer or AdamW()
+    n_mb = microbatches or model.cfg.microbatches
+
+    def train_step(params, opt_state: AdamWState, batch):
+        grads, losses = accumulate_grads(model, params, batch, n_mb)
+        updates, opt_state = optimizer.update(grads, opt_state, params)
+        params = apply_updates(params, updates)
+        metrics = {"loss": losses.mean(),
+                   "grad_norm_sq": sum(g.square().sum()
+                                       for g in tree_leaves(grads))}
+        return params, opt_state, metrics
+
+    return train_step
+
+
+def accumulate_grads(model: Model, params, batch: Dict[str, torch.Tensor],
+                     microbatches: int):
+    """The gradient of ``model.loss`` over ``batch`` cut into
+    ``microbatches`` along its first axis: each microbatch's gradients
+    summed in f32, then divided by their count.  Returns ``(grads,
+    losses [microbatches])``; ``params`` are read, not written."""
+    live = tree_map(lambda p: p.detach().requires_grad_(), params)
+    leaves = tree_leaves(live)
+    mbs = {k: v.reshape(microbatches, v.shape[0] // microbatches,
+                        *v.shape[1:]) for k, v in batch.items()}
+    acc = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
+    losses = []
+    for i in range(microbatches):
+        loss = model.loss(live, {k: v[i] for k, v in mbs.items()})
+        for a, g in zip(acc, torch.autograd.grad(loss, leaves)):
+            a += g.float()
+        losses.append(loss.detach())
+    it = iter(a / microbatches for a in acc)
+    return tree_map(lambda _: next(it), params), torch.stack(losses)

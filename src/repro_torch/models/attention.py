@@ -1,4 +1,5 @@
-"""Attention: GQA prefill through the flash kernel, KV-cache decode.
+"""Attention: GQA prefill through the flash kernel, KV-cache decode, and
+the training attention.
 
 The counterpart of ``repro/models/attention.py``.  The JAX prefill runs its
 layers under ``lax.scan`` with each layer's window a traced value, so it
@@ -11,6 +12,11 @@ softmax of the JAX function (``kernels/ref.py::flash_attention_ref``, whose
 ``attention_mask`` is the JAX ``_mask``).  For bf16 inputs both round P to
 bf16 before P·V, as the Pallas kernel does; the JAX function keeps P in
 f32.
+
+The flash kernel has no backward (nor has the Pallas one), so training
+runs ``training_attention``: the JAX model's ``chunked_attention`` in plain
+PyTorch under autograd, P kept in f32.  ``chunked_attention`` refuses an
+input that requires a gradient rather than return a result with no graph.
 
 GQA keeps the grouped layout: q heads are ``[G, R]`` (KV groups × q heads
 per group) and no KV head is repeated.  ``cross_attention`` waits for the
@@ -46,6 +52,11 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``q_offset`` (queries placed after a prefix) has no caller there and is
     not ported.
     """
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "chunked_attention is the serving path (the flash kernel and "
+            "its plain version) and has no backward; train through "
+            "training_attention")
     window = int(window) if causal else 0
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
@@ -77,3 +88,66 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bgrk,bkgd->bgrd", p, vc)
     return out[:, None].to(q.dtype)
+
+
+NEG_INF = -1e30        # the JAX model's mask value
+
+
+def attention_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
+                   window: int) -> torch.Tensor:
+    """Causal, and within ``window`` positions when it is positive (the
+    JAX ``_mask``): ``[qc, kc]`` bool."""
+    m = q_pos[:, None] >= k_pos[None, :]
+    if window > 0:
+        m &= (q_pos[:, None] - k_pos[None, :]) < window
+    return m
+
+
+def training_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       *, window: int = 0, causal: bool = True,
+                       q_chunk: int = 1024, k_chunk: int = 1024
+                       ) -> torch.Tensor:
+    """The JAX model's ``chunked_attention`` (``repro/models/attention.py``)
+    under autograd.  q: ``[B, Sq, G, R, D]``; k, v: ``[B, Skv, G, D]``;
+    returns ``[B, Sq, G, R, D]`` in q's dtype.
+
+    An online softmax over key chunks for each query chunk, all in f32
+    (float64 for float64 inputs): the scores, P and the running max, sum
+    and output, masked with ``NEG_INF`` (not -inf, as in JAX).  The chunks only bound the live scores
+    ``[B, G, R, qc, kc]``; the layer's checkpoint recomputes them in the
+    backward pass.
+    """
+    b, sq, g, r, d = q.shape
+    skv = k.shape[1]
+    q_chunk, k_chunk = min(q_chunk, sq), min(k_chunk, skv)
+    if sq % q_chunk or skv % k_chunk:
+        raise ValueError(f"chunks ({q_chunk}, {k_chunk}) must divide the "
+                         f"lengths ({sq}, {skv})")
+    scale = 1.0 / (d ** 0.5)
+    work = dict(dtype=torch.promote_types(q.dtype, torch.float32),
+                device=q.device)                     # float64 stays float64
+    outs = []
+    for q0 in range(0, sq, q_chunk):
+        qi = q[:, q0:q0 + q_chunk].to(work["dtype"])       # [B, qc, G, R, D]
+        q_pos = q0 + torch.arange(q_chunk, device=q.device)
+        m_run = torch.full((b, g, r, q_chunk), NEG_INF, **work)
+        l_run = torch.zeros((b, g, r, q_chunk), **work)
+        acc = torch.zeros((b, g, r, q_chunk, d), **work)
+        for k0 in range(0, skv, k_chunk):
+            ki = k[:, k0:k0 + k_chunk].to(work["dtype"])   # [B, kc, G, D]
+            vi = v[:, k0:k0 + k_chunk].to(work["dtype"])
+            s = torch.einsum("bqgrd,bkgd->bgrqk", qi, ki) * scale
+            if causal:
+                k_pos = k0 + torch.arange(k_chunk, device=q.device)
+                s = torch.where(attention_mask(q_pos, k_pos, int(window)),
+                                s, NEG_INF)
+            m_new = torch.maximum(m_run, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m_run - m_new)
+            l_run = l_run * alpha + p.sum(-1)
+            acc = (acc * alpha[..., None]
+                   + torch.einsum("bgrqk,bkgd->bgrqd", p, vi))
+            m_run = m_new
+        out = acc / l_run.clamp_min(1e-30)[..., None]
+        outs.append(out.to(q.dtype))                       # [B, G, R, qc, D]
+    return torch.cat(outs, dim=3).permute(0, 3, 1, 2, 4)

@@ -1,13 +1,16 @@
-"""Shared model pieces: the architecture config, RMS norm and RoPE.
+"""Shared model pieces: the architecture config, RMS norm, RoPE and the
+cross-entropy loss.
 
 Copied from ``repro/models/common.py`` (which imports JAX).  The JAX
-package's mesh and training knobs (``logical_constraint``, ``opt_enabled``)
-have no counterpart: the port runs on one card and serves only.
+package's mesh knobs and optimization flags (``logical_constraint``,
+``opt_enabled``) have no counterpart: the port runs on one card, with the
+flags' defaults (an f32 gradient accumulator, the layers cast per layer).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import torch
 
@@ -117,3 +120,18 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token-mean cross entropy: the logits in f32 (float64 stays float64),
+    ``logsumexp`` minus the gold logit, averaged over the tokens (over
+    ``mask``'s weight when given, at least 1)."""
+    logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels[..., None].long()).squeeze(-1)
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.to(nll.dtype)
+        return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    return nll.mean()

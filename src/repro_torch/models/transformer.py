@@ -2,21 +2,29 @@
 
 The counterpart of ``repro/models/transformer.py`` (``_layer_param_shapes``,
 ``init_params``, ``layer_windows``, ``_qkv``, ``_ffn``, ``_embed_inputs``,
-``_lm_logits``, ``init_cache``, ``prefill``, ``decode_step``) for the
-serving path.  The JAX package stacks the layers on a leading L axis and
-runs them under ``lax.scan``; here each layer is a ``DecoderLayer`` in an
-``nn.ModuleList`` and runs in a Python loop, so every layer's attention
-window is a Python int and the prefill attention is the flash kernel
-(``attention.chunked_attention``).
+``_lm_logits``, ``loss_fn``, ``init_cache``, ``prefill``,
+``decode_step``).  The JAX package stacks the layers on a leading L axis
+and runs them under ``lax.scan``; here each layer runs in a Python loop,
+so every layer's attention window is a Python int.
 
+Serving: each layer is a ``DecoderLayer`` in an ``nn.ModuleList`` and the
+prefill attention is the flash kernel (``attention.chunked_attention``).
 Weights keep the JAX layout ``[in, out]`` (``x @ W``) and are stored in the
 compute dtype, cast once when they are set: the JAX package casts the f32
 parameters to the compute dtype per layer per call, which rounds them the
 same way.  The final norm's scale stays in the parameter dtype, as it does
 in the JAX ``_lm_logits``.
 
-Not here yet (``ROADMAP.md`` Queue 1 item 15): MoE layers, the
-encoder-decoder and vision front ends, ``loss_fn`` and training.
+Training is functional, as in JAX: ``init_train_params`` gives the JAX
+pytree (``embed``, ``layers`` stacked on a leading L axis, ``final_norm``,
+``lm_head``) in the parameter dtype, and ``loss_fn(params, batch, cfg=)``
+casts each layer's slice to the compute dtype per call, so gradients reach
+the f32 leaves.  Its attention is ``attention.training_attention`` (the
+flash kernel has no backward), and ``cfg.remat`` checkpoints each layer
+(``torch.utils.checkpoint``, JAX's ``nothing_saveable``).
+
+Not here yet (``ROADMAP.md`` Queue 1 item 15): MoE layers and the
+encoder-decoder and vision front ends.
 """
 from __future__ import annotations
 
@@ -27,14 +35,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
-from repro_torch.models.common import ArchConfig, dtype_of, rms_norm, rope
+from repro_torch.models.common import (ArchConfig, cross_entropy_loss,
+                                       dtype_of, rms_norm, rope)
 
 Cache = Dict[str, object]
 
 _NOT_PORTED = ("not ported yet: ROADMAP.md Queue 1 item 15 brings MoE, "
-               "encoder-decoder, vision, SSM and hybrid models and training")
+               "encoder-decoder, vision, SSM and hybrid models")
 
 
 def check_supported(cfg: ArchConfig) -> None:
@@ -65,6 +75,42 @@ def layer_windows(cfg: ArchConfig) -> np.ndarray:
     return np.zeros(cfg.n_layers, dtype=np.int32)
 
 
+def _qkv(cfg: ArchConfig, lp: Dict[str, torch.Tensor], h: torch.Tensor):
+    """``_qkv``: q ``[B, S, G, R, hd]``, k and v ``[B, S, G, hd]``."""
+    b, s, _ = h.shape
+    g, hd = cfg.n_kv_heads, cfg.hd
+    r = cfg.n_heads // g
+    return ((h @ lp["wq"]).reshape(b, s, g, r, hd),
+            (h @ lp["wk"]).reshape(b, s, g, hd),
+            (h @ lp["wv"]).reshape(b, s, g, hd))
+
+
+def _ffn(lp: Dict[str, torch.Tensor], h: torch.Tensor) -> torch.Tensor:
+    """``_ffn``: SwiGLU."""
+    return (F.silu(h @ lp["w_gate"]) * (h @ lp["w_up"])) @ lp["w_down"]
+
+
+def _decoder_layer(cfg: ArchConfig, lp: Dict[str, torch.Tensor],
+                   x: torch.Tensor, positions: torch.Tensor, window: int,
+                   attention) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """``_decoder_layer`` (one pre-norm block: attention, then the SwiGLU
+    feed-forward) on ``x [B, S, d]`` with the weights ``lp`` and an
+    ``attention`` function of the ``chunked_attention`` signature; returns
+    ``x`` and the layer's k and v."""
+    b, s, _ = x.shape
+    h = rms_norm(x, lp["norm1"], cfg.norm_eps)
+    q, k, v = _qkv(cfg, lp, h)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    o = attention(q, k, v, window=window, causal=True,
+                  q_chunk=attn.pick_chunk(s, 2048),
+                  k_chunk=attn.pick_chunk(s, 1024))
+    x = x + o.reshape(b, s, cfg.n_heads * cfg.hd) @ lp["wo"]
+    x = x + _ffn(lp, rms_norm(x, lp["norm2"], cfg.norm_eps))
+    return x, k, v
+
+
 def _weight(shape, dtype, device) -> nn.Parameter:
     return nn.Parameter(torch.zeros(shape, dtype=dtype, device=device),
                         requires_grad=False)
@@ -81,52 +127,34 @@ class DecoderLayer(nn.Module):
         for name, shape in layer_param_shapes(cfg).items():
             setattr(self, name, _weight(shape, dtype, device))
 
-    def qkv(self, h: torch.Tensor):
-        """``_qkv``: q ``[B, S, G, R, hd]``, k and v ``[B, S, G, hd]``."""
-        b, s, _ = h.shape
-        cfg = self.cfg
-        g, hd = cfg.n_kv_heads, cfg.hd
-        r = cfg.n_heads // g
-        return ((h @ self.wq).reshape(b, s, g, r, hd),
-                (h @ self.wk).reshape(b, s, g, hd),
-                (h @ self.wv).reshape(b, s, g, hd))
-
-    def ffn(self, h: torch.Tensor) -> torch.Tensor:
-        """``_ffn``: SwiGLU."""
-        return (F.silu(h @ self.w_gate) * (h @ self.w_up)) @ self.w_down
+    @property
+    def weights(self) -> Dict[str, torch.Tensor]:
+        return {name: getattr(self, name) for name in layer_param_shapes(
+            self.cfg)}
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor):
-        """Prefill: ``x [B, S, d]`` → (``x``, this layer's k and v)."""
-        cfg = self.cfg
-        b, s, _ = x.shape
-        h = rms_norm(x, self.norm1, cfg.norm_eps)
-        q, k, v = self.qkv(h)
-        q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, positions, cfg.rope_theta)
-        o = attn.chunked_attention(q, k, v, window=self.window, causal=True,
-                                   q_chunk=attn.pick_chunk(s, 2048),
-                                   k_chunk=attn.pick_chunk(s, 1024))
-        x = x + o.reshape(b, s, cfg.n_heads * cfg.hd) @ self.wo
-        x = x + self.ffn(rms_norm(x, self.norm2, cfg.norm_eps))
-        return x, k, v
+        """Prefill: ``x [B, S, d]`` → (``x``, this layer's k and v), the
+        attention through the flash kernel."""
+        return _decoder_layer(self.cfg, self.weights, x, positions,
+                              self.window, attn.chunked_attention)
 
     def decode(self, x: torch.Tensor, positions: torch.Tensor,
                k_cache: torch.Tensor, v_cache: torch.Tensor,
                pos: int) -> torch.Tensor:
         """One token ``x [B, 1, d]`` at position ``pos``: writes its k and v
         into this layer's caches ``[B, max_len, G, hd]`` in place."""
-        cfg = self.cfg
+        cfg, lp = self.cfg, self.weights
         b = x.shape[0]
-        h = rms_norm(x, self.norm1, cfg.norm_eps)
-        q, k, v = self.qkv(h)
+        h = rms_norm(x, lp["norm1"], cfg.norm_eps)
+        q, k, v = _qkv(cfg, lp, h)
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
         k_cache[:, pos] = k[:, 0]
         v_cache[:, pos] = v[:, 0]
         o = attn.decode_attention(q, k_cache, v_cache, cache_len=pos + 1,
                                   window=self.window)
-        x = x + o.reshape(b, 1, cfg.n_heads * cfg.hd) @ self.wo
-        return x + self.ffn(rms_norm(x, self.norm2, cfg.norm_eps))
+        x = x + o.reshape(b, 1, cfg.n_heads * cfg.hd) @ lp["wo"]
+        return x + _ffn(lp, rms_norm(x, lp["norm2"], cfg.norm_eps))
 
 
 class Transformer(nn.Module):
@@ -234,5 +262,81 @@ def decode_step(model: Transformer, cache: Cache,
     return model.logits(x)[:, 0], cache
 
 
-def loss_fn(*_args, **_kwargs):
-    raise NotImplementedError(f"training (loss_fn) is {_NOT_PORTED}")
+# ---------------------------------------------------------------------------
+# Training: the JAX pytree of parameter-dtype leaves, cast per layer per call
+# ---------------------------------------------------------------------------
+
+Params = Dict[str, object]
+
+
+def init_train_params(cfg: ArchConfig, generator: torch.Generator,
+                      device: torch.device) -> Params:
+    """The master parameters in ``cfg.param_dtype``: ``embed``, ``layers``
+    (each weight stacked ``[L, ...]``), ``final_norm`` and, untied,
+    ``lm_head``.  Drawn as :func:`init_params` draws a module (the same
+    order and numbers, before its cast to the compute dtype), so
+    ``convert.lm_params`` loads them into a serving module."""
+    check_supported(cfg)
+    pdt = dtype_of(cfg.param_dtype)
+
+    def draw(shape, fan_in):
+        w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=generator.device)
+        return (w * (1.0 / math.sqrt(max(fan_in, 1)))).to(device, pdt)
+
+    # the module's parameter order: its own (embed, final_norm, lm_head),
+    # then each layer's
+    params: Params = {"embed": draw((cfg.vocab, cfg.d_model), cfg.d_model)}
+    params["final_norm"] = torch.zeros(cfg.d_model, dtype=pdt,
+                                       device=device)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = draw((cfg.d_model, cfg.vocab), cfg.d_model)
+    shapes = layer_param_shapes(cfg)
+    per_layer = {k: [] for k in shapes}
+    for _ in range(cfg.n_layers):
+        for name, shape in shapes.items():
+            per_layer[name].append(
+                torch.zeros(shape, dtype=pdt, device=device)
+                if name.startswith("norm") else draw(shape, shape[0]))
+    params["layers"] = {k: torch.stack(v) for k, v in per_layer.items()}
+    return params
+
+
+def _train_layer(cfg: ArchConfig, window: int, x: torch.Tensor,
+                 *weights: torch.Tensor) -> torch.Tensor:
+    """``_decoder_layer`` on one layer's weights (in ``layer_param_shapes``
+    order), each cast to ``x``'s dtype here, inside the checkpointed
+    region, as JAX casts inside its scan body.  The positions are made
+    from ``x`` on its device at every call, the recompute's included."""
+    lp = dict(zip(layer_param_shapes(cfg), (w.to(x.dtype) for w in weights)))
+    positions = torch.arange(x.shape[1], device=x.device)[None]
+    return _decoder_layer(cfg, lp, x, positions, window,
+                          attn.training_attention)[0]
+
+
+def loss_fn(params: Params, batch: Dict[str, torch.Tensor], *,
+            cfg: ArchConfig) -> torch.Tensor:
+    """One microbatch forward and its token-mean cross entropy (the JAX
+    ``loss_fn``).  ``batch["tokens"] [B, S + 1]``: the model reads the
+    first S tokens and predicts the last S.  Runs on the parameters'
+    device."""
+    check_supported(cfg)
+    cdt = dtype_of(cfg.compute_dtype)
+    embed = params["embed"]
+    tokens = batch["tokens"].to(embed.device).long()
+    inputs, labels = tokens[:, :-1], tokens[:, 1:]
+    # the scale rounded to the compute dtype, as JAX rounds a Python scalar
+    x = embed[inputs].to(cdt) * torch.tensor(math.sqrt(cfg.d_model),
+                                             dtype=cdt)
+    names = list(layer_param_shapes(cfg))
+    stack = params["layers"]
+    for i, window in enumerate(layer_windows(cfg)):
+        weights = [stack[k][i] for k in names]
+        if cfg.remat:
+            x = checkpoint(_train_layer, cfg, int(window), x, *weights,
+                           use_reentrant=False)
+        else:
+            x = _train_layer(cfg, int(window), x, *weights)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    head = embed.t() if cfg.tie_embeddings else params["lm_head"]
+    return cross_entropy_loss(x @ head.to(x.dtype), labels)

@@ -517,10 +517,14 @@ def test_three_batches_rebuild_nothing(backend):
 
 
 def test_tiered_dynamic_raises_naming_item_11():
+    """Item 11's tiered part is ported (tests/test_torch_tiered_dynamic.py);
+    what still raises is the hybrid backend, with the JAX package's
+    ValueError."""
     _, tg = _graphs()
     td = DynamicGraph(tg, 2, "high", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        BSPEngine(td, device="cpu", tiered=1 << 30)
+    with pytest.raises(ValueError, match="does not support dynamic graphs"):
+        BSPEngine(td, device="cpu", backend="hybrid", tiered=1 << 30)
+    assert BSPEngine(td, device="cpu", tiered=1 << 30).tier_plan is not None
 
 
 @pytest.mark.parametrize("backend", ["reference", "fused", "hybrid"])

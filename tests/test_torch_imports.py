@@ -116,10 +116,13 @@ def test_unported_modes_raise_naming_the_roadmap_item():
     dg = DynamicGraph(g, 2, TPT.RAND, device="cpu")
     for backend in ("reference", "hybrid"):
         # tiered memory is ported: a budget below its two window buffers
-        # is refused; a dynamic graph under it is what stays of item 11
+        # is refused, on a dynamic graph too (item 11 is done); the hybrid
+        # refuses a tiered dynamic graph, as in the JAX package
         with pytest.raises(ValueError, match="double-buffer"):
             BSPEngine(pg, device="cpu", backend=backend, tiered=1)
-        with pytest.raises(NotImplementedError, match="item 11"):
+        with pytest.raises(ValueError, match="double-buffer"
+                           if backend == "reference"
+                           else "does not support dynamic graphs"):
             BSPEngine(dg, device="cpu", backend=backend, tiered=1)
         # dynamic graphs are ported; anything else is refused by type
         with pytest.raises(TypeError, match="DynamicGraph"):

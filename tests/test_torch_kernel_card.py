@@ -1348,3 +1348,138 @@ def test_certified_cuda_session_never_serves_a_host_row_on_card(cuda, alg):
     for q in range(len(sources)):
         np.testing.assert_array_equal(got[q], want[q])
     assert kfs.fused_superstep.launches > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["reference", "fused"])
+def test_tiered_dynamic_engine_matches_resident_on_card(cuda, backend):
+    """A tiered engine over a dynamic graph whose payload is in pinned host
+    memory (scale 10, 2 partitions, at least one streamed), after a
+    mutation stream
+    and after a compaction: BFS and SSSP bit for bit with equal steps
+    against a resident dynamic engine over the same graph, the fused kernel
+    launched on the hot partition and each window of each superstep, the
+    arenas rebuilt only at the compaction, ``hbm_bytes`` the device arena
+    bytes; the hybrid refuses."""
+    import importlib
+
+    from repro_torch.core.bsp import BSPEngine
+    from repro_torch.core.dynamic import DynamicGraph
+    from repro_torch.data.graphs import edge_stream
+
+    tbfs = importlib.import_module("repro_torch.algorithms.bfs")
+    tsssp = importlib.import_module("repro_torch.algorithms.sssp")
+    g = TG.rmat(10, 8, seed=13).with_uniform_weights(seed=1)
+    dg = DynamicGraph(g, 2, TPT.HIGH, mutation_capacity=64, device="cpu",
+                      pin=True)
+    fused = backend == "fused"
+    wb = 1
+    while True:          # the least win_blocks whose all-cold plan cuts
+        try:
+            probe = TPT.build_tier_plan(dg.pg, 1 << 62, block_e=256,
+                                        win_blocks=wb, fused=fused,
+                                        dynamic=dg)
+            TPT.build_tier_plan(dg.pg, int(probe.table[0]["hbm_bytes"]),
+                                block_e=256, win_blocks=wb, fused=fused,
+                                dynamic=dg)
+            break
+        except ValueError:
+            wb *= 2
+    # table[1] (the denser partition hot), or table[0] (both cold) where
+    # row 1's windows are so wide that its budget holds both partitions
+    budget = int(probe.table[1]["hbm_bytes"])
+    if not len(TPT.build_tier_plan(dg.pg, budget, block_e=256,
+                                   win_blocks=wb, fused=fused,
+                                   dynamic=dg).cold):
+        budget = int(probe.table[0]["hbm_bytes"])
+    tiered = BSPEngine(dg, backend=backend, block_e=256, tiered=budget,
+                       win_blocks=wb)
+    resident = BSPEngine(dg, backend=backend, block_e=256)
+    plan = tiered.tier_plan
+    assert len(plan.cold) >= 1 and plan.fwd.num_windows >= 1
+    assert tiered.tiered_stats()["device_arena_bytes"] == plan.hbm_bytes
+    sources = [0, 3, 17, 91]
+    made = tiered.tiered_buffers_made
+    for b in edge_stream(g, 3, 64, churn=0.7, seed=5):
+        dg.apply_mutations(b)
+        for fn in (tbfs.bfs_batched, tsssp.sssp_batched):
+            before = kfs.fused_superstep.launches
+            got, steps = fn(tiered, sources)
+            n = kfs.fused_superstep.launches - before
+            want, want_steps = fn(resident, sources)
+            np.testing.assert_array_equal(got, want)
+            np.testing.assert_array_equal(steps, want_steps)
+            if fused:
+                assert n == int(steps.max()) * (
+                    int(len(plan.hot) > 0) + plan.fwd.num_windows)
+    assert tiered.tiered_buffers_made == made
+    dg.compact()
+    got, steps = tbfs.bfs_batched(tiered, sources)
+    want, want_steps = tbfs.bfs_batched(resident, sources)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(steps, want_steps)
+    assert tiered.tiered_buffers_made > made
+    assert tiered.tier_plan is not plan
+    assert (tiered.tiered_stats()["device_arena_bytes"]
+            == tiered.tier_plan.hbm_bytes)
+    with pytest.raises(ValueError, match="does not support dynamic"):
+        BSPEngine(dg, backend="hybrid", tiered=budget)
+
+
+@pytest.mark.gpu
+def test_train_step_on_card_matches_the_cpu(cuda):
+    """One ``make_train_step`` step of the reduced tinyllama (GQA, untied
+    head, f32 compute, two microbatches) from one set of parameters on the
+    card and on the CPU: the metrics within 1e-5 relative and the
+    parameters within 1e-5 relative (atol 1e-5 of each leaf's largest
+    magnitude), with AdamW's ``eps`` at 1e-3 (at the default 1e-8 the
+    first update of a near-zero gradient amplifies f32 differences by up
+    to ``lr·δg/eps``); the parameters stay f32 on the card and the flash
+    route refuses an input that requires grad.  Then bf16 compute: a
+    finite loss that falls over three steps on one batch."""
+    import dataclasses
+
+    from repro_torch.configs import tinyllama_1_1b as C
+    from repro_torch.models import api
+    from repro_torch.models import attention as attn
+    from repro_torch.optim import AdamW, tree_leaves, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(C.CONFIG.reduced(n_kv_heads=2,
+                                               tie_embeddings=False),
+                              compute_dtype="float32")
+    cpu, card = api.build(cfg, "cpu", serve=False), api.build(
+        cfg, cuda, serve=False)
+    params = cpu.init_params(torch.Generator().manual_seed(5))
+    batch = api.synth_batch(cfg, api.ShapeSpec("t", "train", 64, 4), seed=5,
+                            device="cpu")
+    opt = AdamW(learning_rate=1e-2, warmup_steps=1, eps=1e-3)
+    out = {}
+    for name, model, dev in (("cpu", cpu, "cpu"), ("card", card, cuda)):
+        p = tree_map(lambda x: x.to(dev), params)
+        step = api.make_train_step(model, opt, microbatches=2)
+        out[name] = step(p, opt.init(p), {k: v.to(dev)
+                                          for k, v in batch.items()})
+    for k in ("loss", "grad_norm_sq"):
+        np.testing.assert_allclose(float(out["card"][2][k]),
+                                   float(out["cpu"][2][k]), rtol=1e-5)
+    for a, b in zip(tree_leaves(out["card"][0]), tree_leaves(out["cpu"][0])):
+        assert a.device.type == "cuda" and a.dtype == torch.float32
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5,
+                                   atol=1e-5 * float(b.abs().max()))
+    q = torch.zeros(1, 64, 2, 2, 16, device=cuda, requires_grad=True)
+    kv = torch.zeros(1, 64, 2, 16, device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        attn.chunked_attention(q, kv, kv)
+    bf = api.build(dataclasses.replace(cfg, compute_dtype="bfloat16"), cuda,
+                   serve=False)
+    p = tree_map(lambda x: x.to(cuda), params)
+    state = opt.init(p)
+    step = api.make_train_step(bf, AdamW(learning_rate=1e-2,
+                                         warmup_steps=1), microbatches=2)
+    cb = {k: v.to(cuda) for k, v in batch.items()}
+    losses = []
+    for _ in range(3):
+        p, state, met = step(p, state, cb)
+        losses.append(float(met["loss"]))
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]
