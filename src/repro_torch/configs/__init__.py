@@ -25,7 +25,9 @@ ARCH_IDS = {
 }
 
 # the modules the port has
-PORTED = ("tinyllama_1_1b", "totem_rmat")
+PORTED = ("tinyllama_1_1b", "gemma3_4b", "deepseek_67b",
+          "command_r_plus_104b", "olmoe_1b_7b", "qwen3_moe_235b_a22b",
+          "totem_rmat")
 
 
 def _module(arch_id: str):

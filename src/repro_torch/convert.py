@@ -186,7 +186,9 @@ def lm_params(params, cfg: ArchConfig) -> Dict[str, torch.Tensor]:
     ``embed``, ``layers.<i>.<name>``, ``final_norm``, ``lm_head``.  Weights
     keep the ``[in, out]`` layout of ``x @ W`` (no transpose).
     ``Transformer.load_state_dict`` casts them to the stored dtypes.
-    Raises if a shape or the head does not match ``cfg``."""
+    Raises if a shape, the set of layer leaves (an MoE config's
+    ``moe_wg``, ``moe_w1 [L, E, D, 2F]`` and ``moe_w2 [L, E, F, D]`` in
+    place of the SwiGLU leaves) or the head does not match ``cfg``."""
     def put(name, x, shape):
         a = np.array(x, dtype=np.float32)          # a writable copy
         if a.shape != tuple(shape):
@@ -199,7 +201,11 @@ def lm_params(params, cfg: ArchConfig) -> Dict[str, torch.Tensor]:
                          f" with tie_embeddings={cfg.tie_embeddings}")
     out = {"embed": put("embed", params["embed"], (cfg.vocab, cfg.d_model))}
     layers = params["layers"]
-    for name, shape in layer_param_shapes(cfg).items():
+    shapes = layer_param_shapes(cfg)
+    if set(layers) != set(shapes):
+        raise ValueError(f"layer leaves {sorted(layers)}, {cfg.name} wants "
+                         f"{sorted(shapes)}")
+    for name, shape in shapes.items():
         stack = put(f"layers.{name}", layers[name], (cfg.n_layers,) + shape)
         for i in range(cfg.n_layers):
             out[f"layers.{i}.{name}"] = stack[i]

@@ -12,8 +12,8 @@
 // Layout: the model's own.  q [B, S, G, R, D], k and v [B, S, G, D], o like
 // q; query head h = g * R + r reads KV group g = h / R, so no head is
 // repeated in memory.  Any S (a ragged last tile is masked), D in
-// {16, 32, 64, 128}, B * G * R <= 65535.  Two kernels, chosen by the input
-// type (not a fallback):
+// {16, 32, 64, 128, 256}, B * G * R <= 65535.  Two kernels, chosen by the
+// input type (not a fallback):
 //
 // bf16: flash_attention_tc_kernel, both products on the tensor cores, as the
 // Pallas kernel computes them: S = Q K^T a bf16 product with an f32
@@ -29,16 +29,21 @@
 //     G * D) into a ring of kStages K/V stages with mbarriers.  Rows past S
 //     are filled with zeros by the TMA unit and masked.  Tiles are swizzled
 //     by the TMA unit at the width of one row of a sub-tile (32, 64 or 128
-//     bytes: D = 16, 32, 64; D = 128 as two 64-column sub-tiles) and the
-//     wgmma descriptors name the same swizzle.  The map encoder is reached
-//     through cudaGetDriverEntryPoint, so the library links no -lcuda.
+//     bytes: D = 16, 32, 64; D = 128 and 256 as two and four 64-column
+//     sub-tiles) and the wgmma descriptors name the same swizzle.  At
+//     D = 256 a K or V tile is 32 KB: the two Q tiles and the two-stage
+//     ring take 192 KB of the 227 KB a block may have.  The map encoder is
+//     reached through cudaGetDriverEntryPoint, so the library links no
+//     -lcuda.
 //   * Warp roles: one producer warp issues every load; two consumer
 //     warpgroups of 64 query rows each take two query heads of one KV group
 //     at the same positions, so they share each K/V tile and each mask
 //     (GQA).  With R odd the second warpgroup of the last pair repeats the
 //     last head and stores nothing.  The two take turns to issue S (named
 //     barriers), so one's softmax runs while the other's products use the
-//     tensor cores.
+//     tensor cores.  At D = 256 the producer is a whole warpgroup that
+//     hands its registers to the consumers (setmaxnreg, 24 / 240 a
+//     thread): their accumulator alone is 128 registers.
 //   * Exponentials: 2^x (ex2.approx, about 2 ulp) on scores prescaled by
 //     scale * log2(e); P is rounded to bf16 after (2^-8), so neither the
 //     base-2 form nor the approximate unit changes what the rounding keeps.
@@ -56,6 +61,8 @@
 // block per 64 query rows of one head, 256 threads as 16 x 16: K
 // transposed and V staged in shared memory, S = Q K^T as a 4 x 4 register
 // tile per thread, P transposed through shared memory into O += P V.
+// At D = 256 that staging takes 222,208 B of shared memory, under the
+// 232,448 B a block may opt in to.
 //
 // Bound on the card: at the prefill's shapes (S = 2048, D = 64) the
 // operations, 4 * S^2 * D / 2 per head for the causal half, at the bf16
@@ -75,10 +82,18 @@ constexpr int kRows = 64;            // query rows per consumer warpgroup
 constexpr int kKeys = 64;            // keys per K/V tile
 constexpr int kStages = 2;           // K/V ring depth
 constexpr int kConsumers = 2;        // warpgroups, one query head each
-constexpr int kThreads = kConsumers * 128 + 32;   // + one producer warp
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr unsigned kFullMask = 0xffffffffu;
+// Registers a thread after setmaxnreg (D = 256).  A block of three
+// warpgroups gets 168 registers a thread, where the D = 256 accumulator
+// (128) and score tile (32) spill; the producer warpgroup gives 144 a
+// thread back to the block's pool and the two consumer warpgroups take 72
+// each from it: 128 x (168 - 24) = 256 x (240 - 168).  A consumer's
+// request is served from that pool only, so a lone producer warp could
+// not free enough and the request would wait forever.
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
 
 // Shared-memory geometry of one 64-row tile of head dim D.
 template <int D>
@@ -95,6 +110,10 @@ struct Geo {
   static constexpr size_t kSmem = 1024 +
       static_cast<size_t>(kConsumers + 2 * kStages) * kTileBytes +
       8 * (1 + 2 * kStages);
+  // move registers from the producer to the consumers (setmaxnreg); the
+  // producer is then a whole warpgroup, else one warp
+  static constexpr bool kRealloc = D > 128;
+  static constexpr int kThreads = kConsumers * 128 + (kRealloc ? 128 : 32);
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -309,16 +328,19 @@ __device__ __forceinline__ float quad_max(float x) {
   return fmaxf(x, __shfl_xor_sync(kFullMask, x, 2));
 }
 
-// Grid (ceil(S / 64), B * G * ceil(R / 2)); kThreads threads: warpgroups
-// 0 and 1 consume (query heads 2 * pair and 2 * pair + 1 of KV group g),
-// warp 8 produces.  Accumulator fragments (wgmma m64nN, f32): thread lane
+// Grid (ceil(S / 64), B * G * ceil(R / 2)); Geo<D>::kThreads threads:
+// warpgroups 0 and 1 consume (query heads 2 * pair and 2 * pair + 1 of KV
+// group g), warp 8 produces (D = 256: warpgroup 2, its first thread
+// issuing the loads).  Accumulator fragments (wgmma m64nN, f32): thread lane
 // of warp w holds rows 16 w + lane / 4 (+ 8) and columns 8 j + 2 (lane % 4)
 // (+ 1): d[4 j + e], e = 0, 1 on the first row, 2, 3 on the second.
 // Two blocks share an SM up to D = 64 (at most 113 registers a thread,
 // which these fit without spilling), so four consumer warpgroups hide each
-// other's latencies; D = 128 keeps one (its accumulator alone is 64).
+// other's latencies; D = 128 and 256 keep one (their accumulators alone
+// are 64 and 128 registers; D = 256 moves the producer's registers to the
+// consumers, kConsumerRegs).
 template <int D>
-__global__ void __launch_bounds__(kThreads, D > 64 ? 1 : 2)
+__global__ void __launch_bounds__(Geo<D>::kThreads, D > 64 ? 1 : 2)
 flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_k,
                           const __grid_constant__ CUtensorMap tm_v,
@@ -363,6 +385,10 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   if (threadIdx.x >= kConsumers * 128) {
     // -- producer: Q once, then the K/V ring ------------------------------
+    if constexpr (Gm::kRealloc) {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                   :: "n"(kProducerRegs));
+    }
     if (threadIdx.x == kConsumers * 128) {
       mbar_expect_tx(q_full, kConsumers * Gm::kTileBytes);
       for (int c = 0; c < kConsumers; ++c) {
@@ -388,6 +414,10 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 
   // -- consumers ------------------------------------------------------------
+  if constexpr (Gm::kRealloc) {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+                 :: "n"(kConsumerRegs));
+  }
   const int c = threadIdx.x / 128;
   const int warp = (threadIdx.x % 128) / 32;
   const int lane = threadIdx.x % 32;
@@ -613,7 +643,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
       static_cast<int>(Gm::kSmem));
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kRows - 1) / kRows, B * G * ((R + 1) / 2));
-  flash_attention_tc_kernel<D><<<grid, kThreads, Gm::kSmem, stream>>>(
+  flash_attention_tc_kernel<D><<<grid, Gm::kThreads, Gm::kSmem, stream>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(o), S, G, R, causal, window,
       scale * kLog2e);
   return cudaGetLastError();
@@ -826,10 +856,12 @@ extern "C" int flash_attention_launch(int is_bf16, const void* q,
     case 32 * 2: err = REPRO_LAUNCH(f32, 32); break;
     case 64 * 2: err = REPRO_LAUNCH(f32, 64); break;
     case 128 * 2: err = REPRO_LAUNCH(f32, 128); break;
+    case 256 * 2: err = REPRO_LAUNCH(f32, 256); break;
     case 16 * 2 + 1: err = REPRO_LAUNCH(tc, 16); break;
     case 32 * 2 + 1: err = REPRO_LAUNCH(tc, 32); break;
     case 64 * 2 + 1: err = REPRO_LAUNCH(tc, 64); break;
     case 128 * 2 + 1: err = REPRO_LAUNCH(tc, 128); break;
+    case 256 * 2 + 1: err = REPRO_LAUNCH(tc, 256); break;
     default: err = cudaErrorInvalidValue;
   }
 #undef REPRO_LAUNCH

@@ -25,7 +25,7 @@ import torch
 from repro_torch.kernels import _build
 
 SOURCE = "flash_attention"
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 
 _P = ctypes.c_void_p

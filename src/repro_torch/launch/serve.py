@@ -3,17 +3,22 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
       --batch 4 --prompt-len 2048 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch qwen3-moe-235b-a22b --layers 2 --prompt-len 2048
 
 The counterpart of ``repro/launch/serve.py``: the model's weights are
 random (drawn from ``--seed``), the prompt is the Zipf ``TokenStream``'s
 first batch, and decoding is greedy or, with ``--temperature``, sampled
 from a generator seeded ``--seed + 1``.  Times end in
 ``torch.cuda.synchronize()`` on the card.  Runs on ``cuda`` unless
-``--device`` names another device.
+``--device`` names another device.  Beyond the JAX flags, ``--layers``
+cuts the depth (as ``launch/train.py``'s does), for the configs whose
+weights do not fit one card.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from typing import Dict, List, Optional
 
@@ -78,12 +83,16 @@ def main(argv=None) -> int:
                     help="torch device (default cuda; cpu runs the plain "
                          "versions of the kernels)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers")
     args = ap.parse_args(argv)
     if args.gen < 1:
         ap.error("--gen must be at least 1")
 
     cfg = configs.get_smoke(args.arch) if args.smoke else configs.get(
         args.arch)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     dev = resolve_device(args.device)
     if dev.type == "cuda":      # build the kernel before the timed prefill
         _build.load(flash_attention.SOURCE)
@@ -98,7 +107,8 @@ def main(argv=None) -> int:
 
     prefill_tok = args.batch * args.prompt_len
     gen_tok = args.batch * (args.gen - 1)
-    print(f"arch={cfg.name} batch={args.batch} device={dev}")
+    print(f"arch={cfg.name} layers={cfg.n_layers} batch={args.batch} "
+          f"device={dev}")
     print(f"prefill: {prefill_tok} tok in {res['prefill_s']:.3f}s "
           f"({prefill_tok / res['prefill_s']:.0f} tok/s)")
     print(f"decode:  {gen_tok} tok in {res['decode_s']:.3f}s "

@@ -1,6 +1,6 @@
 """Model API: the serving and training entry points of one architecture.
 
-The counterpart of ``repro/models/api.py`` for the dense family:
+The counterpart of ``repro/models/api.py`` for the dense and MoE families:
 
   build(cfg, device, generator) → Model (serving weights drawn from the
       generator; ``serve=False`` skips them for a trainer)

@@ -1,4 +1,5 @@
-"""Decoder-only transformer with GQA, RoPE and SwiGLU: the dense family.
+"""Decoder-only transformer with GQA, RoPE and SwiGLU or MoE feed-forwards:
+the dense and MoE families.
 
 The counterpart of ``repro/models/transformer.py`` (``_layer_param_shapes``,
 ``init_params``, ``layer_windows``, ``_qkv``, ``_ffn``, ``_embed_inputs``,
@@ -23,8 +24,12 @@ the f32 leaves.  Its attention is ``attention.training_attention`` (the
 flash kernel has no backward), and ``cfg.remat`` checkpoints each layer
 (``torch.utils.checkpoint``, JAX's ``nothing_saveable``).
 
-Not here yet (``ROADMAP.md`` Queue 1 item 15): MoE layers and the
-encoder-decoder and vision front ends.
+An MoE config (``cfg.is_moe``: olmoe, qwen3-moe) replaces each layer's
+SwiGLU leaves by the router and the stacked experts and calls
+``moe.moe_ffn`` in prefill, decode and ``loss_fn``, as the JAX layer does.
+
+Not here yet (``ROADMAP.md`` Queue 1 item 15): the encoder-decoder, vision,
+SSM and hybrid families.
 """
 from __future__ import annotations
 
@@ -40,28 +45,34 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (ArchConfig, cross_entropy_loss,
                                        dtype_of, rms_norm, rope)
+from repro_torch.models.moe import moe_ffn, moe_layer_params
 
 Cache = Dict[str, object]
 
-_NOT_PORTED = ("not ported yet: ROADMAP.md Queue 1 item 15 brings MoE, "
+_NOT_PORTED = ("not ported yet: ROADMAP.md Queue 1 item 15 brings the "
                "encoder-decoder, vision, SSM and hybrid models")
 
 
 def check_supported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` for what the port does not run."""
-    if cfg.family != "dense" or cfg.is_moe or cfg.enc_dec or cfg.frontend:
+    if cfg.family not in ("dense", "moe") or cfg.enc_dec or cfg.frontend:
         raise NotImplementedError(f"{cfg.name} (family {cfg.family!r}) is "
                                   f"{_NOT_PORTED}")
 
 
 def layer_param_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
-    """One dense layer's parameters and shapes, in the JAX order."""
+    """One layer's parameters and shapes, in the JAX order: the MoE leaves
+    in place of the SwiGLU ones when ``cfg.is_moe``."""
     d, hd = cfg.d_model, cfg.hd
     h, g, f = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
-    return {"norm1": (d,), "norm2": (d,),
-            "wq": (d, h * hd), "wk": (d, g * hd), "wv": (d, g * hd),
-            "wo": (h * hd, d),
-            "w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)}
+    shapes = {"norm1": (d,), "norm2": (d,),
+              "wq": (d, h * hd), "wk": (d, g * hd), "wv": (d, g * hd),
+              "wo": (h * hd, d)}
+    if cfg.is_moe:
+        shapes.update(moe_layer_params(cfg))
+    else:
+        shapes.update({"w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)})
+    return shapes
 
 
 def layer_windows(cfg: ArchConfig) -> np.ndarray:
@@ -85,8 +96,12 @@ def _qkv(cfg: ArchConfig, lp: Dict[str, torch.Tensor], h: torch.Tensor):
             (h @ lp["wv"]).reshape(b, s, g, hd))
 
 
-def _ffn(lp: Dict[str, torch.Tensor], h: torch.Tensor) -> torch.Tensor:
-    """``_ffn``: SwiGLU."""
+def _ffn(cfg: ArchConfig, lp: Dict[str, torch.Tensor],
+         h: torch.Tensor) -> torch.Tensor:
+    """The layer's feed-forward: ``moe_ffn`` for an MoE config, else
+    ``_ffn`` (SwiGLU)."""
+    if cfg.is_moe:
+        return moe_ffn(h, lp, cfg)
     return (F.silu(h @ lp["w_gate"]) * (h @ lp["w_up"])) @ lp["w_down"]
 
 
@@ -95,7 +110,7 @@ def _decoder_layer(cfg: ArchConfig, lp: Dict[str, torch.Tensor],
                    attention) -> Tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]:
     """``_decoder_layer`` (one pre-norm block: attention, then the SwiGLU
-    feed-forward) on ``x [B, S, d]`` with the weights ``lp`` and an
+    or MoE feed-forward) on ``x [B, S, d]`` with the weights ``lp`` and an
     ``attention`` function of the ``chunked_attention`` signature; returns
     ``x`` and the layer's k and v."""
     b, s, _ = x.shape
@@ -107,7 +122,7 @@ def _decoder_layer(cfg: ArchConfig, lp: Dict[str, torch.Tensor],
                   q_chunk=attn.pick_chunk(s, 2048),
                   k_chunk=attn.pick_chunk(s, 1024))
     x = x + o.reshape(b, s, cfg.n_heads * cfg.hd) @ lp["wo"]
-    x = x + _ffn(lp, rms_norm(x, lp["norm2"], cfg.norm_eps))
+    x = x + _ffn(cfg, lp, rms_norm(x, lp["norm2"], cfg.norm_eps))
     return x, k, v
 
 
@@ -117,7 +132,8 @@ def _weight(shape, dtype, device) -> nn.Parameter:
 
 
 class DecoderLayer(nn.Module):
-    """One pre-norm block: attention, then the SwiGLU feed-forward."""
+    """One pre-norm block: attention, then the SwiGLU or MoE
+    feed-forward."""
 
     def __init__(self, cfg: ArchConfig, window: int, dtype: torch.dtype,
                  device: torch.device):
@@ -154,7 +170,7 @@ class DecoderLayer(nn.Module):
         o = attn.decode_attention(q, k_cache, v_cache, cache_len=pos + 1,
                                   window=self.window)
         x = x + o.reshape(b, 1, cfg.n_heads * cfg.hd) @ lp["wo"]
-        return x + _ffn(lp, rms_norm(x, lp["norm2"], cfg.norm_eps))
+        return x + _ffn(cfg, lp, rms_norm(x, lp["norm2"], cfg.norm_eps))
 
 
 class Transformer(nn.Module):
@@ -199,19 +215,19 @@ class Transformer(nn.Module):
 def init_params(model: Transformer, generator: torch.Generator) -> None:
     """Fill ``model`` with the JAX package's initial distribution: each
     weight normal times ``1/sqrt(fan_in)`` (fan_in ``d_model`` for the
-    embedding, else the weight's input width), drawn in f32 from
-    ``generator`` and cast to the weight's dtype; norms at zero.  Weights
-    are drawn in parameter order; the numbers are the generator's, not
-    JAX's."""
+    embedding, else the weight's input width ``shape[-2]``: D for the
+    stacked experts ``[E, D, 2F]``), drawn in f32 from ``generator`` and
+    cast to the weight's dtype; norms at zero.  Weights are drawn in
+    parameter order; the numbers are the generator's, not JAX's."""
     with torch.no_grad():
         for name, p in model.named_parameters():
             if name.rsplit(".", 1)[-1].startswith(("norm", "final_norm")):
                 p.zero_()
                 continue
-            fan_in = model.cfg.d_model if name == "embed" else p.shape[0]
+            fan_in = model.cfg.d_model if name == "embed" else p.shape[-2]
             w = torch.randn(p.shape, generator=generator,
                             dtype=torch.float32, device=generator.device)
-            p.copy_(w * (1.0 / math.sqrt(max(fan_in, 1))))
+            p.copy_(w.mul_(1.0 / math.sqrt(max(fan_in, 1))))
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
@@ -282,7 +298,7 @@ def init_train_params(cfg: ArchConfig, generator: torch.Generator,
     def draw(shape, fan_in):
         w = torch.randn(shape, generator=generator, dtype=torch.float32,
                         device=generator.device)
-        return (w * (1.0 / math.sqrt(max(fan_in, 1)))).to(device, pdt)
+        return w.mul_(1.0 / math.sqrt(max(fan_in, 1))).to(device, pdt)
 
     # the module's parameter order: its own (embed, final_norm, lm_head),
     # then each layer's
@@ -297,7 +313,7 @@ def init_train_params(cfg: ArchConfig, generator: torch.Generator,
         for name, shape in shapes.items():
             per_layer[name].append(
                 torch.zeros(shape, dtype=pdt, device=device)
-                if name.startswith("norm") else draw(shape, shape[0]))
+                if name.startswith("norm") else draw(shape, shape[-2]))
     params["layers"] = {k: torch.stack(v) for k, v in per_layer.items()}
     return params
 

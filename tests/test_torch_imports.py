@@ -49,7 +49,10 @@ def test_every_module_imports_without_jax_or_repro():
                  "launch.graph_serve", "launch.batched_selftest",
                  "launch.continuous_selftest", "runtime.chaos",
                  "runtime.verify", "runtime.watchdog", "runtime.failures",
-                 "checkpoint", "checkpoint.manager", "launch.ft_selftest"):
+                 "checkpoint", "checkpoint.manager", "launch.ft_selftest",
+                 "models.moe", "configs.gemma3_4b", "configs.olmoe_1b_7b",
+                 "configs.qwen3_moe_235b_a22b", "configs.deepseek_67b",
+                 "configs.command_r_plus_104b"):
         assert f"repro_torch.{name}" in names
 
 

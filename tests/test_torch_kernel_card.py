@@ -984,6 +984,26 @@ def test_flash_kernel_matches_plain_on_card(cuda, causal, window, s, d,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [0, 8])
+def test_flash_kernel_head_dim_256_on_card(cuda, window, dtype):
+    """gemma3's head dim: four 64-column sub-tiles on the tensor cores, the
+    f32 kernel at its largest shared-memory stage; GQA (2 KV groups x 2
+    query heads, gemma3's R), a ragged S, the local window of the smoke
+    config and full causal."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = attention_inputs(2, 300, 2, 2, 256, dtype, cuda, seed=window)
+    got = kfa.flash_attention(q, k, v, causal=True, window=window)
+    want = tref.flash_attention_ref(q, k, v, causal=True, window=window)
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    else:
+        assert within_bf16_bound(got, want, q, k, v, True, window)
+    assert torch.equal(got, kfa.flash_attention(q, k, v, causal=True,
+                                                window=window))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("r", [1, 2, 8])
 @pytest.mark.parametrize("window", [0, 100])
 def test_flash_kernel_pairs_query_heads_on_card(cuda, r, window):
@@ -1095,6 +1115,41 @@ def test_lm_on_card_matches_the_cpu(cuda, compute_dtype):
         lg_cpu, c_cpu = cpu.decode_step(c_cpu, tok)
         torch.testing.assert_close(lg_card.float().cpu(), lg_cpu.float(),
                                    **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("factor", [1.25, 0.5])
+def test_moe_ffn_on_card_matches_the_cpu(cuda, factor):
+    """olmoe's smoke MoE layer (8 experts, top 2) with one set of weights:
+    two card runs bit-equal (dispatch by assignment, no atomics) at bf16
+    and f32; the f32 card run against the CPU run, routing (experts, slots,
+    keep) equal and outputs within 1e-4, with choices dropped at 0.5."""
+    import dataclasses
+
+    from repro_torch.configs import olmoe_1b_7b as C
+    from repro_torch.models import moe
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(C.SMOKE_CONFIG, moe_capacity_factor=factor)
+    gen = torch.Generator().manual_seed(11)
+    lp = {name: torch.randn(shape, generator=gen) / math.sqrt(shape[-2])
+          for name, shape in moe.moe_layer_params(cfg).items()}
+    x = torch.randn(2, 40, cfg.d_model, generator=gen)
+    for dtype in (torch.bfloat16, torch.float32):
+        lpc = {k: v.to(cuda, dtype) for k, v in lp.items()}
+        xc = x.to(cuda, dtype)
+        a, b = moe.moe_ffn(xc, lpc, cfg), moe.moe_ffn(xc, lpc, cfg)
+        assert a.dtype == dtype and torch.equal(a, b)
+    routes = [moe.route(moe.router_logits(t.reshape(80, -1), w), cfg)
+              for t, w in ((x, lp["moe_wg"]),
+                           (x.to(cuda), lp["moe_wg"].to(cuda)))]
+    for name in ("expert", "slot", "keep"):
+        assert torch.equal(getattr(routes[0], name),
+                           getattr(routes[1], name).cpu()), name
+    assert bool(routes[0].keep.all()) == (factor == 1.25)
+    # a: the f32 card run, the loop's last
+    torch.testing.assert_close(a.cpu(), moe.moe_ffn(x, lp, cfg), rtol=1e-4,
+                               atol=1e-4)
 
 
 @pytest.mark.gpu

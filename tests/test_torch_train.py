@@ -1,7 +1,8 @@
 """The port's LM training path against the JAX package's, on the CPU.
 
 The model is tinyllama-1.1b's ``SMOKE_CONFIG`` (4 layers, d_model 64,
-vocab 256, a tied head) and its untied GQA variant; the same JAX
+vocab 256, a tied head), its untied GQA variant and olmoe-1b-7b's
+``SMOKE_CONFIG`` (MoE layers, 8 experts top 2); the same JAX
 parameters go into both packages through ``convert.train_params``, and
 the same batches come from ``synth_batch`` (the same numpy draws).
 
@@ -50,6 +51,7 @@ from repro_torch.optim import (AdamW, CompressedAllReduce, apply_updates,
 JC = importlib.import_module("repro.configs.tinyllama_1_1b")
 SMOKE = JC.SMOKE_CONFIG
 UNTIED = JC.CONFIG.reduced(n_kv_heads=2, tie_embeddings=False)
+OLMOE = importlib.import_module("repro.configs.olmoe_1b_7b").SMOKE_CONFIG
 TRAIN = dict(seq=32, batch=4)
 
 
@@ -109,7 +111,8 @@ def test_cross_entropy_matches_jax(with_mask):
 
 
 @pytest.mark.parametrize("name,jcfg", [("smoke", SMOKE),
-                                       ("untied", UNTIED)])
+                                       ("untied", UNTIED),
+                                       ("olmoe", OLMOE)])
 def test_loss_and_gradients_match_jax_at_f32(name, jcfg):
     jax, _, japi, _, _ = _jax()
     jcfg = dataclasses.replace(jcfg, compute_dtype="float32")
@@ -250,6 +253,29 @@ def test_train_step_matches_jax(steps, mb, eps):
     for got, want in zip(tree_leaves(tstate.mu) + tree_leaves(tstate.nu),
                          jax.tree.leaves(jstate.mu)
                          + jax.tree.leaves(jstate.nu)):
+        _close(got, want, 1e-5, 1e-5)
+
+
+def test_train_step_matches_jax_on_olmoe():
+    """One step of the MoE smoke model (8 experts, top 2; the router's
+    gradient through the gates included) against JAX's jitted step."""
+    jax, _, japi, jadamw, _ = _jax()
+    jcfg = dataclasses.replace(OLMOE, compute_dtype="float32")
+    jm, jp, tm, tp = _setup(jcfg, seed=6)
+    jopt = jadamw.AdamW(learning_rate=1e-2, warmup_steps=2, eps=1e-3)
+    topt = AdamW(learning_rate=1e-2, warmup_steps=2, eps=1e-3)
+    batch = japi.synth_batch(jcfg, japi.ShapeSpec("t", "train", **TRAIN),
+                             seed=10)
+    jp, jstate, jmet = jax.jit(japi.make_train_step(jm, jopt))(
+        jp, jopt.init(jp), batch)
+    tp, tstate, tmet = tapi.make_train_step(tm, topt)(
+        tp, topt.init(tp), tapi.synth_batch(tm.cfg, _shape(), seed=10,
+                                            device="cpu"))
+    for k in ("loss", "grad_norm_sq"):
+        np.testing.assert_allclose(float(tmet[k]), float(jmet[k]), rtol=1e-5)
+    assert "moe_wg" in tp["layers"]
+    for got, want in zip(tree_leaves(tp) + tree_leaves(tstate.mu),
+                         jax.tree.leaves(jp) + jax.tree.leaves(jstate.mu)):
         _close(got, want, 1e-5, 1e-5)
 
 
