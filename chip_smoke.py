@@ -174,6 +174,19 @@ Phases (any failed check exits non-zero; nothing is caught and passed over):
    microbatches: the loss at init against f32 compute, one step's
    gradients at bf16 against f32 compute and AdamW's update of them,
    3 steps, f32 against float64);
+   then ``[encdec]`` (``encdec_phase``): seamless-m4t-large-v2 (24
+   encoder and 24 decoder layers) and internvl2-26b (48 layers, 256
+   patches before the prompt) at full width and depth on the same prompt
+   with the stream's frames or patches: the flash kernel against its plain
+   version and timed at seamless's causal and non-causal ``[4, 2048, 16,
+   1, 64]`` and internvl2's causal ``[4, 2304, 8, 6, 128]`` (the
+   non-causal and internvl2 rows listed apart in the kernels' line), the
+   parameter counts, the prefill's launches (24 non-causal and 24 causal;
+   48), decode against prefill at bf16 and f32 (internvl2's f32 at 2
+   layers), f32 prefill logits against float64 (internvl2 at 2 layers),
+   and one seamless training step at 2 layers (its gradients at bf16
+   against f32 compute, every leaf and layer: the encoder's, the cross
+   blocks' and ``frontend_proj``);
 8. ``[train]`` (``train_phase``): tinyllama-1.1b training at full width
    (1,100,048,384 f32 parameters, bf16 compute, remat, 4 microbatches):
    the loss at init, four steps on one B=8, S=2048 batch, f32 against
@@ -276,6 +289,15 @@ KERNELS = {
                         "src/repro/kernels/flash_attention.py:87"),
     # the same kernel at gemma3's head dim (D = 256), listed apart
     "flash_attention.d256": (
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:87"),
+    # the same kernel non-causal (seamless's encoder), listed apart
+    "flash_attention.noncausal": (
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:87"),
+    # the same kernel at internvl2's patch-prefixed prompt (S = 2304, R = 6,
+    # D = 128), listed apart
+    "flash_attention.vlm": (
         "src/repro_torch/kernels/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention.py:87"),
 }
@@ -806,32 +828,58 @@ def segment_reduce_phase(pg, rng, dev, check):
     return rows, worst, launches
 
 
-def lm_forward64(module, tokens):
+def lm_forward64(module, tokens, front=None):
     """The prefill's last-token logits in float64, assembled from the
-    port's plain functions (``rms_norm``, ``rope``, ``flash_attention_ref``)
-    and ``module``'s weights: the yardstick of the f32 prefill."""
+    port's plain functions (``rms_norm``, ``rope``, ``flash_attention_ref``,
+    ``cross_attention``) and ``module``'s weights: the yardstick of the f32
+    prefill.  ``front``: a vision model's ``patches`` (projected and put
+    before the tokens) or an encoder-decoder's ``frames`` (through the
+    encoder's non-causal layers, then each decoder layer's cross block)."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.models.attention import cross_attention
     from repro_torch.models.common import rms_norm, rope
 
     cfg = module.cfg
-    b, s = tokens.shape
+    front = front or {}
     g, hd = cfg.n_kv_heads, cfg.hd
     r = cfg.n_heads // g
-    pos = torch.arange(s, device=tokens.device)[None]
-    x = module.embed.double()[tokens] * math.sqrt(cfg.d_model)
-    for layer in module.layers:
+
+    def layer64(layer, x, enc=None):
+        b, s, _ = x.shape
+        pos = torch.arange(s, device=x.device)[None]
         w = {n: p.double() for n, p in layer.named_parameters()}
         h = rms_norm(x, w["norm1"], cfg.norm_eps)
         q = rope((h @ w["wq"]).reshape(b, s, g, r, hd), pos, cfg.rope_theta)
         k = rope((h @ w["wk"]).reshape(b, s, g, hd), pos, cfg.rope_theta)
         v = (h @ w["wv"]).reshape(b, s, g, hd)
-        o = flash_attention_ref(q, k, v, causal=True, window=layer.window)
+        o = flash_attention_ref(q, k, v, causal=layer.causal,
+                                window=layer.window)
         x = x + o.reshape(b, s, -1) @ w["wo"]
+        if enc is not None:
+            se = enc.shape[1]
+            h = rms_norm(x, w["norm_x"], cfg.norm_eps)
+            o = cross_attention((h @ w["wq_x"]).reshape(b, s, g, r, hd),
+                                (enc @ w["wk_x"]).reshape(b, se, g, hd),
+                                (enc @ w["wv_x"]).reshape(b, se, g, hd))
+            x = x + o.reshape(b, s, -1) @ w["wo_x"]
         h = rms_norm(x, w["norm2"], cfg.norm_eps)
-        x = x + (F.silu(h @ w["w_gate"]) * (h @ w["w_up"])) @ w["w_down"]
+        return x + (F.silu(h @ w["w_gate"]) * (h @ w["w_up"])) @ w["w_down"]
+
+    x = module.embed.double()[tokens] * math.sqrt(cfg.d_model)
+    if "patches" in front:
+        proj = module.frontend_proj.double()
+        x = torch.cat([front["patches"].double() @ proj, x], 1)
+    enc = None
+    if cfg.enc_dec:
+        enc = front["frames"].double() @ module.frontend_proj.double()
+        for layer in module.encoder:
+            enc = layer64(layer, enc)
+        enc = rms_norm(enc, module.enc_norm.double(), cfg.norm_eps)
+    for layer in module.layers:
+        x = layer64(layer, x, enc)
     x = rms_norm(x[:, -1:], module.final_norm.double(), cfg.norm_eps)
     head = module.embed.t() if cfg.tie_embeddings else module.lm_head
     return (x @ head.double())[:, 0]
@@ -840,38 +888,48 @@ def lm_forward64(module, tokens):
 def param_count(cfg) -> int:
     """The parameters of ``cfg``'s model from its shapes, nothing
     allocated: the embedding (and an untied head), each layer's
-    ``layer_param_shapes`` (the JAX ``_layer_param_shapes``) and the final
-    norm."""
+    ``layer_param_shapes`` (the JAX ``_layer_param_shapes``; the cross
+    leaves in an encoder-decoder's decoder) and the final norm; an
+    encoder-decoder's encoder layers and ``enc_norm``, a front end's
+    ``frontend_proj``."""
     from repro_torch.models.transformer import layer_param_shapes
 
-    layer = sum(math.prod(shape) for shape in layer_param_shapes(cfg).values())
+    def stack(cross):
+        return cfg.n_layers * sum(math.prod(shape) for shape in
+                                  layer_param_shapes(cfg, cross).values())
+
+    d = cfg.d_model
     tables = 1 if cfg.tie_embeddings else 2
-    return (tables * cfg.vocab * cfg.d_model + cfg.n_layers * layer
-            + cfg.d_model)
+    n = tables * cfg.vocab * d + stack(cfg.enc_dec) + d
+    if cfg.enc_dec:
+        n += stack(False) + d
+    if cfg.frontend:
+        n += d * d
+    return n
 
 
-def attention_bound(b, s, g, r, hd, window=0):
-    """``(ms, flops, bytes)`` of one causal flash launch: its live (query,
-    key) pairs' two products, 4 hd operations a pair a head, at the bf16
-    tensor-core rate, or q, k, v and o moved once in bf16, whichever takes
-    longer."""
+def attention_bound(b, s, g, r, hd, window=0, causal=True):
+    """``(ms, flops, bytes)`` of one flash launch: its live (query, key)
+    pairs' two products (all ``s * s`` pairs when not causal), 4 hd
+    operations a pair a head, at the bf16 tensor-core rate, or q, k, v and
+    o moved once in bf16, whichever takes longer."""
     w = window if 0 < window < s else s
-    pairs = w * (w + 1) // 2 + (s - w) * w
+    pairs = (w * (w + 1) // 2 + (s - w) * w) if causal else s * s
     flops = 4 * hd * pairs * b * g * r
     nbytes = 2 * (2 * b * s * g * r * hd + 2 * b * s * g * hd)
     return (1e3 * max(flops / BF16_OPS_PER_S, nbytes / HBM_BYTES_PER_S),
             flops, nbytes)
 
 
-def flash_checks(dev, check, tag, shape, windows, timed=True):
+def flash_checks(dev, check, tag, shape, windows, timed=True, causal=True):
     """The flash kernel at one layer's shapes ``shape = (B, S, G, R, D)``
     against its plain version: bf16 within the bound of rounding P and the
     output to bf16 (``bf16_bound_ratio``), f32 within ``FLASH_F32_TOL``,
-    each window in ``windows``, two launches bit-equal.  ``timed``: the
-    bf16 kernel (causal, full) timed beside its operations bound, its
-    plain version and ``scaled_dot_product_attention`` (the yardstick
-    only; the port never calls it).  Returns ``(row or None, max |err| of
-    bf16)``."""
+    each window in ``windows`` (causal; not causal, an encoder's, takes
+    none), two launches bit-equal.  ``timed``: the bf16 kernel (full
+    attention) timed beside its operations bound, its plain version and
+    ``scaled_dot_product_attention`` (the yardstick only; the port never
+    calls it).  Returns ``(row or None, max |err| of bf16)``."""
     import torch
     import torch.nn.functional as F
 
@@ -886,46 +944,49 @@ def flash_checks(dev, check, tag, shape, windows, timed=True):
     worst = 0.0
     for dtype in ("bfloat16", "float32"):
         q, k, v = (t.to(getattr(torch, dtype)) for t in (q32, k32, v32))
-        for window in windows:
-            got = kfa.flash_attention(q, k, v, causal=True, window=window)
-            again = kfa.flash_attention(q, k, v, causal=True, window=window)
-            want = flash_attention_ref(q, k, v, causal=True, window=window)
+        for window in windows if causal else (0,):
+            got = kfa.flash_attention(q, k, v, causal=causal, window=window)
+            again = kfa.flash_attention(q, k, v, causal=causal,
+                                        window=window)
+            want = flash_attention_ref(q, k, v, causal=causal, window=window)
             err = max_abs_err(got, want)
             if dtype == "bfloat16":
                 worst = max(worst, err)
-                ratio = bf16_bound_ratio(got, want, q, k, v, window)
+                ratio = bf16_bound_ratio(got, want, q, k, v, window, causal)
                 ok, limit = ratio <= 1.01, (
                     f"its rounding bound (largest |err| / bound {ratio:.4f})")
             else:
                 ok = torch.allclose(got, want, **FLASH_F32_TOL)
                 limit = f"{FLASH_F32_TOL}"
+            mode = f"window {window}" if causal else "not causal"
             check(ok and torch.equal(got, again),
-                  f"[{tag}] flash kernel {dtype}, q {list(shape)}, window "
-                  f"{window}: within {limit} of the plain version (max "
-                  f"|err| {err:.3e}), two launches bit-equal")
+                  f"[{tag}] flash kernel {dtype}, q {list(shape)}, {mode}: "
+                  f"within {limit} of the plain version (max |err| "
+                  f"{err:.3e}), two launches bit-equal")
     if not timed:
         return None, worst
     q, k, v = (t.bfloat16() for t in (q32, k32, v32))
     del q32, k32, v32
 
     def kern():
-        return kfa.flash_attention(q, k, v, causal=True)
+        return kfa.flash_attention(q, k, v, causal=causal)
 
     def plain():
-        return flash_attention_ref(q, k, v, causal=True)
+        return flash_attention_ref(q, k, v, causal=causal)
 
     qh = q.reshape(b, s, g * r, hd).transpose(1, 2).contiguous()
     kh, vh = (t.transpose(1, 2).contiguous() for t in (k, v))
 
     def library():
-        return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+        return F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal,
                                               enable_gqa=True)
 
     lib_err = max_abs_err(library().transpose(1, 2).reshape(q.shape), kern())
     ms, plain_ms, lib_ms = cuda_ms(kern, 10), cuda_ms(plain, 3), cuda_ms(
         library, 20)
-    bound, flops, nbytes = attention_bound(b, s, g, r, hd)
-    log(f"[{tag}] flash kernel (bf16, causal, q [{b}, {s}, {g}, {r}, {hd}]): "
+    bound, flops, nbytes = attention_bound(b, s, g, r, hd, causal=causal)
+    mode = "causal" if causal else "not causal"
+    log(f"[{tag}] flash kernel (bf16, {mode}, q [{b}, {s}, {g}, {r}, {hd}]): "
         f"{ms:.4f} ms per launch; plain {plain_ms:.4f} ms; bound "
         f"{bound:.4f} ms (operations: {flops / 1e9:.1f} GFLOP at 989 "
         f"TFLOP/s; bytes {nbytes / 1e6:.1f} MB), {bound / ms:.1%} of bound, "
@@ -935,13 +996,20 @@ def flash_checks(dev, check, tag, shape, windows, timed=True):
                 bound_by="operations"), worst
 
 
-def lm_tokens(cfg, dev):
-    """``[lm]``'s prompt for ``cfg``: the Zipf ``TokenStream(seed=0)``'s
-    first batch, B=4, S=2048 (and the next token), on the card."""
+def lm_batch(cfg, dev):
+    """``[lm]``'s prompt batch for ``cfg``: the Zipf ``TokenStream(seed=0)``'s
+    first batch, B=4, S=2048 tokens (and the next token), with a vision
+    config's ``patches`` or an encoder-decoder config's ``frames``, on the
+    card."""
     from repro_torch.data.tokens import TokenStream
 
-    return TokenStream(cfg, LM_BATCH, LM_PROMPT, seed=0).batch_at(0)[
-        "tokens"].to(dev)
+    return {k: v.to(dev) for k, v in TokenStream(
+        cfg, LM_BATCH, LM_PROMPT, seed=0).batch_at(0).items()}
+
+
+def lm_tokens(cfg, dev):
+    """``lm_batch``'s tokens ``[4, 2049]``."""
+    return lm_batch(cfg, dev)["tokens"]
 
 
 def build_lm(cfg, dev, check, tag, want_params):
@@ -969,15 +1037,17 @@ def build_lm(cfg, dev, check, tag, want_params):
 
 
 def serve_lm(model, tokens, check, tag, n_gen=LM_GEN, kept=1.0,
-             experts_read=None):
-    """The serve launcher's ``generate`` on ``tokens[:, :2048]`` (B=4),
-    ``n_gen`` greedy tokens, warmed once; checks the tokens and one flash
-    launch a layer in the prefill; prints the prefill and decode walls
-    and tok/s beside their bounds and the peak device memory.  An MoE
-    model's bounds count the share ``kept`` of token-choices its prefill
-    keeps and the ``experts_read`` experts a layer its decode step reads
-    (all of them when not given).  Returns the flash launches of the
-    prefill."""
+             experts_read=None, front=None):
+    """The serve launcher's ``generate`` on ``tokens[:, :2048]`` (B=4) and
+    ``front`` (a vision model's ``patches`` or an encoder-decoder's
+    ``frames``), ``n_gen`` greedy tokens, warmed once; checks the tokens
+    and the flash launches of the prefill (one a layer, and one not causal
+    a layer of an encoder); prints the prefill and decode walls and tok/s
+    beside their bounds and the peak device memory.  An MoE model's bounds
+    count the share ``kept`` of token-choices its prefill keeps and the
+    ``experts_read`` experts a layer its decode step reads (all of them
+    when not given).  Returns the flash launches of the prefill, all and
+    not causal."""
     import torch
 
     from repro_torch.kernels import flash_attention as kfa
@@ -986,57 +1056,89 @@ def serve_lm(model, tokens, check, tag, n_gen=LM_GEN, kept=1.0,
                                                 layer_windows)
 
     cfg = model.cfg
-    b, s = LM_BATCH, LM_PROMPT
+    front = front or {}
+    b, s, d = LM_BATCH, LM_PROMPT, cfg.d_model
     g, hd = cfg.n_kv_heads, cfg.hd
     r = cfg.n_heads // g
-    prompt = tokens[:, :s]
-    generate(model, prompt[:, :128], 2)     # cuBLAS handles, first launches
+    n_front = front["patches"].shape[1] if "patches" in front else 0
+    se = front["frames"].shape[1] if "frames" in front else 0
+    st = s + n_front                          # the decoder's positions
+    # cuBLAS handles, first launches
+    generate(model, {"tokens": tokens[:, :128], **front}, 2)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kfa.flash_attention.launches = 0
-    res = generate(model, prompt, n_gen)
+    kfa.flash_attention.launches = kfa.flash_attention.noncausal_launches = 0
+    res = generate(model, {"tokens": tokens[:, :s], **front}, n_gen)
     launches = kfa.flash_attention.launches
+    noncausal = kfa.flash_attention.noncausal_launches
     out = res["tokens"]
     peak = torch.cuda.max_memory_allocated() / 2**30
     check(out.shape == (b, n_gen) and int(out.min()) >= 0
           and int(out.max()) < cfg.vocab,
           f"[{tag}] {cfg.name}: generated tokens [{b}, {n_gen}] in the "
           f"vocabulary")
-    check(launches == cfg.n_layers, f"[{tag}] {cfg.name}: the flash kernel "
-          f"launched {launches} times in the prefill (one per layer, "
-          f"{cfg.n_layers})")
-    shapes = layer_param_shapes(cfg)
+    want = (2 if cfg.enc_dec else 1) * cfg.n_layers
+    want_nc = cfg.n_layers if cfg.enc_dec else 0
+    check(launches == want and noncausal == want_nc,
+          f"[{tag}] {cfg.name}: the flash kernel launched {launches} times "
+          f"in the prefill, {noncausal} not causal (one per layer"
+          f"{' and one per encoder layer, not causal' if cfg.enc_dec else ''}"
+          f": {want}, {want_nc})")
+    shapes = layer_param_shapes(cfg, cfg.enc_dec)
+    # the cross k and v are products of the frames, not of the tokens
     dense = sum(math.prod(shape) for name, shape in shapes.items()
-                if not name.startswith(("norm", "moe_w1", "moe_w2")))
-    expert = 3 * cfg.d_model * cfg.d_ff          # one expert's weights
+                if not name.startswith(("norm", "moe_w1", "moe_w2"))
+                and name not in ("wk_x", "wv_x"))
+    expert = 3 * d * cfg.d_ff                    # one expert's weights
+    kv_x = 2 * d * g * hd                        # a layer's wk_x and wv_x
+    enc_layer = sum(math.prod(shape) for shape in
+                    layer_param_shapes(cfg).values())
     # products a token: its layers' projections (and router), the experts
-    # of its kept choices; the head for the last position only
+    # of its kept choices; the head for the last position only; the front
+    # ends' projections, and a frame's encoder layers and cross k and v
     per_token = cfg.n_layers * (dense + cfg.moe_top_k * kept * expert)
-    mm_flops = 2 * b * s * per_token + 2 * b * cfg.d_model * cfg.vocab
-    attn = sum(attention_bound(b, s, g, r, hd, int(w))[0]
+    mm_flops = (2 * b * st * per_token + 2 * b * d * cfg.vocab
+                + 2 * b * n_front * d * d
+                + 2 * b * se * (d * d + cfg.n_layers * (enc_layer + kv_x)))
+    attn = sum(attention_bound(b, st, g, r, hd, int(w))[0]
                for w in layer_windows(cfg))
-    prefill_bound = 1e3 * mm_flops / BF16_OPS_PER_S + attn
+    if se:
+        attn += cfg.n_layers * attention_bound(b, se, g, r, hd,
+                                               causal=False)[0]
+    # the cross attention's two products in f32 (as JAX computes them)
+    cross = 1e3 * cfg.n_layers * 4 * b * cfg.n_heads * st * se * hd \
+        / F32_OPS_PER_S
+    prefill_bound = 1e3 * mm_flops / BF16_OPS_PER_S + attn + cross
     # a step reads the weights it uses (not the embedding's other rows; of
-    # an MoE layer's experts the ones its tokens chose) and the live cache
+    # an MoE layer's experts the ones its tokens chose; not the front end,
+    # the encoder or the cross k and v weights) and the live caches
     n_params = sum(p.numel() for p in model.module.parameters())
-    unread = 0 if cfg.tie_embeddings else cfg.vocab * cfg.d_model
+    unread = 0 if cfg.tie_embeddings else cfg.vocab * d
     if cfg.is_moe and experts_read is not None:
         unread += cfg.n_layers * (cfg.moe_experts - experts_read) * expert
+    if cfg.frontend:
+        unread += d * d
+    if cfg.enc_dec:
+        unread += cfg.n_layers * (enc_layer + kv_x) + d
     step_bytes = (2 * (n_params - unread)
-                  + 2 * 2 * cfg.n_layers * b * (s + n_gen // 2) * g * hd)
+                  + 2 * 2 * cfg.n_layers * b * (st + n_gen // 2 + se) * g
+                  * hd)
     step_bound = 1e3 * step_bytes / HBM_BYTES_PER_S
     steps = n_gen - 1
-    log(f"[{tag}] {cfg.name} prefill: {b * s} tokens in "
-        f"{res['prefill_s'] * 1e3:.1f} ms ({b * s / res['prefill_s']:.0f} "
+    extra = (f" and {n_front} patches" if n_front else
+             f" and {se} frames" if se else "")
+    log(f"[{tag}] {cfg.name} prefill: {b * s} tokens{extra} a batch of {b} "
+        f"in {res['prefill_s'] * 1e3:.1f} ms ({b * s / res['prefill_s']:.0f} "
         f"tok/s); bound {prefill_bound:.2f} ms ({mm_flops / 1e12:.2f} TFLOP "
-        f"of products at 989 TFLOP/s plus {attn:.4f} ms of attention)")
+        f"of products at 989 TFLOP/s plus {attn:.4f} ms of attention"
+        f"{f' and {cross:.4f} ms of f32 cross attention' if se else ''})")
     log(f"[{tag}] {cfg.name} decode: {b * steps} tokens in "
         f"{res['decode_s'] * 1e3:.1f} ms ({b * steps / res['decode_s']:.0f} "
         f"tok/s, {res['decode_s'] * 1e3 / steps:.3f} ms per step); bound "
         f"{step_bound:.3f} ms per step ({step_bytes / 1e9:.2f} GB of weights "
         f"and live cache at 3.35 TB/s); peak {peak:.2f} GiB; first tokens "
         f"{out[0, :8].tolist()}")
-    return launches
+    return launches, noncausal
 
 
 @contextlib.contextmanager
@@ -1070,9 +1172,10 @@ def pinned_experts(pins):
         moe.top_k = own_top_k
 
 
-def decode_vs_prefill(model, tokens, name, tag, check):
-    """Decode after ``prefill(2048)`` against ``prefill(2049)``: the last
-    logits of every row within ``DECODE_TOL[name]``.  An MoE model at f32
+def decode_vs_prefill(model, tokens, name, tag, check, front=None):
+    """Decode after ``prefill(2048)`` against ``prefill(2049)``, both with
+    the same ``front`` inputs (patches or frames): the last logits of every
+    row within ``DECODE_TOL[name]``.  An MoE model at f32
     must route every decoded token as ``prefill(2049)`` routes it, layer by
     layer.  At bf16 the two paths' rounding of the activations moves
     choices at near-ties, so ``prefill(2049)`` runs with each layer's
@@ -1085,8 +1188,11 @@ def decode_vs_prefill(model, tokens, name, tag, check):
     cfg = model.cfg
     s = LM_PROMPT
     b = tokens.shape[0]
+    front = front or {}
+    n_front = front["patches"].shape[1] if "patches" in front else 0
     with moe_spy() as (_, dec_routes):
-        _, cache = model.prefill({"tokens": tokens[:, :s]}, max_len=s + 1)
+        _, cache = model.prefill({"tokens": tokens[:, :s], **front},
+                                 max_len=s + 1 + n_front)
         n_pre = len(dec_routes)
         lg_dec, _ = model.decode_step(cache, tokens[:, s])
     del cache
@@ -1097,7 +1203,7 @@ def decode_vs_prefill(model, tokens, name, tag, check):
             for (_, r_p), (_, r_d) in zip(dec_routes[:n_pre],
                                           dec_routes[n_pre:])] if pin else None
     with moe_spy() as (_, full_routes), pinned_experts(pins) as report:
-        lg_full, _ = model.prefill({"tokens": tokens})
+        lg_full, _ = model.prefill({"tokens": tokens, **front})
     # decoded tokens routed elsewhere than by prefill(2049), over the layers
     unlike = sum(int((r_d.expert.sort(-1).values != r_f.expert.reshape(
         b, s + 1, -1)[:, s].sort(-1).values).any(-1).sum())
@@ -1158,7 +1264,7 @@ def lm_phase(dev, check):
         g = cfg.n_kv_heads
         model = build_lm(cfg, dev, check, "lm", want)
         tokens = lm_tokens(cfg, dev)
-        launches = serve_lm(model, tokens, check, "lm")
+        launches, _ = serve_lm(model, tokens, check, "lm")
         row, worst = flash_checks(
             dev, check, "lm", (LM_BATCH, LM_PROMPT, g, cfg.n_heads // g,
                                cfg.hd), LM_WINDOWS)
@@ -1332,8 +1438,8 @@ def moe_phase(dev, check):
     flash_checks(dev, check, "moe", (b, s, cfg.n_kv_heads,
                                      cfg.n_heads // cfg.n_kv_heads, cfg.hd),
                  (0,), timed=False)
-    launches = serve_lm(model, tokens, check, "moe",
-                        kept=1 - dropped_share(pre), experts_read=read)
+    launches, _ = serve_lm(model, tokens, check, "moe",
+                           kept=1 - dropped_share(pre), experts_read=read)
     del model, pre, dec
     torch.cuda.empty_cache()
 
@@ -1522,6 +1628,140 @@ def moe_train(dev, check):
           f"1e-5), gradients max |diff| / max |g| {grad_rel:.3e}, the worst "
           f"of the {len(tree_leaves(g32))} leaves (<= 1e-4)")
     del g32, g64, m32, m64, p32
+    torch.cuda.empty_cache()
+
+
+def encdec_phase(dev, check):
+    """``[encdec]``: the encoder-decoder and vision families at full width,
+    random weights from a generator seeded 0, bf16 compute, through
+    ``models.api.build`` and the serve launcher's ``generate``: ``[lm]``'s
+    B=4, S=2048 Zipf prompt (``TokenStream(seed=0).batch_at(0)``) with the
+    stream's frames ``[4, 2048, 1024]`` or patches ``[4, 256, 6144]``, 32
+    greedy tokens.  seamless-m4t-large-v2 (24 encoder and 24 decoder
+    layers, MHA 16/16 of head dim 64) and internvl2-26b (48 layers, GQA
+    48/8 of head dim 128, 256 patches before the tokens), each at full
+    depth: (a) the flash kernel against its plain version at the path's
+    shapes, timed: seamless's decoder ``[4, 2048, 16, 1, 64]`` causal and
+    encoder (the same shape) not causal, internvl2's ``[4, 2304, 8, 6,
+    128]`` causal; (b) the parameter count against the JAX shapes', and
+    the prefill's flash launches (seamless 24 not causal and 24 causal,
+    internvl2 48); (c) decode after ``prefill(t)`` against ``prefill(t +
+    1)``, the same frames or patches in both, at bf16 and at f32
+    (internvl2's f32 weights at 2 layers: at full depth they would take 77
+    GB); (d) f32 prefill logits at B=1, 256 tokens (and 256 frames, or the
+    256 patches) against a float64 run of the same forward (seamless at
+    full depth, internvl2 at 2 layers); (e) seamless training at 2 layers
+    (``encdec_train``).  Returns ``{"noncausal": (row, max |err|,
+    launches), "vlm": (...)}``: seamless's encoder and internvl2's shapes
+    with their prefill's launches."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = {}
+    for arch, want in (("seamless-m4t-large-v2", 1_773_477_888),
+                       ("internvl2-26b", 19_330_363_392)):
+        cfg = configs.get(arch)
+        g = cfg.n_kv_heads
+        front = lm_batch(cfg, dev)
+        tokens = front.pop("tokens")
+        n_front = front["patches"].shape[1] if "patches" in front else 0
+        model = build_lm(cfg, dev, check, "encdec", want)
+        launches, noncausal = serve_lm(model, tokens, check, "encdec",
+                                       front=front)
+        shape = (LM_BATCH, LM_PROMPT + n_front, g, cfg.n_heads // g, cfg.hd)
+        row, worst = flash_checks(dev, check, "encdec", shape, (0,))
+        if cfg.enc_dec:
+            enc = (LM_BATCH, front["frames"].shape[1]) + shape[2:]
+            row, worst = flash_checks(dev, check, "encdec", enc, (),
+                                      causal=False)
+            rows["noncausal"] = (row, worst, noncausal)
+        else:
+            rows["vlm"] = (row, worst, launches)
+        decode_vs_prefill(model, tokens, "bf16", "encdec", check, front)
+        del model
+        torch.cuda.empty_cache()
+        cut = cfg if cfg.enc_dec else dataclasses.replace(cfg, n_layers=2)
+        cut = dataclasses.replace(cut, compute_dtype="float32")
+        model32 = build_lm(cut, dev, check, "encdec",
+                           want if cfg.enc_dec else param_count(cut))
+        decode_vs_prefill(model32, tokens, "f32", "encdec", check, front)
+        short = {k: v[:1, :256] for k, v in front.items()}
+        lg32, _ = model32.prefill({"tokens": tokens[:1, :256], **short})
+        with torch.inference_mode():
+            lg64 = lm_forward64(model32.module, tokens[:1, :256], short)
+        rel = float((lg32.double() - lg64).abs().max() / lg64.abs().max())
+        inputs = " and ".join(f"{v.shape[1]} {k}" for k, v in short.items())
+        check(rel <= F64_REL and bool(torch.isfinite(lg32).all()),
+              f"[encdec] {cut.name} at {cut.n_layers} layers, f32 prefill "
+              f"logits (B=1, 256 tokens and {inputs}) vs float64: max |diff| "
+              f"/ max |logit| {rel:.3e} <= {F64_REL:.0e}")
+        del model32, lg32, lg64
+        torch.cuda.empty_cache()
+    encdec_train(dev, check)
+    log(f"[encdec] phase {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
+def encdec_train(dev, check):
+    """seamless-m4t-large-v2 training at full width and 2 layers (2 encoder
+    and 2 decoder layers): the model and the token stream (B=8, S=2048, its
+    frames ``[8, 2048, 1024]``) from ``launch/train.py``'s
+    ``build_everything``, 8 microbatches of one row (the config's 16 would
+    cut rows in half).  One step's gradients at bf16 compute against f32
+    compute on the same parameters and batch: each leaf of each layer
+    (the encoder's, the cross blocks' and ``frontend_proj`` included)
+    within ``TRAIN_BF16_GRAD_REL``, and every one nonzero."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.launch import train as ltrain
+    from repro_torch.models import api
+    from repro_torch.optim import tree_leaves
+
+    b, s, mbs = 8, 2048, 8
+    cfg, model, _, _, stream = ltrain.build_everything(
+        "seamless-m4t-large-v2", False, b, s, mbs, 1e-3, False, dev,
+        layers=2)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    batch = stream.batch_at(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g16, l16 = api.accumulate_grads(model, params, batch, mbs)
+    torch.cuda.synchronize()
+    t16 = time.perf_counter() - t0
+    g32, l32 = api.accumulate_grads(api.build(dataclasses.replace(
+        cfg, compute_dtype="float32"), dev, serve=False), params, batch, mbs)
+    rels, still = {}, []
+    for (name, a), c in zip(leaf_names(g16), tree_leaves(g32)):
+        stacked = name.startswith(("layers/", "encoder/"))
+        for i, (x, y) in enumerate(zip(a, c) if stacked else [(a, c)]):
+            key = f"{name}[{i}]" if stacked else name
+            if float(y.norm()) == 0:
+                still.append(key)
+            rels[key] = float((x - y).norm() / y.norm())
+    worst = max(rels, key=rels.get)
+    part = {p: max(v for n, v in rels.items() if p in n)
+            for p in ("encoder/", "_x[", "frontend_proj")}
+    check(n_params == param_count(cfg) and not still
+          and all(v <= TRAIN_BF16_GRAD_REL for v in rels.values()),
+          f"[encdec] train {cfg.name} at 2 layers ({n_params:,} f32 "
+          f"parameters): one step's gradients (B={b}, S={s}, {s} frames, "
+          f"{mbs} microbatches) at bf16 compute against f32 compute, each "
+          f"of the {len(rels)} leaf-layers nonzero ({len(still)} zero) and "
+          f"within ||g16 - g32|| / ||g32|| <= {TRAIN_BF16_GRAD_REL:.0e}: "
+          f"worst {rels[worst]:.3e} ({worst}); worst encoder leaf "
+          f"{part['encoder/']:.3e}, cross leaf {part['_x[']:.3e}, "
+          f"frontend_proj {part['frontend_proj']:.3e}; losses "
+          f"{float(l16.mean()):.4f} (bf16) / {float(l32.mean()):.4f} (f32); "
+          f"the bf16 gradients in {t16:.2f} s")
+    del g16, g32, params, model, batch
     torch.cuda.empty_cache()
 
 
@@ -3956,6 +4196,10 @@ def main() -> int:
     log(f"[moe] flash launches per olmoe prefill: {moe_launches}")
     clock("[moe]")
 
+    # -- phase 7c: [encdec] the encoder-decoder and vision families ---------
+    encdec_rows = encdec_phase(dev, check)
+    clock("[encdec]")
+
     # -- phase 8: LM training, tinyllama-1.1b at full width -----------------
     train_phase(dev, check)
     clock("[train]")
@@ -3979,7 +4223,9 @@ def main() -> int:
             "outbox_reduce": (shard_rows["pagerank"], shard_err),
             "segment_reduce": (seg_rows[1, "sum"], seg_err),
             "flash_attention": lm_rows["d64"][:2],
-            "flash_attention.d256": lm_rows["d256"][:2]}
+            "flash_attention.d256": lm_rows["d256"][:2],
+            "flash_attention.noncausal": encdec_rows["noncausal"][:2],
+            "flash_attention.vlm": encdec_rows["vlm"][:2]}
     launches.update(
         (name, hyb_launches[name]) for name in ("ell_spmv", "dense_spmv",
                                                 "dense_spmv_minplus"))
@@ -3987,6 +4233,8 @@ def main() -> int:
     launches["segment_reduce"] = seg_launches
     launches["flash_attention"] = lm_rows["d64"][2]
     launches["flash_attention.d256"] = lm_rows["d256"][2]
+    launches["flash_attention.noncausal"] = encdec_rows["noncausal"][2]
+    launches["flash_attention.vlm"] = encdec_rows["vlm"][2]
     launches["fused_superstep.bfs_relax"] = dyn_launches["bfs_relax"]
     launches["fused_superstep"] += tdyn_launches
     record = {"kernels": [dict(

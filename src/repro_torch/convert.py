@@ -182,13 +182,18 @@ def to_numpy(tree: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
 def lm_params(params, cfg: ArchConfig) -> Dict[str, torch.Tensor]:
     """The JAX transformer's parameter pytree (``init_params``: ``embed``,
     ``layers`` stacked on a leading L axis, ``final_norm``, ``lm_head`` when
-    the head is untied) → the port's module state, f32 CPU tensors named
-    ``embed``, ``layers.<i>.<name>``, ``final_norm``, ``lm_head``.  Weights
-    keep the ``[in, out]`` layout of ``x @ W`` (no transpose).
+    the head is untied; ``encoder`` stacked as ``layers`` and ``enc_norm``
+    for an encoder-decoder config, ``frontend_proj`` with a front end) →
+    the port's module state, f32 CPU tensors named ``embed``,
+    ``layers.<i>.<name>``, ``final_norm``, ``lm_head``, ``encoder.<i>.
+    <name>``, ``enc_norm``, ``frontend_proj``.  Weights keep the ``[in,
+    out]`` layout of ``x @ W`` (no transpose).
     ``Transformer.load_state_dict`` casts them to the stored dtypes.
     Raises if a shape, the set of layer leaves (an MoE config's
     ``moe_wg``, ``moe_w1 [L, E, D, 2F]`` and ``moe_w2 [L, E, F, D]`` in
-    place of the SwiGLU leaves) or the head does not match ``cfg``."""
+    place of the SwiGLU leaves; the cross leaves ``norm_x``, ``wq_x``,
+    ``wk_x``, ``wv_x``, ``wo_x`` of an encoder-decoder's decoder), the head,
+    the encoder or the front end does not match ``cfg``."""
     def put(name, x, shape):
         a = np.array(x, dtype=np.float32)          # a writable copy
         if a.shape != tuple(shape):
@@ -196,24 +201,39 @@ def lm_params(params, cfg: ArchConfig) -> Dict[str, torch.Tensor]:
                              f"{tuple(shape)}")
         return torch.from_numpy(a)
 
+    def stack(prefix, layers, cross):
+        shapes = layer_param_shapes(cfg, cross)
+        if set(layers) != set(shapes):
+            what = "layer" if prefix == "layers" else "encoder layer"
+            raise ValueError(f"{what} leaves {sorted(layers)}, {cfg.name} "
+                             f"wants {sorted(shapes)}")
+        for name, shape in shapes.items():
+            st = put(f"{prefix}.{name}", layers[name],
+                     (cfg.n_layers,) + shape)
+            for i in range(cfg.n_layers):
+                out[f"{prefix}.{i}.{name}"] = st[i]
+
     if ("lm_head" in params) == cfg.tie_embeddings:
         raise ValueError(f"lm_head {'given' if cfg.tie_embeddings else 'missing'}"
                          f" with tie_embeddings={cfg.tie_embeddings}")
-    out = {"embed": put("embed", params["embed"], (cfg.vocab, cfg.d_model))}
-    layers = params["layers"]
-    shapes = layer_param_shapes(cfg)
-    if set(layers) != set(shapes):
-        raise ValueError(f"layer leaves {sorted(layers)}, {cfg.name} wants "
-                         f"{sorted(shapes)}")
-    for name, shape in shapes.items():
-        stack = put(f"layers.{name}", layers[name], (cfg.n_layers,) + shape)
-        for i in range(cfg.n_layers):
-            out[f"layers.{i}.{name}"] = stack[i]
-    out["final_norm"] = put("final_norm", params["final_norm"],
-                            (cfg.d_model,))
+    for key, wanted in (("encoder", cfg.enc_dec), ("enc_norm", cfg.enc_dec),
+                        ("frontend_proj", bool(cfg.frontend))):
+        if (key in params) != wanted:
+            raise ValueError(f"{key} {'missing' if wanted else 'given'} with "
+                             f"enc_dec={cfg.enc_dec}, "
+                             f"frontend={cfg.frontend!r}")
+    d = cfg.d_model
+    out = {"embed": put("embed", params["embed"], (cfg.vocab, d))}
+    stack("layers", params["layers"], cfg.enc_dec)
+    out["final_norm"] = put("final_norm", params["final_norm"], (d,))
     if not cfg.tie_embeddings:
-        out["lm_head"] = put("lm_head", params["lm_head"],
-                             (cfg.d_model, cfg.vocab))
+        out["lm_head"] = put("lm_head", params["lm_head"], (d, cfg.vocab))
+    if cfg.enc_dec:
+        stack("encoder", params["encoder"], False)
+        out["enc_norm"] = put("enc_norm", params["enc_norm"], (d,))
+    if cfg.frontend:
+        out["frontend_proj"] = put("frontend_proj", params["frontend_proj"],
+                                   (d, d))
     return out
 
 

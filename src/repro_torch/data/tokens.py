@@ -3,8 +3,10 @@
 A copy of ``repro/data/tokens.py``: ``batch_at(step)`` is a pure function
 of (seed, step), drawn from numpy's ``SeedSequence([seed, step])``, so its
 tokens equal the JAX package's bit for bit.  The distribution is Zipfian
-(vocabulary skew).  Only token batches: the vision and audio inputs come
-with those families (``ROADMAP.md`` Queue 1 item 15).
+(vocabulary skew).  The vision and audio front ends' inputs (``patches``
+and ``frames``, stand-ins for their encoders' embeddings) are drawn after
+the tokens from the same generator, as the JAX package draws them, so they
+are equal bit for bit too.
 """
 from __future__ import annotations
 
@@ -30,12 +32,22 @@ class TokenStream:
             np.random.SeedSequence([self.seed, step]))
 
     def batch_at(self, step: int) -> Dict[str, torch.Tensor]:
-        """``{"tokens": [batch, seq + 1] int32}`` on the CPU."""
-        if self.cfg.frontend or self.cfg.enc_dec:
-            raise NotImplementedError(
-                f"{self.cfg.name}: front-end inputs are not ported yet "
-                f"(ROADMAP.md Queue 1 item 15)")
+        """``{"tokens": [batch, seq + 1] int32}`` on the CPU; a vision
+        config adds ``patches [batch, frontend_len, d_model]`` and an
+        encoder-decoder config ``frames [batch, min(seq, 4096), d_model]``,
+        f32, ``normal * 0.02``."""
+        cfg = self.cfg
         rng = self._rng(step)
         toks = rng.zipf(self.zipf_a, size=(self.batch, self.seq + 1))
-        toks = np.minimum(toks - 1, self.cfg.vocab - 1).astype(np.int32)
-        return {"tokens": torch.from_numpy(toks)}
+        toks = np.minimum(toks - 1, cfg.vocab - 1).astype(np.int32)
+        out = {"tokens": torch.from_numpy(toks)}
+
+        def embeddings(length):
+            a = rng.normal(size=(self.batch, length, cfg.d_model)) * 0.02
+            return torch.from_numpy(a.astype(np.float32))
+
+        if cfg.frontend == "vision":
+            out["patches"] = embeddings(cfg.frontend_len)
+        if cfg.enc_dec:
+            out["frames"] = embeddings(min(self.seq, 4096))
+        return out

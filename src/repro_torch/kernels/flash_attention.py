@@ -2,8 +2,8 @@
 
 The kernels replace ``repro/kernels/flash_attention.py::flash_attention``
 (the Pallas kernel) and the head repeat of ``repro/kernels/ops.py::
-flash_attention_op``.  They compute causal online-softmax attention with an
-optional sliding window on the model's layout, ``q [B, S, G, R, D]`` and
+flash_attention_op``.  They compute online-softmax attention, causal with
+an optional sliding window or full (an encoder's), on the model's layout, ``q [B, S, G, R, D]`` and
 ``k, v [B, S, G, D]``, reading KV group ``h // R`` for query head ``h``:
 f32 running max, denominator and accumulator, the output rounded to the
 input type.  The input type picks the kernel: bf16 runs both products on
@@ -83,8 +83,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError("flash_attention launch failed: "
                            + lib.flash_attention_error_string(rc).decode())
     flash_attention.launches += 1
+    if not causal:
+        flash_attention.noncausal_launches += 1
     return out
 
 
-# Kernel launches since the caller last set this to 0.
+# Kernel launches since the caller last set this to 0, and of them the
+# non-causal ones (an encoder's).
 flash_attention.launches = 0
+flash_attention.noncausal_launches = 0

@@ -8,7 +8,9 @@
 
 The counterpart of ``repro/launch/serve.py``: the model's weights are
 random (drawn from ``--seed``), the prompt is the Zipf ``TokenStream``'s
-first batch, and decoding is greedy or, with ``--temperature``, sampled
+first batch (with its ``patches`` or ``frames`` for the vision and
+encoder-decoder configs), and decoding is greedy or, with
+``--temperature``, sampled
 from a generator seeded ``--seed + 1``.  Times end in
 ``torch.cuda.synchronize()`` on the card.  Runs on ``cuda`` unless
 ``--device`` names another device.  Beyond the JAX flags, ``--layers``
@@ -36,16 +38,21 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def generate(model: api.Model, prompt: torch.Tensor, gen: int, *,
-             temperature: float = 0.0,
+def generate(model: api.Model, prompt: Dict[str, torch.Tensor], gen: int,
+             *, temperature: float = 0.0,
              generator: Optional[torch.Generator] = None) -> Dict:
-    """Prefill ``prompt [B, S]`` into a cache of ``S + gen`` slots, then
-    decode: the first token from the prefill's logits, ``gen - 1`` more
-    from decode steps.  Greedy at temperature 0, else sampled from
+    """Prefill the prompt batch (``tokens [B, S]``, with a vision config's
+    ``patches`` or an encoder-decoder config's ``frames``) into a cache of
+    ``S + gen`` slots (and a vision config's ``frontend_len``, as in JAX),
+    then decode: the first token from the prefill's logits, ``gen - 1``
+    more from decode steps.  Greedy at temperature 0, else sampled from
     ``softmax(logits / temperature)`` with ``generator``.  Returns the
     tokens ``[B, gen]`` and the prefill and decode wall times (s)."""
     dev = model.device
-    b, s = prompt.shape
+    cfg = model.cfg
+    s = prompt["tokens"].shape[1]
+    max_len = s + gen + (cfg.frontend_len if cfg.frontend == "vision"
+                         else 0)
 
     def pick(logits: torch.Tensor) -> torch.Tensor:
         if temperature > 0:
@@ -55,7 +62,7 @@ def generate(model: api.Model, prompt: torch.Tensor, gen: int, *,
 
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = model.prefill({"tokens": prompt}, max_len=s + gen)
+    logits, cache = model.prefill(prompt, max_len=max_len)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
     tokens = pick(logits)
@@ -98,9 +105,10 @@ def main(argv=None) -> int:
         _build.load(flash_attention.SOURCE)
     model = api.build(cfg, dev,
                       torch.Generator(device=dev).manual_seed(args.seed))
-    prompt = TokenStream(cfg, args.batch, args.prompt_len,
-                         seed=args.seed).batch_at(0)["tokens"]
-    prompt = prompt[:, :args.prompt_len].to(dev)
+    batch = TokenStream(cfg, args.batch, args.prompt_len,
+                        seed=args.seed).batch_at(0)
+    prompt = {k: (v[:, :args.prompt_len] if k == "tokens" else v).to(dev)
+              for k, v in batch.items()}
     sampler = torch.Generator(device=dev).manual_seed(args.seed + 1)
     res = generate(model, prompt, args.gen, temperature=args.temperature,
                    generator=sampler)

@@ -5,7 +5,9 @@
   PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu
 
 The counterpart of ``repro/launch/train.py`` on one device: the seekable
-``TokenStream``, the model's ``make_train_step`` with AdamW, checkpoints
+``TokenStream`` (a vision or encoder-decoder config's batches carry their
+``patches`` or ``frames``, cut into microbatches with the tokens), the
+model's ``make_train_step`` with AdamW, checkpoints
 every ``--ckpt-every`` steps (``CheckpointManager``, written on a
 background thread), the straggler watchdog, and restart from the latest
 checkpoint on a failure (``run_with_restarts``).  The weights are random,

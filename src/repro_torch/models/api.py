@@ -1,6 +1,7 @@
 """Model API: the serving and training entry points of one architecture.
 
-The counterpart of ``repro/models/api.py`` for the dense and MoE families:
+The counterpart of ``repro/models/api.py`` for the dense, MoE,
+encoder-decoder (audio) and vision-language families:
 
   build(cfg, device, generator) → Model (serving weights drawn from the
       generator; ``serve=False`` skips them for a trainer)
@@ -8,13 +9,14 @@ The counterpart of ``repro/models/api.py`` for the dense and MoE families:
   model.loss(params, microbatch) → scalar
   model.prefill(batch, max_len) → (last logits, cache)
   model.decode_step(cache, tokens) → (logits, cache)
-  model.init_cache(batch, max_len) → cache
+  model.init_cache(batch, max_len, enc_len=0) → cache
   make_train_step(model, optimizer, microbatches) → train_step
   accumulate_grads(model, params, batch, microbatches) → (grads, losses)
 
-``input_specs``/``synth_batch`` make the train and prefill batches with the
-JAX package's numpy draws.  The other families, which ``build`` refuses,
-are a later slice (``ROADMAP.md`` Queue 1 item 15).  Entry points run on
+``input_specs``/``synth_batch`` make the train and prefill batches (the
+front ends' ``patches`` and ``frames`` included) with the JAX package's
+numpy draws.  The SSM and hybrid families, which ``build`` refuses, are a
+later slice (``ROADMAP.md`` Queue 1 item 15).  Entry points run on
 ``cuda`` unless the caller names another device.
 """
 from __future__ import annotations
@@ -68,8 +70,8 @@ class Model:
                     ) -> Tuple[torch.Tensor, Dict]:
         return T.decode_step(self._serving(), cache, tokens)
 
-    def init_cache(self, batch: int, max_len: int) -> Dict:
-        return T.init_cache(self.cfg, batch, max_len, self.device)
+    def init_cache(self, batch: int, max_len: int, enc_len: int = 0) -> Dict:
+        return T.init_cache(self.cfg, batch, max_len, self.device, enc_len)
 
     def init_params(self, generator: Optional[torch.Generator] = None
                     ) -> T.Params:
@@ -115,15 +117,24 @@ class TensorSpec(NamedTuple):
 
 
 def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> Dict[str, TensorSpec]:
-    """The token inputs of a train (``[B, S + 1]``) or prefill (``[B, S]``)
-    batch.  Decode shapes, whose inputs hold a cache, and the front ends'
-    inputs come with ``launch/dryrun.py`` and those families (item 15)."""
+    """The inputs of a train (tokens ``[B, S + 1]``) or prefill (``[B,
+    S]``) batch: a vision config adds ``patches [B, frontend_len, d]``, an
+    encoder-decoder config ``frames`` (``[B, min(S, 4096), d]`` to train,
+    ``[B, 4096, d]`` to prefill), f32.  Decode shapes, whose inputs hold a
+    cache, come with ``launch/dryrun.py`` (item 15)."""
     T.check_supported(cfg)
-    b, s = shape.batch, shape.seq
-    if shape.kind == "train":
-        return {"tokens": TensorSpec((b, s + 1), torch.int32)}
-    if shape.kind == "prefill":
-        return {"tokens": TensorSpec((b, s), torch.int32)}
+    b, s, d = shape.batch, shape.seq, cfg.d_model
+    if shape.kind in ("train", "prefill"):
+        train = shape.kind == "train"
+        specs = {"tokens": TensorSpec((b, s + 1 if train else s),
+                                      torch.int32)}
+        if cfg.frontend == "vision":
+            specs["patches"] = TensorSpec((b, cfg.frontend_len, d),
+                                          torch.float32)
+        if cfg.enc_dec:
+            specs["frames"] = TensorSpec((b, min(s, 4096) if train else 4096,
+                                          d), torch.float32)
+        return specs
     raise NotImplementedError(
         f"{shape.kind} input specs are not ported yet: ROADMAP.md Queue 1 "
         f"item 15 brings launch/dryrun.py")
@@ -132,11 +143,20 @@ def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> Dict[str, TensorSpec]:
 def synth_batch(cfg: ArchConfig, shape: ShapeSpec, seed: int = 0,
                 device: DeviceLike = None) -> Dict[str, torch.Tensor]:
     """A random batch matching ``input_specs``: the JAX package's draws
-    (``default_rng(seed)``, integers in ``[0, vocab)``), on ``device``."""
+    from ``default_rng(seed)`` (integers in ``[0, vocab)``, floats
+    ``normal * 0.02``), in its order (sorted keys: ``frames``,
+    ``patches``, ``tokens``), on ``device``."""
     rng = np.random.default_rng(seed)
     dev = resolve_device(device)
-    return {k: torch.as_tensor(rng.integers(0, cfg.vocab, spec.shape),
-                               dtype=spec.dtype, device=dev)
+
+    def make(spec):
+        if spec.dtype.is_floating_point:
+            a = (rng.normal(size=spec.shape) * 0.02).astype(np.float32)
+        else:
+            a = rng.integers(0, cfg.vocab, spec.shape)
+        return torch.as_tensor(a, dtype=spec.dtype, device=dev)
+
+    return {k: make(spec)
             for k, spec in sorted(input_specs(cfg, shape).items())}
 
 

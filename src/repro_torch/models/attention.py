@@ -19,8 +19,9 @@ PyTorch under autograd, P kept in f32.  ``chunked_attention`` refuses an
 input that requires a gradient rather than return a result with no graph.
 
 GQA keeps the grouped layout: q heads are ``[G, R]`` (KV groups × q heads
-per group) and no KV head is repeated.  ``cross_attention`` waits for the
-encoder-decoder family (``ROADMAP.md`` Queue 1 item 15).
+per group) and no KV head is repeated.  ``cross_attention`` (the decoder's
+attention to the encoder's output, serving and training) is plain
+PyTorch, as the JAX function is an einsum outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -88,6 +89,21 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bgrk,bkgd->bgrd", p, vc)
     return out[:, None].to(q.dtype)
+
+
+def cross_attention(q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> torch.Tensor:
+    """Full (non-causal) cross attention, the JAX ``cross_attention``.
+    q: ``[B, Sq, G, R, D]``; k, v: ``[B, Skv, G, D]``.  Scores and softmax
+    in f32 (float64 for float64 input); returns ``[B, Sq, G, R, D]`` in
+    q's dtype.  The scores ``[B, G, R, Sq, Skv]`` live for the call."""
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    work = torch.promote_types(q.dtype, torch.float32)
+    s = torch.einsum("bqgrd,bkgd->bgrqk", q.to(work), k.to(work)) * scale
+    p = torch.softmax(s, dim=-1)
+    del s
+    out = torch.einsum("bgrqk,bkgd->bqgrd", p, v.to(work))
+    return out.to(q.dtype)
 
 
 NEG_INF = -1e30        # the JAX model's mask value

@@ -1,5 +1,5 @@
-"""Decoder-only transformer with GQA, RoPE and SwiGLU or MoE feed-forwards:
-the dense and MoE families.
+"""Transformer with GQA, RoPE and SwiGLU or MoE feed-forwards: the dense,
+MoE, encoder-decoder (audio) and vision-language families.
 
 The counterpart of ``repro/models/transformer.py`` (``_layer_param_shapes``,
 ``init_params``, ``layer_windows``, ``_qkv``, ``_ffn``, ``_embed_inputs``,
@@ -28,8 +28,20 @@ An MoE config (``cfg.is_moe``: olmoe, qwen3-moe) replaces each layer's
 SwiGLU leaves by the router and the stacked experts and calls
 ``moe.moe_ffn`` in prefill, decode and ``loss_fn``, as the JAX layer does.
 
-Not here yet (``ROADMAP.md`` Queue 1 item 15): the encoder-decoder, vision,
-SSM and hybrid families.
+An encoder-decoder config (``cfg.enc_dec``: seamless) adds ``encoder``, a
+stack of ``n_layers`` non-causal layers over the audio frames
+(``frames @ frontend_proj``; their attention is the flash kernel in its
+non-causal mode), ``enc_norm``, and to each decoder layer a cross block
+(``norm_x``, ``wq_x``, ``wk_x``, ``wv_x``, ``wo_x``) after its
+self-attention: ``attention.cross_attention`` against the encoder's
+output, whose per-layer k and v the prefill keeps in the cache (``xk``,
+``xv``) for the decode steps.  A vision config (``frontend="vision"``:
+internvl2) prepends ``patches @ frontend_proj`` (not scaled by
+``sqrt(d_model)``) to the scaled token embeddings; the patches take cache
+slots and positions, and ``loss_fn`` drops their outputs before the head.
+
+Not here yet (``ROADMAP.md`` Queue 1 item 15): the SSM and hybrid
+families.
 """
 from __future__ import annotations
 
@@ -50,24 +62,30 @@ from repro_torch.models.moe import moe_ffn, moe_layer_params
 Cache = Dict[str, object]
 
 _NOT_PORTED = ("not ported yet: ROADMAP.md Queue 1 item 15 brings the "
-               "encoder-decoder, vision, SSM and hybrid models")
+               "SSM and hybrid models")
 
 
 def check_supported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` for what the port does not run."""
-    if cfg.family not in ("dense", "moe") or cfg.enc_dec or cfg.frontend:
+    if cfg.family not in ("dense", "moe", "audio", "vlm"):
         raise NotImplementedError(f"{cfg.name} (family {cfg.family!r}) is "
                                   f"{_NOT_PORTED}")
 
 
-def layer_param_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
-    """One layer's parameters and shapes, in the JAX order: the MoE leaves
-    in place of the SwiGLU ones when ``cfg.is_moe``."""
+def layer_param_shapes(cfg: ArchConfig, cross: bool = False
+                       ) -> Dict[str, Tuple[int, ...]]:
+    """One layer's parameters and shapes, in the JAX order: the cross
+    block's leaves after the self-attention's when ``cross``, the MoE
+    leaves in place of the SwiGLU ones when ``cfg.is_moe``."""
     d, hd = cfg.d_model, cfg.hd
     h, g, f = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
     shapes = {"norm1": (d,), "norm2": (d,),
               "wq": (d, h * hd), "wk": (d, g * hd), "wv": (d, g * hd),
               "wo": (h * hd, d)}
+    if cross:
+        shapes.update({"norm_x": (d,), "wq_x": (d, h * hd),
+                       "wk_x": (d, g * hd), "wv_x": (d, g * hd),
+                       "wo_x": (h * hd, d)})
     if cfg.is_moe:
         shapes.update(moe_layer_params(cfg))
     else:
@@ -105,23 +123,50 @@ def _ffn(cfg: ArchConfig, lp: Dict[str, torch.Tensor],
     return (F.silu(h @ lp["w_gate"]) * (h @ lp["w_up"])) @ lp["w_down"]
 
 
+def cross_kv(cfg: ArchConfig, lp: Dict[str, torch.Tensor],
+             enc_out: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A decoder layer's cross k and v ``[B, Senc, G, hd]`` from the
+    encoder's output ``[B, Senc, d]``."""
+    b, se, _ = enc_out.shape
+    g, hd = cfg.n_kv_heads, cfg.hd
+    return ((enc_out @ lp["wk_x"]).reshape(b, se, g, hd),
+            (enc_out @ lp["wv_x"]).reshape(b, se, g, hd))
+
+
+def _cross(cfg: ArchConfig, lp: Dict[str, torch.Tensor], x: torch.Tensor,
+           xk: torch.Tensor, xv: torch.Tensor) -> torch.Tensor:
+    """The cross block: ``x`` plus its attention to the encoder's k and
+    v."""
+    b, s, _ = x.shape
+    g = cfg.n_kv_heads
+    h = rms_norm(x, lp["norm_x"], cfg.norm_eps)
+    qx = (h @ lp["wq_x"]).reshape(b, s, g, cfg.n_heads // g, cfg.hd)
+    o = attn.cross_attention(qx, xk, xv)
+    return x + o.reshape(b, s, -1) @ lp["wo_x"]
+
+
 def _decoder_layer(cfg: ArchConfig, lp: Dict[str, torch.Tensor],
                    x: torch.Tensor, positions: torch.Tensor, window: int,
-                   attention) -> Tuple[torch.Tensor, torch.Tensor,
-                                       torch.Tensor]:
-    """``_decoder_layer`` (one pre-norm block: attention, then the SwiGLU
-    or MoE feed-forward) on ``x [B, S, d]`` with the weights ``lp`` and an
+                   attention, causal: bool = True,
+                   enc_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``_decoder_layer`` (one pre-norm block: attention, the cross block
+    when given the encoder's k and v ``enc_kv``, then the SwiGLU or MoE
+    feed-forward) on ``x [B, S, d]`` with the weights ``lp`` and an
     ``attention`` function of the ``chunked_attention`` signature; returns
-    ``x`` and the layer's k and v."""
+    ``x`` and the layer's k and v.  The encoder's layers run it with
+    ``causal=False``."""
     b, s, _ = x.shape
     h = rms_norm(x, lp["norm1"], cfg.norm_eps)
     q, k, v = _qkv(cfg, lp, h)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    o = attention(q, k, v, window=window, causal=True,
+    o = attention(q, k, v, window=window, causal=causal,
                   q_chunk=attn.pick_chunk(s, 2048),
                   k_chunk=attn.pick_chunk(s, 1024))
     x = x + o.reshape(b, s, cfg.n_heads * cfg.hd) @ lp["wo"]
+    if enc_kv is not None:
+        x = _cross(cfg, lp, x, *enc_kv)
     x = x + _ffn(cfg, lp, rms_norm(x, lp["norm2"], cfg.norm_eps))
     return x, k, v
 
@@ -132,33 +177,42 @@ def _weight(shape, dtype, device) -> nn.Parameter:
 
 
 class DecoderLayer(nn.Module):
-    """One pre-norm block: attention, then the SwiGLU or MoE
-    feed-forward."""
+    """One pre-norm block: attention, the cross block (``cross``), then the
+    SwiGLU or MoE feed-forward.  An encoder layer is one with ``causal``
+    false (full attention) and no cross block."""
 
     def __init__(self, cfg: ArchConfig, window: int, dtype: torch.dtype,
-                 device: torch.device):
+                 device: torch.device, cross: bool = False,
+                 causal: bool = True):
         super().__init__()
         self.cfg = cfg
         self.window = int(window)
-        for name, shape in layer_param_shapes(cfg).items():
+        self.cross, self.causal = cross, causal
+        for name, shape in layer_param_shapes(cfg, cross).items():
             setattr(self, name, _weight(shape, dtype, device))
 
     @property
     def weights(self) -> Dict[str, torch.Tensor]:
         return {name: getattr(self, name) for name in layer_param_shapes(
-            self.cfg)}
+            self.cfg, self.cross)}
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor):
+    def forward(self, x: torch.Tensor, positions: torch.Tensor,
+                enc_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
         """Prefill: ``x [B, S, d]`` → (``x``, this layer's k and v), the
-        attention through the flash kernel."""
+        attention through the flash kernel; ``enc_kv`` the cross block's
+        k and v (``cross_kv``)."""
         return _decoder_layer(self.cfg, self.weights, x, positions,
-                              self.window, attn.chunked_attention)
+                              self.window, attn.chunked_attention,
+                              self.causal, enc_kv)
 
     def decode(self, x: torch.Tensor, positions: torch.Tensor,
                k_cache: torch.Tensor, v_cache: torch.Tensor,
-               pos: int) -> torch.Tensor:
+               pos: int, enc_kv: Optional[Tuple[torch.Tensor,
+                                                torch.Tensor]] = None
+               ) -> torch.Tensor:
         """One token ``x [B, 1, d]`` at position ``pos``: writes its k and v
-        into this layer's caches ``[B, max_len, G, hd]`` in place."""
+        into this layer's caches ``[B, max_len, G, hd]`` in place; the
+        cross block reads the cached ``enc_kv``."""
         cfg, lp = self.cfg, self.weights
         b = x.shape[0]
         h = rms_norm(x, lp["norm1"], cfg.norm_eps)
@@ -170,14 +224,19 @@ class DecoderLayer(nn.Module):
         o = attn.decode_attention(q, k_cache, v_cache, cache_len=pos + 1,
                                   window=self.window)
         x = x + o.reshape(b, 1, cfg.n_heads * cfg.hd) @ lp["wo"]
+        if enc_kv is not None:
+            x = _cross(cfg, lp, x, *enc_kv)
         return x + _ffn(cfg, lp, rms_norm(x, lp["norm2"], cfg.norm_eps))
 
 
 class Transformer(nn.Module):
-    """The dense decoder: token embedding, the layers, the final norm and
-    the LM head (the embedding's transpose when tied).  Parameter names
-    follow the JAX pytree: ``embed``, ``layers.<i>.<name>``, ``final_norm``,
-    ``lm_head``."""
+    """The model: token embedding, the decoder layers, the final norm and
+    the LM head (the embedding's transpose when tied); with a front end,
+    ``frontend_proj``; encoder-decoder, the ``encoder`` layers and
+    ``enc_norm``.  Parameter names follow the JAX pytree: ``embed``,
+    ``layers.<i>.<name>``, ``final_norm``, ``lm_head``, ``encoder.<i>.
+    <name>``, ``enc_norm``, ``frontend_proj``.  The norms outside the
+    layers stay in the parameter dtype, as in JAX."""
 
     def __init__(self, cfg: ArchConfig, device: torch.device):
         super().__init__()
@@ -185,12 +244,21 @@ class Transformer(nn.Module):
         self.cfg = cfg
         self.compute_dtype = dtype_of(cfg.compute_dtype)
         cdt, pdt = self.compute_dtype, dtype_of(cfg.param_dtype)
-        self.embed = _weight((cfg.vocab, cfg.d_model), cdt, device)
+        d = cfg.d_model
+        self.embed = _weight((cfg.vocab, d), cdt, device)
         self.layers = nn.ModuleList(
-            DecoderLayer(cfg, w, cdt, device) for w in layer_windows(cfg))
-        self.final_norm = _weight((cfg.d_model,), pdt, device)
+            DecoderLayer(cfg, w, cdt, device, cross=cfg.enc_dec)
+            for w in layer_windows(cfg))
+        self.final_norm = _weight((d,), pdt, device)
         if not cfg.tie_embeddings:
-            self.lm_head = _weight((cfg.d_model, cfg.vocab), cdt, device)
+            self.lm_head = _weight((d, cfg.vocab), cdt, device)
+        if cfg.enc_dec:
+            self.encoder = nn.ModuleList(
+                DecoderLayer(cfg, 0, cdt, device, causal=False)
+                for _ in range(cfg.n_layers))
+            self.enc_norm = _weight((d,), pdt, device)
+        if cfg.frontend:
+            self.frontend_proj = _weight((d, d), cdt, device)
 
     @property
     def device(self) -> torch.device:
@@ -205,11 +273,39 @@ class Transformer(nn.Module):
                              dtype=self.compute_dtype)
         return self.embed[tokens.to(self.device)] * scale
 
+    def embed_inputs(self, batch: Dict[str, torch.Tensor]
+                     ) -> Tuple[torch.Tensor, int]:
+        """``_embed_inputs``: the scaled token embeddings, after a vision
+        config's ``patches @ frontend_proj`` (unscaled) when the batch has
+        patches; returns them and the number of front positions."""
+        x = self.embed_tokens(batch["tokens"])
+        if self.cfg.frontend != "vision" or "patches" not in batch:
+            return x, 0
+        front = batch["patches"].to(self.device, self.compute_dtype) \
+            @ self.frontend_proj
+        return torch.cat([front, x], dim=1), front.shape[1]
+
+    def encode(self, frames: torch.Tensor) -> torch.Tensor:
+        """``_encode``: ``frames [B, Senc, d] @ frontend_proj``, the
+        encoder's non-causal layers, then ``enc_norm``."""
+        x = frames.to(self.device, self.compute_dtype) @ self.frontend_proj
+        positions = torch.arange(x.shape[1], device=self.device)[None]
+        for layer in self.encoder:
+            x = layer(x, positions)[0]
+        return rms_norm(x, self.enc_norm, self.cfg.norm_eps)
+
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         """``_lm_logits``: final norm, then the head, in ``x``'s dtype."""
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         head = self.embed.t() if self.cfg.tie_embeddings else self.lm_head
         return x @ head
+
+
+def _is_norm(name: str) -> bool:
+    """A norm's scale (``norm1``, ``norm_x``, ``final_norm``,
+    ``enc_norm``): zeros at init."""
+    leaf = name.rsplit(".", 1)[-1]
+    return leaf.startswith("norm") or leaf.endswith("_norm")
 
 
 def init_params(model: Transformer, generator: torch.Generator) -> None:
@@ -221,7 +317,7 @@ def init_params(model: Transformer, generator: torch.Generator) -> None:
     parameter order; the numbers are the generator's, not JAX's."""
     with torch.no_grad():
         for name, p in model.named_parameters():
-            if name.rsplit(".", 1)[-1].startswith(("norm", "final_norm")):
+            if _is_norm(name):
                 p.zero_()
                 continue
             fan_in = model.cfg.d_model if name == "embed" else p.shape[-2]
@@ -231,31 +327,49 @@ def init_params(model: Transformer, generator: torch.Generator) -> None:
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
-               device: torch.device) -> Cache:
+               device: torch.device, enc_len: int = 0) -> Cache:
     """KV caches ``[L, B, max_len, G, hd]`` in the compute dtype, zeroed,
-    and ``len`` (a Python int)."""
+    and ``len`` (a Python int); an encoder-decoder config given
+    ``enc_len`` adds the cross caches ``xk``, ``xv`` ``[L, B, enc_len, G,
+    hd]``."""
     cdt = dtype_of(cfg.compute_dtype)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
-    return {"k": torch.zeros(shape, dtype=cdt, device=device),
-            "v": torch.zeros(shape, dtype=cdt, device=device), "len": 0}
+    g, hd = cfg.n_kv_heads, cfg.hd
+    shape = (cfg.n_layers, batch, max_len, g, hd)
+    cache = {"k": torch.zeros(shape, dtype=cdt, device=device),
+             "v": torch.zeros(shape, dtype=cdt, device=device), "len": 0}
+    if cfg.enc_dec and enc_len:
+        shape = (cfg.n_layers, batch, enc_len, g, hd)
+        cache["xk"] = torch.zeros(shape, dtype=cdt, device=device)
+        cache["xv"] = torch.zeros(shape, dtype=cdt, device=device)
+    return cache
 
 
 @torch.inference_mode()
 def prefill(model: Transformer, batch: Dict[str, torch.Tensor],
             max_len: Optional[int] = None) -> Tuple[torch.Tensor, Cache]:
-    """Process the full prompt ``batch["tokens"] [B, S]``; returns
-    (last-token logits ``[B, vocab]``, cache with ``max_len`` slots)."""
-    tokens = batch["tokens"]
-    b, s = tokens.shape
-    x = model.embed_tokens(tokens)
-    max_len = max(max_len or s, s)
-    positions = torch.arange(s, device=model.device)[None]
-    cache = init_cache(model.cfg, b, max_len, model.device)
+    """Process the full prompt ``batch["tokens"] [B, S]`` (after a vision
+    config's ``patches``; an encoder-decoder config encodes
+    ``batch["frames"]`` first); returns (last-token logits ``[B, vocab]``,
+    cache with ``max(max_len, S + patches)`` slots, and the cross caches
+    written here once)."""
+    cfg = model.cfg
+    b = batch["tokens"].shape[0]
+    x, _ = model.embed_inputs(batch)
+    stotal = x.shape[1]
+    max_len = max(max_len or stotal, stotal)
+    positions = torch.arange(stotal, device=model.device)[None]
+    enc_out = model.encode(batch["frames"]) if cfg.enc_dec else None
+    cache = init_cache(cfg, b, max_len, model.device,
+                       0 if enc_out is None else enc_out.shape[1])
     for i, layer in enumerate(model.layers):
-        x, k, v = layer(x, positions)
-        cache["k"][i, :, :s] = k
-        cache["v"][i, :, :s] = v
-    cache["len"] = s
+        enc_kv = None
+        if enc_out is not None:
+            enc_kv = cross_kv(cfg, layer.weights, enc_out)
+            cache["xk"][i], cache["xv"][i] = enc_kv
+        x, k, v = layer(x, positions, enc_kv)
+        cache["k"][i, :, :stotal] = k
+        cache["v"][i, :, :stotal] = v
+    cache["len"] = stotal
     return model.logits(x[:, -1:])[:, 0], cache
 
 
@@ -265,15 +379,17 @@ def decode_step(model: Transformer, cache: Cache,
     """One decode step for ``tokens [B]``: returns (logits ``[B, vocab]``,
     the cache).  The cache is updated in place (the JAX function returns a
     new one): the token's k and v go to slot ``len``, and ``len`` grows by
-    one."""
+    one; the cross caches are only read."""
     pos = int(cache["len"])
     k_all, v_all = cache["k"], cache["v"]
     if pos >= k_all.shape[2]:
         raise ValueError(f"the cache is full ({k_all.shape[2]} slots)")
     x = model.embed_tokens(tokens[:, None])
     positions = torch.full((1, 1), pos, device=model.device)
+    cross = "xk" in cache
     for i, layer in enumerate(model.layers):
-        x = layer.decode(x, positions, k_all[i], v_all[i], pos)
+        x = layer.decode(x, positions, k_all[i], v_all[i], pos,
+                         (cache["xk"][i], cache["xv"][i]) if cross else None)
     cache["len"] = pos + 1
     return model.logits(x)[:, 0], cache
 
@@ -288,71 +404,114 @@ Params = Dict[str, object]
 def init_train_params(cfg: ArchConfig, generator: torch.Generator,
                       device: torch.device) -> Params:
     """The master parameters in ``cfg.param_dtype``: ``embed``, ``layers``
-    (each weight stacked ``[L, ...]``), ``final_norm`` and, untied,
-    ``lm_head``.  Drawn as :func:`init_params` draws a module (the same
-    order and numbers, before its cast to the compute dtype), so
-    ``convert.lm_params`` loads them into a serving module."""
+    (each weight stacked ``[L, ...]``), ``final_norm``, untied
+    ``lm_head``, and the front end's and encoder's (``frontend_proj``,
+    ``encoder`` stacked as ``layers``, ``enc_norm``).  Drawn as
+    :func:`init_params` draws a module (the same order and numbers, before
+    its cast to the compute dtype), so ``convert.lm_params`` loads them
+    into a serving module."""
     check_supported(cfg)
     pdt = dtype_of(cfg.param_dtype)
+    d = cfg.d_model
 
     def draw(shape, fan_in):
         w = torch.randn(shape, generator=generator, dtype=torch.float32,
                         device=generator.device)
         return w.mul_(1.0 / math.sqrt(max(fan_in, 1))).to(device, pdt)
 
-    # the module's parameter order: its own (embed, final_norm, lm_head),
-    # then each layer's
-    params: Params = {"embed": draw((cfg.vocab, cfg.d_model), cfg.d_model)}
-    params["final_norm"] = torch.zeros(cfg.d_model, dtype=pdt,
-                                       device=device)
+    def zeros(shape):
+        return torch.zeros(shape, dtype=pdt, device=device)
+
+    def stack(cross):
+        shapes = layer_param_shapes(cfg, cross)
+        per_layer = {k: [] for k in shapes}
+        for _ in range(cfg.n_layers):
+            for name, shape in shapes.items():
+                per_layer[name].append(zeros(shape) if _is_norm(name)
+                                       else draw(shape, shape[-2]))
+        return {k: torch.stack(v) for k, v in per_layer.items()}
+
+    # the module's parameter order: its own (embed, final_norm, lm_head,
+    # enc_norm, frontend_proj), then each decoder layer's, then each
+    # encoder layer's
+    params: Params = {"embed": draw((cfg.vocab, d), d),
+                      "final_norm": zeros(d)}
     if not cfg.tie_embeddings:
-        params["lm_head"] = draw((cfg.d_model, cfg.vocab), cfg.d_model)
-    shapes = layer_param_shapes(cfg)
-    per_layer = {k: [] for k in shapes}
-    for _ in range(cfg.n_layers):
-        for name, shape in shapes.items():
-            per_layer[name].append(
-                torch.zeros(shape, dtype=pdt, device=device)
-                if name.startswith("norm") else draw(shape, shape[-2]))
-    params["layers"] = {k: torch.stack(v) for k, v in per_layer.items()}
+        params["lm_head"] = draw((d, cfg.vocab), d)
+    if cfg.enc_dec:
+        params["enc_norm"] = zeros(d)
+    if cfg.frontend:
+        params["frontend_proj"] = draw((d, d), d)
+    params["layers"] = stack(cfg.enc_dec)
+    if cfg.enc_dec:
+        params["encoder"] = stack(False)
     return params
 
 
-def _train_layer(cfg: ArchConfig, window: int, x: torch.Tensor,
+def _train_layer(cfg: ArchConfig, window: int, causal: bool,
+                 x: torch.Tensor, enc_out: Optional[torch.Tensor],
                  *weights: torch.Tensor) -> torch.Tensor:
     """``_decoder_layer`` on one layer's weights (in ``layer_param_shapes``
-    order), each cast to ``x``'s dtype here, inside the checkpointed
-    region, as JAX casts inside its scan body.  The positions are made
-    from ``x`` on its device at every call, the recompute's included."""
-    lp = dict(zip(layer_param_shapes(cfg), (w.to(x.dtype) for w in weights)))
+    order, the cross leaves included when ``enc_out`` is given), each cast
+    to ``x``'s dtype here, inside the checkpointed region, as JAX casts
+    inside its scan body; the cross k and v are made from ``enc_out`` there
+    too.  The positions are made from ``x`` on its device at every call,
+    the recompute's included."""
+    cross = enc_out is not None
+    lp = dict(zip(layer_param_shapes(cfg, cross),
+                  (w.to(x.dtype) for w in weights)))
     positions = torch.arange(x.shape[1], device=x.device)[None]
+    enc_kv = cross_kv(cfg, lp, enc_out) if cross else None
     return _decoder_layer(cfg, lp, x, positions, window,
-                          attn.training_attention)[0]
+                          attn.training_attention, causal, enc_kv)[0]
+
+
+def _train_stack(cfg: ArchConfig, stack: Params, x: torch.Tensor,
+                 windows, causal: bool,
+                 enc_out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``_run_stack``: the layers of ``stack`` (weights stacked ``[L,
+    ...]``) over ``x``, each checkpointed when ``cfg.remat``."""
+    names = list(layer_param_shapes(cfg, enc_out is not None))
+    for i, window in enumerate(windows):
+        args = (cfg, int(window), causal, x, enc_out,
+                *(stack[k][i] for k in names))
+        x = (checkpoint(_train_layer, *args, use_reentrant=False)
+             if cfg.remat else _train_layer(*args))
+    return x
 
 
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor], *,
             cfg: ArchConfig) -> torch.Tensor:
     """One microbatch forward and its token-mean cross entropy (the JAX
     ``loss_fn``).  ``batch["tokens"] [B, S + 1]``: the model reads the
-    first S tokens and predicts the last S.  Runs on the parameters'
-    device."""
+    first S tokens and predicts the last S; a vision config's ``patches``
+    go first and their outputs are dropped before the head; an
+    encoder-decoder config encodes ``batch["frames"]`` (non-causal,
+    ``training_attention(causal=False)``) for the decoder's cross blocks.
+    Runs on the parameters' device."""
     check_supported(cfg)
     cdt = dtype_of(cfg.compute_dtype)
     embed = params["embed"]
-    tokens = batch["tokens"].to(embed.device).long()
+    dev = embed.device
+    tokens = batch["tokens"].to(dev).long()
     inputs, labels = tokens[:, :-1], tokens[:, 1:]
     # the scale rounded to the compute dtype, as JAX rounds a Python scalar
     x = embed[inputs].to(cdt) * torch.tensor(math.sqrt(cfg.d_model),
                                              dtype=cdt)
-    names = list(layer_param_shapes(cfg))
-    stack = params["layers"]
-    for i, window in enumerate(layer_windows(cfg)):
-        weights = [stack[k][i] for k in names]
-        if cfg.remat:
-            x = checkpoint(_train_layer, cfg, int(window), x, *weights,
-                           use_reentrant=False)
-        else:
-            x = _train_layer(cfg, int(window), x, *weights)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    n_front = 0
+    if cfg.frontend == "vision" and "patches" in batch:
+        front = batch["patches"].to(dev, cdt) \
+            @ params["frontend_proj"].to(cdt)
+        x = torch.cat([front, x], dim=1)
+        n_front = front.shape[1]
+    enc_out = None
+    if cfg.enc_dec:
+        enc = batch["frames"].to(dev, cdt) @ params["frontend_proj"].to(cdt)
+        enc = _train_stack(cfg, params["encoder"], enc,
+                           np.zeros(cfg.n_layers, np.int32), causal=False)
+        enc_out = rms_norm(enc, params["enc_norm"], cfg.norm_eps)
+    x = _train_stack(cfg, params["layers"], x, layer_windows(cfg),
+                     causal=True, enc_out=enc_out)
+    x = rms_norm(x[:, n_front:], params["final_norm"], cfg.norm_eps)
     head = embed.t() if cfg.tie_embeddings else params["lm_head"]
     return cross_entropy_loss(x @ head.to(x.dtype), labels)

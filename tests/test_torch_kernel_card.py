@@ -1018,6 +1018,121 @@ def test_flash_kernel_pairs_query_heads_on_card(cuda, r, window):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [1024, 2048])
+@pytest.mark.parametrize("r", [1, 2])
+def test_flash_kernel_non_causal_long_on_card(cuda, r, s, dtype):
+    """An encoder's attention (seamless: MHA, R = 1): every key tile live
+    for every row, at long S; at R = 1 the second warpgroup of the pair
+    computes a repeat of the head and must store nothing.  Counted apart
+    as non-causal."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = attention_inputs(2, s, 2, r, 64, dtype, cuda, seed=s + r)
+    before = (kfa.flash_attention.launches,
+              kfa.flash_attention.noncausal_launches)
+    got = kfa.flash_attention(q, k, v, causal=False)
+    assert (kfa.flash_attention.launches,
+            kfa.flash_attention.noncausal_launches) == (before[0] + 1,
+                                                        before[1] + 1)
+    want = tref.flash_attention_ref(q, k, v, causal=False)
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    else:
+        assert within_bf16_bound(got, want, q, k, v, False, 0)
+    assert torch.equal(got, kfa.flash_attention(q, k, v, causal=False))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_vlm_prefix_shape_on_card(cuda, dtype):
+    """internvl2's prefill shape at B = 2: 256 patches before 2048 tokens
+    (S = 2304, not a power of two), 8 KV groups of 6 query heads, D =
+    128, causal."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = attention_inputs(2, 2304, 8, 6, 128, dtype, cuda, seed=6)
+    before = kfa.flash_attention.noncausal_launches
+    got = kfa.flash_attention(q, k, v, causal=True)
+    assert kfa.flash_attention.noncausal_launches == before
+    want = tref.flash_attention_ref(q, k, v, causal=True)
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    else:
+        assert within_bf16_bound(got, want, q, k, v, True, 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cross_attention_on_card_matches_the_cpu(cuda, dtype):
+    """``attention.cross_attention`` (plain PyTorch, f32 scores) on the
+    card against the CPU, a decoder's 33 queries against 70 frames."""
+    from repro_torch.models import attention as tattn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(12)
+    q = torch.randn(2, 33, 4, 2, 64, generator=gen).to(getattr(torch, dtype))
+    k = torch.randn(2, 70, 4, 64, generator=gen).to(q.dtype)
+    v = torch.randn(2, 70, 4, 64, generator=gen).to(q.dtype)
+    got = tattn.cross_attention(q.to(cuda), k.to(cuda), v.to(cuda))
+    assert got.dtype == q.dtype and got.device.type == "cuda"
+    tol = (dict(rtol=1e-4, atol=1e-5) if dtype == "float32"
+           else dict(rtol=1e-2, atol=1e-2))
+    torch.testing.assert_close(got.cpu(), tattn.cross_attention(q, k, v),
+                               **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_seamless_smoke_prefill_on_card_matches_the_cpu(cuda, compute_dtype,
+                                                        monkeypatch):
+    """seamless-m4t-large-v2's smoke config with one set of weights on the
+    card and on the CPU: prefill (logits and the ``k``, ``v``, ``xk``,
+    ``xv`` caches) and two decode steps.  Each layer launches the flash
+    kernel once in the encoder (non-causal) and once in the decoder; the
+    plain attention is never reached on the card.  Tolerances as
+    ``test_lm_on_card_matches_the_cpu``'s."""
+    import dataclasses
+
+    from repro_torch.configs import seamless_m4t_large_v2 as C
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.models import api
+    from repro_torch.models import attention as tattn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(C.SMOKE_CONFIG, compute_dtype=compute_dtype)
+    cpu = api.build(cfg, "cpu", torch.Generator().manual_seed(9))
+    card = api.build(cfg, cuda)
+    card.module.load_state_dict(cpu.module.state_dict())
+    batch = TokenStream(cfg, 2, 70).batch_at(0)
+    batch["tokens"] = batch["tokens"][:, :70]
+    real_ref = tattn.flash_attention_ref
+
+    def refuse(q, *a, **k):
+        assert q.device.type == "cpu", "a CUDA tensor reached the plain one"
+        return real_ref(q, *a, **k)
+
+    monkeypatch.setattr(tattn, "flash_attention_ref", refuse)
+    kfa.flash_attention.launches = kfa.flash_attention.noncausal_launches = 0
+    lg_card, c_card = card.prefill({k: v.to(cuda) for k, v in batch.items()},
+                                   max_len=72)
+    assert (kfa.flash_attention.launches,
+            kfa.flash_attention.noncausal_launches) == (2 * cfg.n_layers,
+                                                        cfg.n_layers)
+    lg_cpu, c_cpu = cpu.prefill(batch, max_len=72)
+    tol = (dict(rtol=1e-4, atol=1e-4) if compute_dtype == "float32"
+           else dict(rtol=0.05, atol=0.1))
+    torch.testing.assert_close(lg_card.float().cpu(), lg_cpu.float(), **tol)
+    for key in ("k", "v", "xk", "xv"):
+        torch.testing.assert_close(c_card[key].float().cpu(),
+                                   c_cpu[key].float(), **tol)
+    for _ in range(2):
+        tok = lg_cpu.argmax(-1)
+        lg_card, c_card = card.decode_step(c_card, tok.to(cuda))
+        lg_cpu, c_cpu = cpu.decode_step(c_cpu, tok)
+        torch.testing.assert_close(lg_card.float().cpu(), lg_cpu.float(),
+                                   **tol)
+
+
+@pytest.mark.gpu
 def test_flash_op_keeps_the_jax_contract_on_card(cuda):
     """``ops.flash_attention_op`` on ``[B, H, S, D]`` with GQA equals the
     kernel on the model's layout, and the plain version."""

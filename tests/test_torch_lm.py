@@ -208,14 +208,14 @@ def test_decode_matches_prefill_shifted():
 def test_generate_samples_reproducibly_from_its_generator():
     cfg = tconfigs.get_smoke("tinyllama-1.1b")
     model = tapi.build(cfg, "cpu")
-    prompt = TokenStream(cfg, 2, 8).batch_at(0)["tokens"][:, :8]
+    prompt = {"tokens": TokenStream(cfg, 2, 8).batch_at(0)["tokens"][:, :8]}
     runs = [serve.generate(model, prompt, 5, temperature=1.0,
                            generator=torch.Generator().manual_seed(7))
             for _ in range(2)]
     assert runs[0]["tokens"].shape == (2, 5)
     assert torch.equal(runs[0]["tokens"], runs[1]["tokens"])
     greedy = serve.generate(model, prompt, 5)["tokens"]
-    logits, _ = model.prefill({"tokens": prompt}, max_len=13)
+    logits, _ = model.prefill(prompt, max_len=13)
     assert torch.equal(greedy[:, 0], logits.argmax(-1))
 
 
@@ -231,20 +231,25 @@ def test_serve_cli_runs_on_the_cpu():
 
 
 def test_unported_families_raise_naming_the_roadmap_item(monkeypatch):
-    for arch in ("seamless-m4t-large-v2", "xlstm-125m", "internvl2-26b",
-                 "zamba2-2.7b"):
+    for arch in ("xlstm-125m", "zamba2-2.7b"):
         with pytest.raises(NotImplementedError, match="item 15"):
             tconfigs.get(arch)
     assert tconfigs.get("tinyllama-1.1b").n_layers == 22
+    # the encoder-decoder and vision families are ported
+    assert tconfigs.get("seamless-m4t-large-v2").enc_dec
+    assert tconfigs.get("internvl2-26b").frontend == "vision"
     base = port_cfg(CFGS["gqa-untied"])
     for kw in (dict(family="hybrid", ssm_state=16, attn_every=2),
-               dict(family="ssm"), dict(family="audio", enc_dec=True),
-               dict(family="vlm", frontend="vision")):
+               dict(family="ssm")):
         with pytest.raises(NotImplementedError, match="item 15"):
             tapi.build(dataclasses.replace(base, **kw), "cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        TokenStream(dataclasses.replace(base, frontend="vision"), 1,
-                    4).batch_at(0)
+    for kw in (dict(family="audio", enc_dec=True, frontend="audio"),
+               dict(family="vlm", frontend="vision", frontend_len=4)):
+        assert tapi.build(dataclasses.replace(base, **kw), "cpu").module
+    vision = TokenStream(dataclasses.replace(base, family="vlm",
+                                             frontend="vision",
+                                             frontend_len=4), 1, 4)
+    assert vision.batch_at(0)["patches"].shape == (1, 4, base.d_model)
     # training is ported: the loss of the dense model is finite
     model = tapi.build(base, "cpu")
     loss = model.loss(model.init_params(), {"tokens": TokenStream(
