@@ -187,11 +187,26 @@ Phases (any failed check exits non-zero; nothing is caught and passed over):
    and one seamless training step at 2 layers (its gradients at bf16
    against f32 compute, every leaf and layer: the encoder's, the cross
    blocks' and ``frontend_proj``);
+   then ``[ssm]`` (``ssm_phase``), after the memory earlier phases left is
+   freed and printed (as before every LM phase): zamba2-2.7b (54 mamba2
+   layers, the shared MHA block of 32 heads of 80 every 6) and
+   xlstm-125m (12 layers, sLSTM every 4th) at full width and depth on the
+   same prompt: the flash kernel at D = 80, ``[4, 2048, 32, 1, 80]``
+   causal, against its plain version and timed (listed apart in the
+   kernels' line), the parameter counts, zamba2's 9 flash launches a
+   prefill, prefill and decode tok/s beside their bounds (xLSTM's prefill
+   is JAX's token-by-token replay), decode vs prefill (xLSTM bit for bit;
+   zamba2 at bf16 and f32), zamba2 at B=1 in a 524,288-slot cache against
+   a 2,080-slot one (every logit equal), f32 prefill logits against a
+   float64 parallel forward (zamba2 at 6 layers), and training at a cut
+   (xlstm-125m at 4 layers, B=8, S=512; zamba2-2.7b at 6, B=8, S=2048:
+   the loss at init, bf16 against f32 gradients per leaf and layer, 2
+   AdamW steps);
 8. ``[train]`` (``train_phase``): tinyllama-1.1b training at full width
    (1,100,048,384 f32 parameters, bf16 compute, remat, 4 microbatches):
    the loss at init, four steps on one B=8, S=2048 batch, f32 against
    float64 at 2 layers, 4 microbatches against 1, the flash route
-   refusing a graph, ``launch/train.py`` for 3 steps with its 12.3 GiB
+   refusing a graph, ``launch/train.py`` for 3 steps at 2 layers with its
    checkpoint, and a deterministic restart drill at 2 layers.  No kernel
    of the repo is on this path: the JAX training path reaches no Pallas
    kernel either.
@@ -300,6 +315,10 @@ KERNELS = {
     "flash_attention.vlm": (
         "src/repro_torch/kernels/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention.py:87"),
+    # the same kernel at zamba2's head dim (D = 80, MHA), listed apart
+    "flash_attention.d80": (
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:87"),
 }
 # the depth of [dynamic], [tiered-dynamic] and [robust], cut to keep the
 # script within its time limit: mutation batches of the streams
@@ -341,6 +360,19 @@ TRAIN_BF16_GRAD_REL = 5e-2
 # f32 prefill logits vs a float64 run of the same forward, max |diff| over
 # max |logit|
 F64_REL = 1e-3
+# [ssm]: zamba2's depth for f32 vs float64 and training (one group of
+# attn_every mamba layers and the shared block), and the long_500k
+# shape's cache slots (src/repro/models/api.py)
+SSM_F64_LAYERS = 6
+SSM_LONG_SLOTS = 524288
+# [ssm] training at f32 against float64 (B=1, S=256): max |diff| / max |g|
+# of any gradient leaf.  Measured on the CPU at the same cuts: 3.8e-3 for
+# xLSTM (its recurrences amplify f32 rounding), 1.1e-4 for zamba2.
+SSM_F64_GRAD = 1e-2
+# [train]'s launcher run at full width, cut in depth to keep the script
+# within its time: at 22 layers its checkpoint (12.29 GiB) took 35.4 s of
+# the phase's 107 s on a slow host
+TRAIN_LAUNCHER_LAYERS = 2
 # the outbox kernel's modes on the sharded path: program -> (graph, reverse
 # edges, combine, weight_op, semiring of its messages)
 OUTBOX_MODES = {"bfs": ("pg", False, "min", None, "min"),
@@ -1765,6 +1797,497 @@ def encdec_train(dev, check):
     torch.cuda.empty_cache()
 
 
+def free_device_memory(tag: str) -> None:
+    """Collect garbage, empty the cache and print the device memory still
+    allocated, at the start of an LM phase."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    live = {}
+    for obj in gc.get_objects():
+        if isinstance(obj, torch.Tensor) and obj.is_cuda:
+            live[obj.untyped_storage().data_ptr()] = (
+                obj.untyped_storage().nbytes(), tuple(obj.shape), obj.dtype)
+    top = sorted(live.values(), key=lambda t: t[0])[-3:]
+    log(f"[{tag}] device memory still allocated at the phase's start: "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB; "
+        f"{sum(t[0] for t in live.values()) / 2**30:.3f} GiB in the "
+        f"{len(live)} storages of tensors the collector sees, the largest "
+        + ", ".join(f"{n / 2**20:.1f} MiB {list(shape)} {dt}"
+                    for n, shape, dt in reversed(top)))
+
+
+def ssm_bounds(cfg, b, s, n_gen):
+    """``(prefill ms, its terms, decode step ms, its terms)``: the least
+    time of ``cfg``'s prefill of ``b x s`` tokens and of one decode step
+    in bf16.  zamba2's prefill: its products at the bf16 tensor-core rate,
+    the SSD's einsums (128-token chunks) in f32 at the f32 rate, the flash
+    launches' bounds; a step reads every weight (the tied head the whole
+    embedding), the live K/V, the conv tails and the f32 SSD states (read
+    and written).  xLSTM's prefill is JAX's: ``s`` sequential steps, each
+    reading the layers' weights (not ``up_proj``'s gate half, which the
+    port does not multiply) and the f32 states a layer uses (read and
+    written); a decode step that and the head."""
+    from repro_torch.models import mamba2 as mb
+    from repro_torch.models import xlstm as X
+    from repro_torch.models import zamba as Z
+
+    d = cfg.d_model
+    if cfg.family == "hybrid":
+        ng = Z.n_groups(cfg)
+        di, n = cfg.ssm_expand * d, cfg.ssm_state
+        h, p = di // mb.HEAD_DIM, mb.HEAD_DIM
+        mshape = mb.mamba_param_shapes(cfg)
+        mm = (cfg.n_layers * (math.prod(mshape["in_proj"])
+                              + math.prod(mshape["out_proj"]))
+              + ng * sum(math.prod(shape) for name, shape in
+                         Z.shared_param_shapes(cfg).items()
+                         if not name.startswith("norm")))
+        flops = 2 * b * s * mm + 2 * b * d * cfg.vocab
+        l = min(128, s)
+        nc = -(-s // l)
+        ssd = cfg.n_layers * 2 * b * nc * (l * l * n + h * l * l * p
+                                           + 2 * l * h * p * n)
+        attn = ng * attention_bound(b, s, cfg.n_kv_heads,
+                                    cfg.n_heads // cfg.n_kv_heads,
+                                    cfg.hd)[0]
+        prefill = 1e3 * flops / BF16_OPS_PER_S + 1e3 * ssd / F32_OPS_PER_S \
+            + attn
+        terms = (f"{flops / 1e12:.2f} TFLOP of bf16 products, "
+                 f"{ssd / 1e12:.3f} TFLOP of the SSD's f32 einsums at 67 "
+                 f"TFLOP/s, {attn:.4f} ms of flash attention")
+        live = s + n_gen // 2
+        step = (2 * Z.param_count(cfg)
+                + 2 * 2 * ng * b * live * cfg.n_kv_heads * cfg.hd
+                + 2 * 2 * cfg.n_layers * b * (cfg.ssm_conv - 1) * (di + 2 * n)
+                + 2 * 4 * cfg.n_layers * b * h * p * n)
+        return (prefill, terms, 1e3 * step / HBM_BYTES_PER_S,
+                f"{step / 1e9:.3f} GB of weights, live K/V, conv tails and "
+                f"f32 SSD states")
+    di = 2 * d
+    h = cfg.n_heads
+    dh = di // h
+    layer = sum(math.prod(shape) for shape in
+                X.layer_param_shapes(cfg).values()) - d * di
+    n_s = int(X.slstm_layers_mask(cfg).sum())
+    state = 4 * b * h * ((cfg.n_layers - n_s) * (dh * dh + dh)
+                         + n_s * (3 * dh + 1))
+    core = 2 * cfg.n_layers * layer + 2 * state
+    step = core + 2 * cfg.vocab * d
+    prefill = 1e3 * s * core / HBM_BYTES_PER_S
+    return (prefill, f"{s} sequential steps of {core / 1e6:.1f} MB (bf16 "
+            f"layer weights, f32 states read and written)",
+            1e3 * step / HBM_BYTES_PER_S,
+            f"{step / 1e6:.1f} MB of weights, head and f32 states")
+
+
+def serve_ssm(model, tokens, check):
+    """The serve launcher's ``generate`` on ``tokens[:, :2048]`` (B=4),
+    ``LM_GEN`` greedy tokens, warmed once on 16 tokens; checks the
+    tokens and the flash launches of the prefill (one a shared-block call
+    for zamba2, none for xLSTM), with every count set to 0 just before;
+    prints the prefill and decode walls and tok/s beside their bounds and
+    the peak device memory.  Returns the prefill's flash launches and
+    ``generate``'s result."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import zamba as Z
+
+    cfg = model.cfg
+    b, s = LM_BATCH, LM_PROMPT
+    generate(model, {"tokens": tokens[:, :16]}, 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kfa.flash_attention.launches = kfa.flash_attention.noncausal_launches = 0
+    res = generate(model, {"tokens": tokens[:, :s]}, LM_GEN)
+    launches = kfa.flash_attention.launches
+    noncausal = kfa.flash_attention.noncausal_launches
+    out = res["tokens"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(out.shape == (b, LM_GEN) and int(out.min()) >= 0
+          and int(out.max()) < cfg.vocab,
+          f"[ssm] {cfg.name}: generated tokens [{b}, {LM_GEN}] in the "
+          f"vocabulary")
+    want = Z.n_groups(cfg) if cfg.family == "hybrid" else 0
+    check(launches == want and noncausal == 0,
+          f"[ssm] {cfg.name}: the flash kernel launched {launches} times in "
+          f"the prefill ({want}: one a shared-block call), {noncausal} not "
+          f"causal")
+    prefill, p_terms, step, s_terms = ssm_bounds(cfg, b, s, LM_GEN)
+    steps = LM_GEN - 1
+    log(f"[ssm] {cfg.name} prefill: {b * s} tokens a batch of {b} in "
+        f"{res['prefill_s'] * 1e3:.1f} ms ({b * s / res['prefill_s']:.0f} "
+        f"tok/s); bound {prefill:.2f} ms ({p_terms})")
+    log(f"[ssm] {cfg.name} decode: {b * steps} tokens in "
+        f"{res['decode_s'] * 1e3:.1f} ms ({b * steps / res['decode_s']:.0f} "
+        f"tok/s, {res['decode_s'] * 1e3 / steps:.3f} ms per step); bound "
+        f"{step:.3f} ms per step ({s_terms} at 3.35 TB/s); peak {peak:.2f} "
+        f"GiB; first tokens {out[0, :8].tolist()}")
+    return launches, res
+
+
+def ssm_decode_and_prefill(model, tokens):
+    """The last logits of decode after ``prefill(2048)`` and of
+    ``prefill(2049)``."""
+    s = LM_PROMPT
+    _, cache = model.prefill({"tokens": tokens[:, :s]}, max_len=s + 1)
+    lg_dec, _ = model.decode_step(cache, tokens[:, s])
+    del cache
+    lg_full, _ = model.prefill({"tokens": tokens})
+    return lg_dec, lg_full
+
+
+def ssm_decode_vs_prefill(model, tokens, name, check, reference):
+    """zamba2: decode after ``prefill(2048)`` against ``prefill(2049)``.
+    The two paths differ (the chunked SSD, 2049 tokens padded to whole
+    chunks, against its one-step recurrence; the flash kernel against the
+    decode attention; at bf16 the prefill's SSD state rounded into the
+    cache, as in JAX), and 54 random layers amplify rounding (the JAX
+    test's 2e-3 is for 4 layers): their gap must stay within twice the
+    prefill's own rounding error, ``prefill(2049)`` against
+    ``reference``, its logits at the next precision on the same weights
+    (bf16: f32 compute; f32: a float64 parallel forward)."""
+    cfg = model.cfg
+    s = LM_PROMPT
+    lg_dec, lg_full = ssm_decode_and_prefill(model, tokens)
+    gap = float((lg_dec.double() - lg_full.double()).abs().max())
+    noise = float((lg_full.double() - reference.double()).abs().max())
+    same = bool((lg_dec.argmax(-1) == lg_full.argmax(-1)).all())
+    check(gap <= 2 * noise,
+          f"[ssm] {cfg.name} decode after prefill({s}) vs prefill({s + 1}), "
+          f"{name}: max |diff| {gap:.3e} (max |logit| "
+          f"{float(lg_full.float().abs().max()):.3f}) within twice the "
+          f"prefill's own {name} rounding error {noise:.3e} (against the "
+          f"next precision); greedy tokens equal: {same}")
+
+
+def xlstm_decode_vs_prefill(model, tokens, served, check):
+    """xLSTM's prefill is its decode step, replayed: the logits of the
+    served run's last decode step (after ``prefill(2048)`` and 30 more
+    steps) against ``prefill`` of the prompt and the first 31 served
+    tokens, bit for bit."""
+    import torch
+
+    s, gen = LM_PROMPT, served["tokens"].shape[1]
+    longer = torch.cat([tokens[:, :s], served["tokens"][:, :-1]], 1)
+    lg_full, _ = model.prefill({"tokens": longer})
+    gap = float((served["logits"].double() - lg_full.double()).abs().max())
+    check(torch.equal(served["logits"], lg_full),
+          f"[ssm] {model.cfg.name} decode step {gen - 1} after prefill({s}) "
+          f"vs prefill({s + gen - 1}) of the served tokens, bf16: bit for "
+          f"bit (max |diff| {gap:.3e})")
+
+
+def tree_as(model, cfg):
+    """A serving model of ``cfg`` (another compute dtype) holding
+    ``model``'s weights, cast: ``final_norm`` to the parameter dtype, the
+    rest to the compute dtype."""
+    from repro_torch.models import api
+    from repro_torch.models.common import TreeModule, dtype_of
+
+    cdt, pdt = dtype_of(cfg.compute_dtype), dtype_of(cfg.param_dtype)
+    tree = {k: ({n: w.to(cdt) for n, w in v.items()} if isinstance(v, dict)
+                else v.to(pdt if k == "final_norm" else cdt))
+            for k, v in model.module.tree().items()}
+    return api.Model(cfg=cfg, module=TreeModule(cfg, tree),
+                     device=model.device)
+
+
+def as_f64(cfg):
+    return dataclasses.replace(cfg, compute_dtype="float64",
+                               param_dtype="float64")
+
+
+def ssm_f64(model32, tokens, check):
+    """f32 prefill logits of ``model32`` (B=1, 256 tokens) against a
+    float64 parallel forward of the family on the same weights (the plain
+    functions: ``training_attention``, the SSD dual, the sLSTM loop).
+    zamba2: within ``F64_REL``.  xLSTM amplifies rounding (the JAX model's
+    own f32 prefill differs from float64 by 41 % of the largest logit at
+    12 layers, S = 256, on the CPU), so its f32 error is printed beside
+    the f32 parallel forward's; held: the float64 prefill (the decode
+    step, replayed) equal to the float64 parallel forward within 1e-9."""
+    import torch
+
+    from repro_torch.models import api
+
+    cfg = model32.cfg
+    fam = api.family(cfg)
+    short = tokens[:1, :256]
+    lg32, _ = model32.prefill({"tokens": short})
+    m64 = tree_as(model32, as_f64(cfg))
+    tree64 = m64.module.tree()
+    kw = dict(train=True) if cfg.family == "hybrid" else {}
+    with torch.no_grad():
+        lg64 = fam.forward(tree64, m64.cfg, short, **kw)[:, -1]
+        par32 = fam.forward(model32.module.tree(), cfg, short, **kw)[:, -1]
+
+    def rel(x):
+        return float((x.double() - lg64).abs().max() / lg64.abs().max())
+
+    what = (f"[ssm] {cfg.name} at {cfg.n_layers} layers, f32 prefill logits "
+            f"(B=1, 256 tokens) vs a float64 parallel forward: max |diff| / "
+            f"max |logit| {rel(lg32):.3e}")
+    if cfg.family == "hybrid":
+        check(rel(lg32) <= F64_REL and bool(torch.isfinite(lg32).all()),
+              f"{what} <= {F64_REL:.0e}")
+        return
+    seq64, _ = m64.prefill({"tokens": short})
+    check(rel(seq64) <= 1e-9 and bool(torch.isfinite(lg32).all()),
+          f"{what} (the f32 parallel forward's {rel(par32):.3e}: the model "
+          f"amplifies rounding); the float64 prefill, the decode step "
+          f"replayed, vs the float64 parallel forward {rel(seq64):.3e} <= "
+          f"1e-9")
+
+
+def ssm_long_cache(model, tokens, check):
+    """zamba2 at B=1: a prefill of 2048 tokens into a ``SSM_LONG_SLOTS``
+    (long_500k's) cache and 4 greedy decode steps, against the same run
+    in a 2,080-slot cache: every logit equal (the decode attention reads
+    the live slots only).  Prints the peak device memory."""
+    import torch
+
+    def run(slots):
+        torch.cuda.reset_peak_memory_stats()
+        lg, cache = model.prefill({"tokens": tokens[:1, :LM_PROMPT]},
+                                  max_len=slots)
+        out = [lg]
+        for _ in range(4):
+            lg, cache = model.decode_step(cache, lg.argmax(-1))
+            out.append(lg)
+        kv = 2 * cache["k"].numel() * cache["k"].element_size()
+        del cache
+        torch.cuda.synchronize()
+        return torch.stack(out), kv, torch.cuda.max_memory_allocated()
+
+    t0 = time.perf_counter()
+    long, kv, peak = run(SSM_LONG_SLOTS)
+    wall = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    short, _, peak_short = run(LM_PROMPT + LM_GEN)
+    check(torch.equal(long, short),
+          f"[ssm] {model.cfg.name} B=1, prefill {LM_PROMPT} + 4 decode "
+          f"steps in a {SSM_LONG_SLOTS:,}-slot cache ({kv / 1e9:.2f} GB of "
+          f"K/V) vs a {LM_PROMPT + LM_GEN:,}-slot one: every logit equal; "
+          f"{wall:.2f} s, peak {peak / 2**30:.2f} GiB ({peak_short / 2**30:.2f}"
+          f" GiB with the short cache)")
+
+
+def ssm_train(dev, check, arch, layers, b, s):
+    """``arch`` training at full width and ``layers`` layers: the model
+    and token stream (B=``b``, S=``s``) from ``launch/train.py``'s
+    ``build_everything``, the config's microbatches.  (a) The loss at
+    init at bf16 against f32 compute; (b) one step's gradients at bf16
+    against f32 compute: every leaf-layer finite, one off the path zero in
+    both (xLSTM's mLSTM layers use no recurrent gate weights, its sLSTM
+    layers no q or k), the gap printed per leaf and layer (no limit: the
+    JAX model's own bf16 gap is 0.13-1.77 of the gradient's norm at the
+    CPU tests' configs); (c) at B=1, S=256, the f32 gradients against
+    float64; (d) two AdamW steps (``learning_rate=1e-3``,
+    ``warmup_steps=1``) on the batch, the first from (b)'s gradients and
+    the second through ``make_train_step``: finite, every leaf moved, the
+    losses printed (on this Zipf stream the JAX model's loss rises after
+    the first step too).  zamba2 holds (a) within 1e-2 and (c) within
+    1e-5 (loss) and ``SSM_F64_GRAD``; xLSTM amplifies rounding (see
+    ``ssm_f64``), so its (a) and (c) are printed, and (c) holds its
+    float64 gradients on the card to the same code on the host within
+    1e-6."""
+    import torch
+
+    from repro_torch.launch import train as ltrain
+    from repro_torch.models import api
+    from repro_torch.optim import AdamW, apply_updates, tree_leaves, tree_map
+
+    held = arch == "zamba2-2.7b"
+    cfg, model, _, _, stream = ltrain.build_everything(
+        arch, False, b, s, 0, 1e-3, False, dev, layers=layers)
+    mbs = cfg.microbatches
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    batch = stream.batch_at(0)
+    one = {"tokens": batch["tokens"][:1]}
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    m32 = api.build(cfg32, dev, serve=False)
+    with torch.no_grad():
+        loss0, loss32 = float(model.loss(params, one)), float(
+            m32.loss(params, one))
+    close = abs(loss0 - loss32) <= 1e-2 * loss32
+    check(math.isfinite(loss0) and (close or not held)
+          and n_params == api.family(cfg).param_count(cfg),
+          f"[ssm] train {cfg.name} at {layers} layers ({n_params:,} f32 "
+          f"parameters, {mbs} microbatches): (a) the loss at init "
+          f"{loss0:.4f} (bf16 compute) against f32 compute's {loss32:.4f}"
+          + (" within 1e-2" if held else f", rel {abs(loss0 - loss32) / loss32:.3e} (printed)")
+          + f"; ln({cfg.vocab}) = {math.log(cfg.vocab):.4f}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g16, l16 = api.accumulate_grads(model, params, batch, mbs)
+    torch.cuda.synchronize()
+    t16 = time.perf_counter() - t0
+    g32, _ = api.accumulate_grads(m32, params, batch, mbs)
+    rels, off, finite = {}, [], True
+    for (name, a), c in zip(leaf_names(g16), tree_leaves(g32)):
+        stacked = name.startswith(("layers/", "mamba/"))
+        finite &= bool(torch.isfinite(a).all() and torch.isfinite(c).all())
+        for i, (x, y) in enumerate(zip(a, c) if stacked else [(a, c)]):
+            key = f"{name}[{i}]" if stacked else name
+            if float(y.norm()) == 0:
+                off.append((key, float(x.norm())))
+            else:
+                rels[key] = float((x - y).norm() / y.norm())
+    gap = float(math.sqrt(sum(float((x - y).square().sum()) for x, y in zip(
+        tree_leaves(g16), tree_leaves(g32)))) / math.sqrt(sum(
+            float(y.square().sum()) for y in tree_leaves(g32))))
+    worst = sorted(rels, key=rels.get)[-3:]
+    check(finite and all(n == 0 for _, n in off),
+          f"[ssm] train {cfg.name} (b) one step's gradients (B={b}, S={s}) "
+          f"at bf16 against f32 compute: all finite, {len(off)} leaf-layers "
+          f"off the path zero in both; gap ||g16 - g32|| / ||g32|| {gap:.3e} "
+          f"over the model, per leaf-layer "
+          f"{', '.join(f'{k} {rels[k]:.3e}' for k in reversed(worst))} "
+          f"(largest), median {sorted(rels.values())[len(rels) // 2]:.3e}; "
+          f"the bf16 gradients in {t16:.2f} s")
+    del g32
+
+    # (c) at B=1, S=256: f32 against float64; xLSTM's float64 gradients
+    # on the card against the same code on the host
+    m64 = api.build(as_f64(cfg32), dev, serve=False)
+    short = {"tokens": batch["tokens"][:1, :257]}
+    p64 = tree_map(torch.Tensor.double, params)
+    g64, l64 = api.accumulate_grads(m64, p64, short, 1)
+    g32, l32 = api.accumulate_grads(m32, params, short, 1)
+
+    def worst(got, want):
+        return max(float((x.double().cpu() - y.cpu()).abs().max()
+                         / y.abs().max()) for x, y in zip(
+            tree_leaves(got), tree_leaves(want)) if float(y.abs().max()) > 0)
+
+    loss_rel = abs(float(l32[0]) - float(l64[0])) / abs(float(l64[0]))
+    grad_rel = worst(g32, g64)
+    what = (f"[ssm] train {cfg.name} (c) B=1, S=256, f32 against float64: "
+            f"loss rel {loss_rel:.3e}, gradients max |diff| / max |g| "
+            f"{grad_rel:.3e} (worst of {len(tree_leaves(g32))} leaves)")
+    if held:
+        check(loss_rel <= 1e-5 and grad_rel <= SSM_F64_GRAD,
+              f"{what} within 1e-5 and {SSM_F64_GRAD:.0e}")
+    else:
+        cpu = api.build(as_f64(cfg32), "cpu", serve=False)
+        g_cpu, l_cpu = api.accumulate_grads(
+            cpu, tree_map(lambda w: w.cpu(), p64),
+            {"tokens": short["tokens"].cpu()}, 1)
+        host_rel = worst(g64, g_cpu)
+        check(host_rel <= 1e-6 and abs(float(l64[0]) - float(l_cpu[0]))
+              <= 1e-9 * abs(float(l_cpu[0])),
+              f"{what} (printed: the model amplifies rounding); float64 on "
+              f"the card against the host: gradients {host_rel:.3e} (<= "
+              f"1e-6), loss {float(l64[0]):.12f} / {float(l_cpu[0]):.12f}")
+        del cpu, g_cpu
+    del g32, g64, m64, m32, p64
+
+    # (d) two AdamW steps on the batch: the first from (b)'s gradients,
+    # as make_train_step takes it, the second by make_train_step
+    opt = AdamW(learning_rate=1e-3, warmup_steps=1)
+    state = opt.init(params)
+    updates, state = opt.update(g16, state, params)
+    p = apply_updates(params, updates)
+    del g16, updates
+    step_fn = api.make_train_step(model, opt, mbs)
+    t0 = time.perf_counter()
+    p, state, met = step_fn(p, state, batch)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    losses = [float(l16.mean()), float(met["loss"])]
+    finite = all(bool(torch.isfinite(x).all()) for x in tree_leaves(p))
+    moved = all(bool((x != w).any()) for x, w in zip(tree_leaves(p),
+                                                      tree_leaves(params)))
+    check(finite and moved and all(math.isfinite(x) for x in losses),
+          f"[ssm] train {cfg.name} (d) 2 AdamW steps (lr 1e-3) on one batch: "
+          f"losses {[round(x, 4) for x in losses]}, no NaN, every leaf "
+          f"moved; the second step {secs:.2f} s ({b * s / secs:.0f} "
+          f"tokens/s)")
+    del p, state, params, model, batch
+    torch.cuda.empty_cache()
+
+
+def ssm_phase(dev, check):
+    """``[ssm]``: the SSM and hybrid families at full width and depth,
+    random weights from a generator seeded 0, bf16 compute, through
+    ``models.api.build`` and the serve launcher's ``generate`` on
+    ``[lm]``'s B=4, S=2048 Zipf prompt, 32 greedy tokens.  First the
+    device memory earlier phases left is freed and printed.  zamba2-2.7b
+    (54 mamba2 layers, the shared MHA block of 32 heads of 80 every 6): (a)
+    the flash kernel at ``[4, 2048, 32, 1, 80]`` causal against its plain
+    version (bf16 and f32) and timed; (b) the parameter count, serving
+    with 9 flash launches a prefill, decode vs prefill at bf16; (c) B=1
+    into a 524,288-slot cache against a 2,080-slot one; (d) at f32 compute
+    decode vs prefill, and a 6-layer cut's f32 prefill against float64.
+    xlstm-125m (12 layers, sLSTM every 4th): serving (its token-by-token
+    prefill's wall), decode vs prefill bit for bit, f32 vs float64.
+    Training: xlstm-125m at 4 layers (B=8, S=512), zamba2-2.7b at 6
+    (B=8, S=2048).  Returns (row, max |err| of bf16, launches) of the
+    flash kernel at D = 80."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import api
+
+    free_device_memory("ssm")
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for arch, want in (("zamba2-2.7b", 2_340_466_848),
+                       ("xlstm-125m", 123_725_664)):
+        cfg = configs.get(arch)
+        fam = api.family(cfg)
+        tokens = lm_tokens(cfg, dev)
+        if cfg.family == "hybrid":
+            row, worst = flash_checks(
+                dev, check, "ssm", (LM_BATCH, LM_PROMPT, cfg.n_kv_heads,
+                                    cfg.n_heads // cfg.n_kv_heads, cfg.hd),
+                (0,))
+        t0 = time.perf_counter()
+        model = api.build(cfg, dev, torch.Generator(device=dev).manual_seed(0))
+        n_params = sum(p.numel() for p in model.module.parameters())
+        check(n_params == want == fam.param_count(cfg),
+              f"[ssm] {cfg.name} at full width, {cfg.n_layers} layers: "
+              f"{n_params:,} parameters ({want:,} from the JAX shapes), "
+              f"built in {time.perf_counter() - t0:.2f} s")
+        launches, served = serve_ssm(model, tokens, check)
+        cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+        if cfg.family == "hybrid":
+            flash = (row, worst, launches)
+            ssm_long_cache(model, tokens, check)
+            # the bf16 model's weights at f32 compute: the reference
+            ref = tree_as(model, cfg32).prefill({"tokens": tokens})[0]
+            ssm_decode_vs_prefill(model, tokens, "bf16", check, ref)
+            del ref
+            model32 = api.build(cfg32, dev,
+                                torch.Generator(device=dev).manual_seed(0))
+            with torch.no_grad():
+                ref = fam.forward(tree_as(model32, as_f64(cfg32)).module.tree(),
+                                  as_f64(cfg32), tokens, train=True)[:, -1]
+            ssm_decode_vs_prefill(model32, tokens, "f32", check, ref)
+            del model32, ref
+            cfg32 = dataclasses.replace(cfg32, n_layers=SSM_F64_LAYERS)
+        else:
+            xlstm_decode_vs_prefill(model, tokens, served, check)
+        del model, served
+        torch.cuda.empty_cache()
+        model32 = api.build(cfg32, dev,
+                            torch.Generator(device=dev).manual_seed(0))
+        ssm_f64(model32, tokens, check)
+        del model32
+        torch.cuda.empty_cache()
+    ssm_train(dev, check, "xlstm-125m", 4, 8, 512)
+    ssm_train(dev, check, "zamba2-2.7b", SSM_F64_LAYERS, 8, 2048)
+    log(f"[ssm] phase {time.perf_counter() - t_phase:.1f} s")
+    return flash
+
+
 def planning_win_blocks(pg, row: int, fused: bool, dynamic=None):
     """The least power-of-two ``win_blocks`` whose tier plan at table row
     ``row`` (the ``row`` densest partitions hot) exists, and that plan
@@ -2761,7 +3284,8 @@ def train_phase(dev, check):
     float64 run of the same forward and backward; (d) there, the
     gradients at 4 microbatches against 1; (e) the flash route refuses an
     input that requires grad; (f) ``launch/train.py`` for 3 steps at full
-    width with its checkpoints in a temporary directory; (g) a restart
+    width and ``TRAIN_LAUNCHER_LAYERS`` layers with its checkpoints in a
+    temporary directory; (g) a restart
     drill at 2 layers under ``torch.use_deterministic_algorithms``: one
     injected failure, the losses and parameters after resuming bit for bit
     the run's without failures.  Printed: step ms, tokens/s and the step's
@@ -2878,19 +3402,20 @@ def train_phase(dev, check):
     check("no backward" in refused, f"[train] (e) the flash route refuses "
           f"an input that requires grad: {refused[:60]}...")
 
-    # (f) the launcher at full width
+    # (f) the launcher at full width and TRAIN_LAUNCHER_LAYERS layers
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         rep = ltrain.train(ltrain.build_parser().parse_args(
             ["--arch", cfg.name, "--steps", "3", "--batch", str(b),
              "--seq", str(s), "--microbatches", str(cfg.microbatches),
-             "--ckpt-dir", tmp]))
+             "--layers", str(TRAIN_LAUNCHER_LAYERS), "--ckpt-dir", tmp]))
         wall = time.perf_counter() - t0
     ckpts = ", ".join(f"step {st}: {nb / 2**30:.2f} GiB in {sec:.1f} s"
                       for st, nb, sec in rep["checkpoints"])
     check(rep["failures"] == 0 and len(rep["losses"]) == 3
           and bool(np.isfinite(rep["losses"]).all()),
-          f"[train] (f) launch/train.py, 3 steps at full width: losses "
+          f"[train] (f) launch/train.py, 3 steps at full width and "
+          f"{TRAIN_LAUNCHER_LAYERS} layers: losses "
           f"{[round(x, 4) for x in rep['losses']]}, mean step "
           f"{rep['mean_step_s'] * 1e3:.0f} ms; checkpoints {ckpts}; "
           f"{wall:.1f} s in all")
@@ -3786,7 +4311,7 @@ def main() -> int:
         log(f"[dir] {name} fused, in turns: push only "
             f"{walls['push'][0]:.4f} / {walls['push'][1]:.4f} s, with the "
             f"vote {walls['vote'][0]:.4f} / {walls['vote'][1]:.4f} s")
-    del engines, cc_engines, plain_cc, push, push_cc
+    del engines, cc_engines, plain_cc, push, push_cc, sides
     torch.cuda.empty_cache()
 
     # BFS and SSSP forced to pull (early-exit and min_plus scans at RMAT20)
@@ -4182,25 +4707,36 @@ def main() -> int:
     # -- phase 6: the sorted segment reduce at RMAT20 ------------------------
     seg_rows, seg_err, seg_launches = segment_reduce_phase(pg, rng, dev,
                                                            check)
-    del pg, pgs, blks, tcs, tc_graphs
+    # the graph phases' device memory (the partitions' cached splits, the
+    # results kept for [serve]) is not needed past this point
+    del (pg, pgs, blks, tcs, tc_graphs, graphs, outs, resident, hyb_out,
+         shard_out, yardstick, exact_sums, eng, cc_eng, eng_cc)
     torch.cuda.empty_cache()
 
     clock("[segment_reduce] and the oracles")
 
     # -- phase 7: the LM serving path, the dense family at full width -------
+    free_device_memory("lm")
     lm_rows = lm_phase(dev, check)
     clock("[lm]")
 
     # -- phase 7b: [moe] the MoE family, serving and training ---------------
+    free_device_memory("moe")
     moe_launches = moe_phase(dev, check)
     log(f"[moe] flash launches per olmoe prefill: {moe_launches}")
     clock("[moe]")
 
     # -- phase 7c: [encdec] the encoder-decoder and vision families ---------
+    free_device_memory("encdec")
     encdec_rows = encdec_phase(dev, check)
     clock("[encdec]")
 
+    # -- phase 7d: [ssm] the SSM and hybrid families ------------------------
+    ssm_row = ssm_phase(dev, check)
+    clock("[ssm]")
+
     # -- phase 8: LM training, tinyllama-1.1b at full width -----------------
+    free_device_memory("train")
     train_phase(dev, check)
     clock("[train]")
     log(f"[time] the script {time.perf_counter() - T_START:.1f} s")
@@ -4225,7 +4761,8 @@ def main() -> int:
             "flash_attention": lm_rows["d64"][:2],
             "flash_attention.d256": lm_rows["d256"][:2],
             "flash_attention.noncausal": encdec_rows["noncausal"][:2],
-            "flash_attention.vlm": encdec_rows["vlm"][:2]}
+            "flash_attention.vlm": encdec_rows["vlm"][:2],
+            "flash_attention.d80": ssm_row[:2]}
     launches.update(
         (name, hyb_launches[name]) for name in ("ell_spmv", "dense_spmv",
                                                 "dense_spmv_minplus"))
@@ -4235,6 +4772,7 @@ def main() -> int:
     launches["flash_attention.d256"] = lm_rows["d256"][2]
     launches["flash_attention.noncausal"] = encdec_rows["noncausal"][2]
     launches["flash_attention.vlm"] = encdec_rows["vlm"][2]
+    launches["flash_attention.d80"] = ssm_row[2]
     launches["fused_superstep.bfs_relax"] = dyn_launches["bfs_relax"]
     launches["fused_superstep"] += tdyn_launches
     record = {"kernels": [dict(

@@ -27,7 +27,8 @@ ARCH_IDS = {
 # the modules the port has
 PORTED = ("tinyllama_1_1b", "gemma3_4b", "deepseek_67b",
           "command_r_plus_104b", "olmoe_1b_7b", "qwen3_moe_235b_a22b",
-          "seamless_m4t_large_v2", "internvl2_26b", "totem_rmat")
+          "seamless_m4t_large_v2", "internvl2_26b", "xlstm_125m",
+          "zamba2_2_7b", "totem_rmat")
 
 
 def _module(arch_id: str):

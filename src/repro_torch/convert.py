@@ -21,6 +21,7 @@ from repro_torch.core.partition import (BlockMetadata, EdgeArrays,
                                         PartitionedGraph, VertexAssignment)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.ell_spmv import row_plan
+from repro_torch.models import xlstm, zamba
 from repro_torch.models.common import ArchConfig
 from repro_torch.models.transformer import layer_param_shapes
 from repro_torch.optim.adamw import AdamWState
@@ -193,7 +194,13 @@ def lm_params(params, cfg: ArchConfig) -> Dict[str, torch.Tensor]:
     ``moe_wg``, ``moe_w1 [L, E, D, 2F]`` and ``moe_w2 [L, E, F, D]`` in
     place of the SwiGLU leaves; the cross leaves ``norm_x``, ``wq_x``,
     ``wk_x``, ``wv_x``, ``wo_x`` of an encoder-decoder's decoder), the head,
-    the encoder or the front end does not match ``cfg``."""
+    the encoder or the front end does not match ``cfg``.
+
+    The SSM and hybrid families (``cfg.family`` ``ssm``, ``hybrid``) go to
+    ``tree_params``."""
+    if cfg.family in ("ssm", "hybrid"):
+        return tree_params(params, cfg)
+
     def put(name, x, shape):
         a = np.array(x, dtype=np.float32)          # a writable copy
         if a.shape != tuple(shape):
@@ -234,6 +241,40 @@ def lm_params(params, cfg: ArchConfig) -> Dict[str, torch.Tensor]:
     if cfg.frontend:
         out["frontend_proj"] = put("frontend_proj", params["frontend_proj"],
                                    (d, d))
+    return out
+
+
+def tree_params(params, cfg: ArchConfig) -> Dict[str, torch.Tensor]:
+    """The JAX xLSTM tree (``embed``, ``layers.{norm, up_proj, wq, wk,
+    w_igate, w_fgate, b_igate, b_fgate, r_igate, r_fgate, r_zgate,
+    w_ogate, mix_norm, down_proj}`` stacked on L, ``final_norm``) or Zamba
+    tree (``embed``, ``mamba.*`` stacked on L, ``shared_attn.*``,
+    ``final_norm``) → the ``TreeModule``'s state, f32 CPU tensors named by
+    their paths (``layers.wq``).  Raises if the leaf set or a shape does
+    not match ``cfg``'s ``param_spec``."""
+    spec = (xlstm if cfg.family == "ssm" else zamba).param_spec(cfg)
+
+    def flat(tree, prefix=""):
+        out = {}
+        for key, val in tree.items():
+            if isinstance(val, dict):
+                out.update(flat(val, f"{prefix}{key}."))
+            else:
+                out[prefix + key] = val
+        return out
+
+    given = flat(params)
+    wanted = {".".join(path): shape for path, shape, _ in spec}
+    if set(given) != set(wanted):
+        raise ValueError(f"leaves {sorted(given)}, {cfg.name} wants "
+                         f"{sorted(wanted)}")
+    out = {}
+    for name, shape in wanted.items():
+        a = np.array(given[name], dtype=np.float32)      # a writable copy
+        if a.shape != tuple(shape):
+            raise ValueError(f"{name}: shape {a.shape}, {cfg.name} wants "
+                             f"{tuple(shape)}")
+        out[name] = torch.from_numpy(a)
     return out
 
 

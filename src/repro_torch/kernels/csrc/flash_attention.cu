@@ -12,8 +12,8 @@
 // Layout: the model's own.  q [B, S, G, R, D], k and v [B, S, G, D], o like
 // q; query head h = g * R + r reads KV group g = h / R, so no head is
 // repeated in memory.  Any S (a ragged last tile is masked), D in
-// {16, 32, 64, 128, 256}, B * G * R <= 65535.  Two kernels, chosen by the
-// input type (not a fallback):
+// {16, 32, 64, 80, 128, 256}, B * G * R <= 65535.  Two kernels, chosen by
+// the input type (not a fallback):
 //
 // bf16: flash_attention_tc_kernel, both products on the tensor cores, as the
 // Pallas kernel computes them: S = Q K^T a bf16 product with an f32
@@ -24,13 +24,19 @@
 //     registers (the S accumulator fragment is the A fragment of the next
 //     product, rounded to bf16 pairs), V from shared memory as the MN-major
 //     B operand (the transpose bit), so V needs no transpose in memory.
-//   * Loads: TMA (cp.async.bulk.tensor, 3-D maps over [B, S, heads * D]
+//   * Loads: TMA (cp.async.bulk.tensor, 4-D maps over [B, S, heads, D]
 //     that carry the strided layout: a Q row is H * D apart, a K/V row
-//     G * D) into a ring of kStages K/V stages with mbarriers.  Rows past S
-//     are filled with zeros by the TMA unit and masked.  Tiles are swizzled
-//     by the TMA unit at the width of one row of a sub-tile (32, 64 or 128
-//     bytes: D = 16, 32, 64; D = 128 and 256 as two and four 64-column
-//     sub-tiles) and the wgmma descriptors name the same swizzle.  At
+//     G * D; a box is one head) into a ring of kStages K/V stages with
+//     mbarriers.  Rows past S are filled with zeros by the TMA unit and
+//     masked.  Tiles are swizzled by the TMA unit at the width of one row of
+//     a sub-tile (32, 64 or 128 bytes: D = 16, 32, 64; D = 128 and 256 as
+//     two and four 64-column sub-tiles) and the wgmma descriptors name the
+//     same swizzle.  D = 80 (zamba2) runs as two 64-column sub-tiles: the
+//     second box starts at column 64 of the head, and the TMA unit fills
+//     its columns 80-127 with zeros (past the head's last column, not the
+//     next head's first).  S = Q K^T takes only the 5 k16 steps of the 80
+//     columns; P V computes 128 output columns (the zero ones wasted: 1.6x
+//     the P V operations, 1.3x the kernel's) and stores the first 80.  At
 //     D = 256 a K or V tile is 32 KB: the two Q tiles and the two-stage
 //     ring take 192 KB of the 227 KB a block may have.  The map encoder is
 //     reached through cudaGetDriverEntryPoint, so the library links no
@@ -99,7 +105,8 @@ constexpr int kConsumerRegs = 240;
 template <int D>
 struct Geo {
   static constexpr int kSub = D > 64 ? 64 : D;     // columns per sub-tile
-  static constexpr int kNumSub = D / kSub;
+  // sub-tiles a row, the last one zero-filled past D (D = 80: 64 + 16)
+  static constexpr int kNumSub = (D + kSub - 1) / kSub;
   static constexpr int kRowBytes = kSub * 2;       // = the swizzle width
   static constexpr int kSubBytes = kKeys * kRowBytes;
   static constexpr int kTileBytes = kSubBytes * kNumSub;
@@ -147,15 +154,16 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
       :: "r"(bar), "r"(parity) : "memory");
 }
 
-// One box of a 3-D tensor map into shared memory, completing on `bar`.
+// One box of a 4-D tensor map into shared memory, completing on `bar`:
+// column c0 of head c1, row c2 of batch c3.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
                                          uint32_t bar, int c0, int c1,
-                                         int c2) {
+                                         int c2, int c3) {
   asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
-         "r"(c1), "r"(c2)
+         "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 
@@ -395,7 +403,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
         const int h = g * R + min(2 * pair + c, R - 1);
         for (int sub = 0; sub < Gm::kNumSub; ++sub) {
           tma_load(sq + c * Gm::kTileBytes + sub * Gm::kSubBytes, &tm_q,
-                   q_full, h * D + sub * kSub, q0, b);
+                   q_full, sub * kSub, h, q0, b);
         }
       }
       for (int it = 0; it < tiles; ++it) {
@@ -405,8 +413,8 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
         const int k0 = k_first + it * kKeys;
         for (int sub = 0; sub < Gm::kNumSub; ++sub) {
           const uint32_t off = st * Gm::kTileBytes + sub * Gm::kSubBytes;
-          tma_load(sk + off, &tm_k, full(st), g * D + sub * kSub, k0, b);
-          tma_load(sv + off, &tm_v, full(st), g * D + sub * kSub, k0, b);
+          tma_load(sk + off, &tm_k, full(st), sub * kSub, g, k0, b);
+          tma_load(sv + off, &tm_v, full(st), sub * kSub, g, k0, b);
         }
       }
     }
@@ -446,7 +454,7 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     const uint32_t k_tile = sk + st * Gm::kTileBytes;
     const uint32_t v_tile = sv + st * Gm::kTileBytes;
 
-    // S = Q K^T over D in k16 steps
+    // S = Q K^T over D in k16 steps (D = 80: not the zero columns)
     float s[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) s[i] = 0.0f;
@@ -571,9 +579,11 @@ flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
       for (int j = 0; j < kSub / 8; ++j) {
         const int col = sub * kSub + 8 * j + 2 * t4;
-        *reinterpret_cast<uint32_t*>(out + col) =
-            pack_bf16(__fdiv_rn(acc[sub][4 * j + 2 * half], denom),
-                      __fdiv_rn(acc[sub][4 * j + 2 * half + 1], denom));
+        if (sub * kSub + 8 * j < D) {           // D = 80: not the padding
+          *reinterpret_cast<uint32_t*>(out + col) =
+              pack_bf16(__fdiv_rn(acc[sub][4 * j + 2 * half], denom),
+                        __fdiv_rn(acc[sub][4 * j + 2 * half + 1], denom));
+        }
       }
     }
   }
@@ -601,23 +611,27 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor [B, S, width] as boxes of `sub` columns by 64 rows of one
-// batch, swizzled at the box's row width.
-bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr,
-              int width, int S, int B, int sub) {
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(width),
+// A bf16 tensor [B, S, heads, D] as boxes of `sub` columns of one head by
+// 64 rows of one batch, swizzled at the box's row width.  Columns past D
+// (D = 80's second box) are filled with zeros.  Strides: a head D * 2
+// bytes (160 at D = 80, a multiple of 16 as the TMA unit requires).
+bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int D,
+              int heads, int S, int B, int sub) {
+  const cuuint64_t row = static_cast<cuuint64_t>(heads) * D * 2;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(S),
                               static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(width) * 2,
-                                 static_cast<cuuint64_t>(S) * width * 2};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(sub),
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * 2, row,
+                                 row * static_cast<cuuint64_t>(S)};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(sub), 1,
                              static_cast<cuuint32_t>(kKeys), 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUtensorMapSwizzle swizzle =
       sub == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
                 : sub == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
                             : CU_TENSOR_MAP_SWIZZLE_32B;
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                 const_cast<void*>(ptr), dims, strides, box, unit,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
@@ -632,9 +646,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorSymbolNotFound;
   CUtensorMap mq, mk, mv;
-  if (!make_map(encode, &mq, q, G * R * D, S, B, Gm::kSub) ||
-      !make_map(encode, &mk, k, G * D, S, B, Gm::kSub) ||
-      !make_map(encode, &mv, v, G * D, S, B, Gm::kSub)) {
+  if (!make_map(encode, &mq, q, D, G * R, S, B, Gm::kSub) ||
+      !make_map(encode, &mk, k, D, G, S, B, Gm::kSub) ||
+      !make_map(encode, &mv, v, D, G, S, B, Gm::kSub)) {
     return cudaErrorInvalidValue;
   }
   cudaError_t err = cudaFuncSetAttribute(
@@ -855,11 +869,13 @@ extern "C" int flash_attention_launch(int is_bf16, const void* q,
     case 16 * 2: err = REPRO_LAUNCH(f32, 16); break;
     case 32 * 2: err = REPRO_LAUNCH(f32, 32); break;
     case 64 * 2: err = REPRO_LAUNCH(f32, 64); break;
+    case 80 * 2: err = REPRO_LAUNCH(f32, 80); break;
     case 128 * 2: err = REPRO_LAUNCH(f32, 128); break;
     case 256 * 2: err = REPRO_LAUNCH(f32, 256); break;
     case 16 * 2 + 1: err = REPRO_LAUNCH(tc, 16); break;
     case 32 * 2 + 1: err = REPRO_LAUNCH(tc, 32); break;
     case 64 * 2 + 1: err = REPRO_LAUNCH(tc, 64); break;
+    case 80 * 2 + 1: err = REPRO_LAUNCH(tc, 80); break;
     case 128 * 2 + 1: err = REPRO_LAUNCH(tc, 128); break;
     case 256 * 2 + 1: err = REPRO_LAUNCH(tc, 256); break;
     default: err = cudaErrorInvalidValue;

@@ -9,8 +9,10 @@ f32 running max, denominator and accumulator, the output rounded to the
 input type.  The input type picks the kernel: bf16 runs both products on
 the tensor cores (``wgmma``, TMA loads, P rounded to bf16 before P·V as
 the Pallas kernel does), f32 on the CUDA cores with P in f32.  Any S (a
-ragged last tile is masked), D in ``HEAD_DIMS``.  At the prefill's shapes
-the work is bound by operations (see the note in the source).
+ragged last tile is masked), D in ``HEAD_DIMS``; D = 80 (zamba2's) runs
+the bf16 kernel on 128 columns, the last 48 zeros loaded by the TMA unit
+and never stored.  At the prefill's shapes the work is bound by operations
+(see the note in the source).
 
 This module builds nothing when imported.  The library is built at the
 first launch (or by ``_build.build_all``), and only CUDA tensors reach it:
@@ -25,7 +27,7 @@ import torch
 from repro_torch.kernels import _build
 
 SOURCE = "flash_attention"
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 
 _P = ctypes.c_void_p

@@ -47,7 +47,8 @@ def generate(model: api.Model, prompt: Dict[str, torch.Tensor], gen: int,
     then decode: the first token from the prefill's logits, ``gen - 1``
     more from decode steps.  Greedy at temperature 0, else sampled from
     ``softmax(logits / temperature)`` with ``generator``.  Returns the
-    tokens ``[B, gen]`` and the prefill and decode wall times (s)."""
+    tokens ``[B, gen]``, the logits the last of them was picked from and
+    the prefill and decode wall times (s)."""
     dev = model.device
     cfg = model.cfg
     s = prompt["tokens"].shape[1]
@@ -74,8 +75,8 @@ def generate(model: api.Model, prompt: Dict[str, torch.Tensor], gen: int,
         out.append(tokens)
     _sync(dev)
     t_decode = time.perf_counter() - t1
-    return {"tokens": torch.stack(out, 1), "prefill_s": t_prefill,
-            "decode_s": t_decode}
+    return {"tokens": torch.stack(out, 1), "logits": logits,
+            "prefill_s": t_prefill, "decode_s": t_decode}
 
 
 def main(argv=None) -> int:

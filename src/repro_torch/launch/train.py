@@ -20,7 +20,8 @@ one failure before each named step (the restart drill), and
 a restarted run reproduces the run without failures bit for bit on a card
 too.  ``--production-mesh`` raises: the mesh and sharding rules
 (``launch/{mesh,sharding}.py``) are not ported yet (``ROADMAP.md`` Queue 1
-item 15).
+item 15b).  A hybrid config's ``--layers`` must be a multiple of its
+``attn_every``.
 """
 from __future__ import annotations
 
@@ -51,7 +52,7 @@ def build_everything(arch: str, smoke: bool, batch: int, seq: int,
     if production:
         raise NotImplementedError(
             "--production-mesh is not ported yet: ROADMAP.md Queue 1 item "
-            "15 brings launch/{mesh,sharding}.py; the port trains on one "
+            "15b brings launch/{mesh,sharding}.py; the port trains on one "
             "device")
     cfg = configs.get_smoke(arch) if smoke else configs.get(arch)
     if layers is not None:

@@ -1,7 +1,9 @@
 """Model API: the serving and training entry points of one architecture.
 
-The counterpart of ``repro/models/api.py`` for the dense, MoE,
-encoder-decoder (audio) and vision-language families:
+The counterpart of ``repro/models/api.py``: ``build`` dispatches on
+``cfg.family`` as JAX's does, to ``models/transformer.py`` (dense, MoE,
+encoder-decoder (audio), vision-language), ``models/xlstm.py`` (ssm) or
+``models/zamba.py`` (hybrid), and every family has the same entry points:
 
   build(cfg, device, generator) → Model (serving weights drawn from the
       generator; ``serve=False`` skips them for a trainer)
@@ -15,9 +17,9 @@ encoder-decoder (audio) and vision-language families:
 
 ``input_specs``/``synth_batch`` make the train and prefill batches (the
 front ends' ``patches`` and ``frames`` included) with the JAX package's
-numpy draws.  The SSM and hybrid families, which ``build`` refuses, are a
-later slice (``ROADMAP.md`` Queue 1 item 15).  Entry points run on
-``cuda`` unless the caller names another device.
+numpy draws; decode specs, whose inputs hold a cache, are not ported
+(``ROADMAP.md`` Queue 1 item 15b).  Entry points run on ``cuda`` unless
+the caller names another device.
 """
 from __future__ import annotations
 
@@ -27,8 +29,12 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from torch import nn
+
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer as T
+from repro_torch.models import xlstm as X
+from repro_torch.models import zamba as Z
 from repro_torch.models.common import ArchConfig
 from repro_torch.optim.adamw import (AdamW, AdamWState, apply_updates,
                                      tree_leaves, tree_map)
@@ -50,13 +56,26 @@ SHAPES = {
 }
 
 
+def family(cfg: ArchConfig):
+    """The module of ``cfg``'s family (``T``, ``X`` or ``Z``): its
+    ``prefill``, ``decode_step``, ``init_cache``, ``init_train_params``
+    and ``loss_fn``."""
+    if cfg.family in T.FAMILIES:
+        return T
+    if cfg.family == "ssm":
+        return X
+    if cfg.family == "hybrid":
+        return Z
+    raise ValueError(f"unknown family {cfg.family!r}")
+
+
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ArchConfig
-    module: Optional[T.Transformer]
+    module: Optional[nn.Module]
     device: torch.device
 
-    def _serving(self) -> T.Transformer:
+    def _serving(self) -> nn.Module:
         if self.module is None:
             raise ValueError("this model was built with serve=False: it has "
                              "no serving weights")
@@ -64,26 +83,28 @@ class Model:
 
     def prefill(self, batch: Dict[str, torch.Tensor],
                 max_len: Optional[int] = None) -> Tuple[torch.Tensor, Dict]:
-        return T.prefill(self._serving(), batch, max_len)
+        return family(self.cfg).prefill(self._serving(), batch, max_len)
 
     def decode_step(self, cache: Dict, tokens: torch.Tensor
                     ) -> Tuple[torch.Tensor, Dict]:
-        return T.decode_step(self._serving(), cache, tokens)
+        return family(self.cfg).decode_step(self._serving(), cache, tokens)
 
     def init_cache(self, batch: int, max_len: int, enc_len: int = 0) -> Dict:
-        return T.init_cache(self.cfg, batch, max_len, self.device, enc_len)
+        return family(self.cfg).init_cache(self.cfg, batch, max_len,
+                                           self.device, enc_len)
 
     def init_params(self, generator: Optional[torch.Generator] = None
-                    ) -> T.Params:
-        """The master parameters (``T.init_train_params``), drawn from
-        ``generator`` (default: one on the device seeded 0)."""
+                    ) -> Dict[str, object]:
+        """The master parameters (the family's ``init_train_params``),
+        drawn from ``generator`` (default: one on the device seeded 0)."""
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
-        return T.init_train_params(self.cfg, generator, self.device)
+        return family(self.cfg).init_train_params(self.cfg, generator,
+                                                  self.device)
 
-    def loss(self, params: T.Params,
+    def loss(self, params: Dict[str, object],
              batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        return T.loss_fn(params, batch, cfg=self.cfg)
+        return family(self.cfg).loss_fn(params, batch, cfg=self.cfg)
 
 
 def build(cfg: ArchConfig, device: DeviceLike = None,
@@ -93,15 +114,21 @@ def build(cfg: ArchConfig, device: DeviceLike = None,
     without a card), its serving weights drawn from ``generator``
     (default: one on the device seeded 0, as ``repro/launch/serve.py``'s
     ``key(0)``); ``serve=False`` makes none, for a trainer.  Raises
-    ``NotImplementedError`` for a family the port does not run yet."""
+    ``ValueError`` for an unknown family, or a hybrid config whose depth
+    is not a multiple of ``attn_every``."""
     dev = resolve_device(device)
-    T.check_supported(cfg)
+    fam = family(cfg)
+    if fam is Z:
+        Z.n_groups(cfg)
     module = None
     if serve:
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
-        module = T.Transformer(cfg, dev)
-        T.init_params(module, generator)
+        if fam is T:
+            module = T.Transformer(cfg, dev)
+            T.init_params(module, generator)
+        else:
+            module = fam.build_module(cfg, dev, generator)
     return Model(cfg=cfg, module=module, device=dev)
 
 
@@ -121,8 +148,8 @@ def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> Dict[str, TensorSpec]:
     S]``) batch: a vision config adds ``patches [B, frontend_len, d]``, an
     encoder-decoder config ``frames`` (``[B, min(S, 4096), d]`` to train,
     ``[B, 4096, d]`` to prefill), f32.  Decode shapes, whose inputs hold a
-    cache, come with ``launch/dryrun.py`` (item 15)."""
-    T.check_supported(cfg)
+    cache, come with ``launch/dryrun.py`` (item 15b)."""
+    family(cfg)
     b, s, d = shape.batch, shape.seq, cfg.d_model
     if shape.kind in ("train", "prefill"):
         train = shape.kind == "train"
@@ -137,7 +164,7 @@ def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> Dict[str, TensorSpec]:
         return specs
     raise NotImplementedError(
         f"{shape.kind} input specs are not ported yet: ROADMAP.md Queue 1 "
-        f"item 15 brings launch/dryrun.py")
+        f"item 15b brings launch/dryrun.py")
 
 
 def synth_batch(cfg: ArchConfig, shape: ShapeSpec, seed: int = 0,

@@ -1,5 +1,6 @@
-"""Shared model pieces: the architecture config, RMS norm, RoPE and the
-cross-entropy loss.
+"""Shared model pieces: the architecture config, a promoting ``einsum``,
+RMS norm, RoPE, the cross-entropy loss, and the weights of a model kept
+as the JAX pytree (``TreeModule``, ``draw_tree``).
 
 Copied from ``repro/models/common.py`` (which imports JAX).  The JAX
 package's mesh knobs and optimization flags (``logical_constraint``,
@@ -10,9 +11,10 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
+from torch import nn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,6 +94,22 @@ def dtype_of(name: str) -> torch.dtype:
     return dtype
 
 
+def work_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype where the JAX model names float32: float32, but float64
+    stays float64 (the card's yardstick runs)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def einsum(equation: str, *operands: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` with the operands promoted to one dtype first, as
+    ``jnp.einsum`` promotes them (bf16 with f32 gives f32);
+    ``torch.einsum`` refuses mixed dtypes."""
+    dtype = operands[0].dtype
+    for t in operands[1:]:
+        dtype = torch.promote_types(dtype, t.dtype)
+    return torch.einsum(equation, *(t.to(dtype) for t in operands))
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-5) -> torch.Tensor:
     """``x * rsqrt(mean(x^2) + eps) * (1 + scale)`` in f32 (float64 for
@@ -135,3 +153,86 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
         mask = mask.to(nll.dtype)
         return (nll * mask).sum() / mask.sum().clamp_min(1.0)
     return nll.mean()
+
+
+# ---------------------------------------------------------------------------
+# Weights as the JAX pytree (the SSM and hybrid families)
+# ---------------------------------------------------------------------------
+
+# A leaf's initial value: ("normal", fan_in) draws normal times
+# 1/sqrt(fan_in) (the JAX ``dense_init``); ("const", v) fills with v.
+Init = Tuple[str, float]
+# (path, shape, init): path ("embed",) or ("layers", "wq")
+LeafSpec = Tuple[Tuple[str, ...], Tuple[int, ...], Init]
+
+
+def draw_tree(spec: Sequence[LeafSpec], generator: torch.Generator,
+              device: torch.device,
+              dtype: Callable[[Tuple[str, ...]], torch.dtype]
+              ) -> Dict[str, object]:
+    """The nested dict of ``spec``'s leaves, each drawn in f32 from
+    ``generator`` (in ``spec``'s order) and cast to ``dtype(path)`` on
+    ``device``.  The numbers are the generator's, not JAX's."""
+    tree: Dict[str, object] = {}
+    for path, shape, (kind, value) in spec:
+        if kind == "normal":
+            w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                            device=generator.device)
+            w = w.mul_(1.0 / math.sqrt(max(value, 1))).to(device,
+                                                          dtype(path))
+        else:
+            w = torch.full(shape, float(value), dtype=dtype(path),
+                           device=device)
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = w
+    return tree
+
+
+def embed_tokens(params: Dict[str, object], tokens: torch.Tensor,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """The rows of ``params["embed"]`` at ``tokens``, cast to ``dtype``
+    (JAX's ``take(...).astype``; these families do not scale them)."""
+    embed = params["embed"]
+    return embed[tokens.to(embed.device).long()].to(dtype)
+
+
+def tied_logits(params: Dict[str, object], cfg: ArchConfig,
+                x: torch.Tensor) -> torch.Tensor:
+    """The final norm (its scale in the parameter dtype), then the
+    embedding's transpose as the head, in ``x``'s dtype."""
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x @ params["embed"].t().to(x.dtype)
+
+
+class TreeModule(nn.Module):
+    """A model's weights held as its JAX pytree: each top-level leaf a
+    parameter, each nested dict an ``nn.ParameterDict`` of stacked leaves,
+    so the state dict's keys are the tree's paths joined by dots
+    (``embed``, ``layers.wq``).  Serving only: nothing requires grad."""
+
+    def __init__(self, cfg: ArchConfig, tree: Dict[str, object]):
+        super().__init__()
+        self.cfg = cfg
+        for key, val in tree.items():
+            if isinstance(val, dict):
+                setattr(self, key, nn.ParameterDict({
+                    k: nn.Parameter(v, requires_grad=False)
+                    for k, v in val.items()}))
+            else:
+                setattr(self, key, nn.Parameter(val, requires_grad=False))
+        self._keys = tuple(tree)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def tree(self) -> Dict[str, Union[torch.Tensor, Dict]]:
+        """The weights as the nested dict the model functions take."""
+        out = {}
+        for key in self._keys:
+            val = getattr(self, key)
+            out[key] = (dict(val.items()) if isinstance(val, nn.ParameterDict)
+                        else val)
+        return out

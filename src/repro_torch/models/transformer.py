@@ -40,8 +40,9 @@ internvl2) prepends ``patches @ frontend_proj`` (not scaled by
 ``sqrt(d_model)``) to the scaled token embeddings; the patches take cache
 slots and positions, and ``loss_fn`` drops their outputs before the head.
 
-Not here yet (``ROADMAP.md`` Queue 1 item 15): the SSM and hybrid
-families.
+The SSM and hybrid families are ``xlstm.py`` and ``zamba.py``; zamba's
+shared attention block is this module's ``decoder_layer`` and
+``decode_layer``.
 """
 from __future__ import annotations
 
@@ -61,15 +62,15 @@ from repro_torch.models.moe import moe_ffn, moe_layer_params
 
 Cache = Dict[str, object]
 
-_NOT_PORTED = ("not ported yet: ROADMAP.md Queue 1 item 15 brings the "
-               "SSM and hybrid models")
+FAMILIES = ("dense", "moe", "audio", "vlm")
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run."""
-    if cfg.family not in ("dense", "moe", "audio", "vlm"):
-        raise NotImplementedError(f"{cfg.name} (family {cfg.family!r}) is "
-                                  f"{_NOT_PORTED}")
+    """Raise ``ValueError`` for a config of another family
+    (``models.api.build`` picks each family's module)."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"{cfg.name} (family {cfg.family!r}) is not a "
+                         f"transformer family {FAMILIES}")
 
 
 def layer_param_shapes(cfg: ArchConfig, cross: bool = False
@@ -145,11 +146,11 @@ def _cross(cfg: ArchConfig, lp: Dict[str, torch.Tensor], x: torch.Tensor,
     return x + o.reshape(b, s, -1) @ lp["wo_x"]
 
 
-def _decoder_layer(cfg: ArchConfig, lp: Dict[str, torch.Tensor],
-                   x: torch.Tensor, positions: torch.Tensor, window: int,
-                   attention, causal: bool = True,
-                   enc_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def decoder_layer(cfg: ArchConfig, lp: Dict[str, torch.Tensor],
+                  x: torch.Tensor, positions: torch.Tensor, window: int,
+                  attention, causal: bool = True,
+                  enc_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``_decoder_layer`` (one pre-norm block: attention, the cross block
     when given the encoder's k and v ``enc_kv``, then the SwiGLU or MoE
     feed-forward) on ``x [B, S, d]`` with the weights ``lp`` and an
@@ -169,6 +170,31 @@ def _decoder_layer(cfg: ArchConfig, lp: Dict[str, torch.Tensor],
         x = _cross(cfg, lp, x, *enc_kv)
     x = x + _ffn(cfg, lp, rms_norm(x, lp["norm2"], cfg.norm_eps))
     return x, k, v
+
+
+def decode_layer(cfg: ArchConfig, lp: Dict[str, torch.Tensor],
+                 x: torch.Tensor, positions: torch.Tensor,
+                 k_cache: torch.Tensor, v_cache: torch.Tensor, pos: int,
+                 window: int = 0,
+                 enc_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                 ) -> torch.Tensor:
+    """``decoder_layer`` for one token ``x [B, 1, d]`` at position
+    ``pos``: writes its k and v into the layer's caches ``[B, max_len, G,
+    hd]`` in place and attends to the live slots; the cross block reads
+    the cached ``enc_kv``."""
+    b = x.shape[0]
+    h = rms_norm(x, lp["norm1"], cfg.norm_eps)
+    q, k, v = _qkv(cfg, lp, h)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    k_cache[:, pos] = k[:, 0]
+    v_cache[:, pos] = v[:, 0]
+    o = attn.decode_attention(q, k_cache, v_cache, cache_len=pos + 1,
+                              window=window)
+    x = x + o.reshape(b, 1, cfg.n_heads * cfg.hd) @ lp["wo"]
+    if enc_kv is not None:
+        x = _cross(cfg, lp, x, *enc_kv)
+    return x + _ffn(cfg, lp, rms_norm(x, lp["norm2"], cfg.norm_eps))
 
 
 def _weight(shape, dtype, device) -> nn.Parameter:
@@ -201,32 +227,19 @@ class DecoderLayer(nn.Module):
         """Prefill: ``x [B, S, d]`` → (``x``, this layer's k and v), the
         attention through the flash kernel; ``enc_kv`` the cross block's
         k and v (``cross_kv``)."""
-        return _decoder_layer(self.cfg, self.weights, x, positions,
-                              self.window, attn.chunked_attention,
-                              self.causal, enc_kv)
+        return decoder_layer(self.cfg, self.weights, x, positions,
+                             self.window, attn.chunked_attention,
+                             self.causal, enc_kv)
 
     def decode(self, x: torch.Tensor, positions: torch.Tensor,
                k_cache: torch.Tensor, v_cache: torch.Tensor,
                pos: int, enc_kv: Optional[Tuple[torch.Tensor,
                                                 torch.Tensor]] = None
                ) -> torch.Tensor:
-        """One token ``x [B, 1, d]`` at position ``pos``: writes its k and v
-        into this layer's caches ``[B, max_len, G, hd]`` in place; the
-        cross block reads the cached ``enc_kv``."""
-        cfg, lp = self.cfg, self.weights
-        b = x.shape[0]
-        h = rms_norm(x, lp["norm1"], cfg.norm_eps)
-        q, k, v = _qkv(cfg, lp, h)
-        q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, positions, cfg.rope_theta)
-        k_cache[:, pos] = k[:, 0]
-        v_cache[:, pos] = v[:, 0]
-        o = attn.decode_attention(q, k_cache, v_cache, cache_len=pos + 1,
-                                  window=self.window)
-        x = x + o.reshape(b, 1, cfg.n_heads * cfg.hd) @ lp["wo"]
-        if enc_kv is not None:
-            x = _cross(cfg, lp, x, *enc_kv)
-        return x + _ffn(cfg, lp, rms_norm(x, lp["norm2"], cfg.norm_eps))
+        """One token ``x [B, 1, d]`` at position ``pos``
+        (``decode_layer``)."""
+        return decode_layer(self.cfg, self.weights, x, positions, k_cache,
+                            v_cache, pos, self.window, enc_kv)
 
 
 class Transformer(nn.Module):
@@ -451,7 +464,7 @@ def init_train_params(cfg: ArchConfig, generator: torch.Generator,
 def _train_layer(cfg: ArchConfig, window: int, causal: bool,
                  x: torch.Tensor, enc_out: Optional[torch.Tensor],
                  *weights: torch.Tensor) -> torch.Tensor:
-    """``_decoder_layer`` on one layer's weights (in ``layer_param_shapes``
+    """``decoder_layer`` on one layer's weights (in ``layer_param_shapes``
     order, the cross leaves included when ``enc_out`` is given), each cast
     to ``x``'s dtype here, inside the checkpointed region, as JAX casts
     inside its scan body; the cross k and v are made from ``enc_out`` there
@@ -462,7 +475,7 @@ def _train_layer(cfg: ArchConfig, window: int, causal: bool,
                   (w.to(x.dtype) for w in weights)))
     positions = torch.arange(x.shape[1], device=x.device)[None]
     enc_kv = cross_kv(cfg, lp, enc_out) if cross else None
-    return _decoder_layer(cfg, lp, x, positions, window,
+    return decoder_layer(cfg, lp, x, positions, window,
                           attn.training_attention, causal, enc_kv)[0]
 
 

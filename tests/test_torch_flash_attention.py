@@ -6,7 +6,8 @@ in interpret mode, and ``repro.models.attention.chunked_attention``.
 Cases: causal, causal with a window, non-causal (and non-causal with a
 window, where the Pallas kernel still applies it); GQA with 4 query heads
 over 2 KV heads; S of 256 and 512 and 200 (not a multiple of 128; the JAX
-kernel runs it as one block); f32 and bf16.  Tolerances are the JAX
+kernel runs it as one block), head dims 64, 128 and zamba2's 80 (at S =
+200); f32 and bf16.  Tolerances are the JAX
 tests' (``tests/test_kernels.py``): 2e-3 in f32, 5e-2 in bf16, absolute
 and relative.  Both sides keep f32 statistics and, for bf16 inputs, round
 P to bf16 before P·V (the Pallas kernel, the port's plain version and its
@@ -57,7 +58,8 @@ def as_jax(a, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("s,d", [(256, 64), (512, 128), (200, 64)])
+@pytest.mark.parametrize("s,d", [(256, 64), (512, 128), (200, 64),
+                                 (200, 80)])
 @pytest.mark.parametrize("causal,window", MASKS)
 def test_flash_attention_op_matches_jax(causal, window, s, d, dtype):
     q, k, v = qkv(2, 4, 2, s, d, dtype, seed=s + d)
@@ -73,7 +75,8 @@ def test_flash_attention_op_matches_jax(causal, window, s, d, dtype):
                                rtol=TOL[dtype], atol=TOL[dtype])
 
 
-@pytest.mark.parametrize("s,d", [(256, 64), (512, 128), (200, 64)])
+@pytest.mark.parametrize("s,d", [(256, 64), (512, 128), (200, 64),
+                                 (200, 80)])
 @pytest.mark.parametrize("causal,window", MASKS)
 def test_flash_plain_bf16_rounds_p_as_the_pallas_kernel(causal, window, s,
                                                         d):

@@ -53,7 +53,9 @@ def test_every_module_imports_without_jax_or_repro():
                  "models.moe", "configs.gemma3_4b", "configs.olmoe_1b_7b",
                  "configs.qwen3_moe_235b_a22b", "configs.deepseek_67b",
                  "configs.command_r_plus_104b",
-                 "configs.seamless_m4t_large_v2", "configs.internvl2_26b"):
+                 "configs.seamless_m4t_large_v2", "configs.internvl2_26b",
+                 "models.mamba2", "models.xlstm", "models.zamba",
+                 "configs.xlstm_125m", "configs.zamba2_2_7b"):
         assert f"repro_torch.{name}" in names
 
 

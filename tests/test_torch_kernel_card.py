@@ -1004,6 +1004,82 @@ def test_flash_kernel_head_dim_256_on_card(cuda, window, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 64),
+                                           (False, 0)])
+@pytest.mark.parametrize("s,r", [(333, 1), (130, 2)])
+def test_flash_kernel_head_dim_80_on_card(cuda, s, r, causal, window,
+                                          dtype):
+    """zamba2's head dim: the bf16 kernel on two 64-column sub-tiles whose
+    second is zero-filled past column 80 by the TMA unit (the next head's
+    columns must not leak in, nor columns 80-127 be stored), the f32
+    kernel at 5 columns a thread; MHA (zamba2's R = 1) and a pair, ragged
+    S, causal, windowed and full."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = attention_inputs(2, s, 3, r, 80, dtype, cuda, seed=s + r)
+    before = kfa.flash_attention.launches
+    got = kfa.flash_attention(q, k, v, causal=causal, window=window)
+    want = tref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert kfa.flash_attention.launches == before + 1
+    assert got.shape == q.shape and got.dtype == q.dtype
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    else:
+        assert within_bf16_bound(got, want, q, k, v, causal, window)
+    assert torch.equal(got, kfa.flash_attention(q, k, v, causal=causal,
+                                                window=window))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "xlstm-125m"])
+def test_ssm_smoke_on_card_matches_the_cpu(cuda, arch, monkeypatch):
+    """The SSM and hybrid smoke configs (zamba2's at its head dim 80) at
+    f32 compute with one set of weights on the card and on the CPU:
+    prefill (logits and every cache leaf) and two decode steps within
+    1e-4; zamba2's prefill launches the flash kernel once a shared-block
+    call (the plain attention is never reached on the card)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.models import api
+    from repro_torch.models import attention as tattn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(configs.get_smoke(arch),
+                              compute_dtype="float32")
+    if cfg.family == "hybrid":
+        cfg = dataclasses.replace(cfg, head_dim=80)
+    cpu = api.build(cfg, "cpu", torch.Generator().manual_seed(9))
+    card = api.build(cfg, cuda)
+    card.module.load_state_dict(cpu.module.state_dict())
+    tokens = TokenStream(cfg, 2, 70).batch_at(0)["tokens"][:, :70]
+    real_ref = tattn.flash_attention_ref
+
+    def refuse(q, *a, **k):
+        assert q.device.type == "cpu", "a CUDA tensor reached the plain one"
+        return real_ref(q, *a, **k)
+
+    monkeypatch.setattr(tattn, "flash_attention_ref", refuse)
+    kfa.flash_attention.launches = 0
+    lg_card, c_card = card.prefill({"tokens": tokens.to(cuda)}, max_len=72)
+    want = cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else 0
+    assert kfa.flash_attention.launches == want
+    lg_cpu, c_cpu = cpu.prefill({"tokens": tokens}, max_len=72)
+    tol = dict(rtol=1e-4, atol=1e-4)
+    for step in range(3):
+        torch.testing.assert_close(lg_card.cpu(), lg_cpu, **tol)
+        for key in (k for k in c_cpu if k != "len"):
+            assert c_card[key].dtype == c_cpu[key].dtype
+            torch.testing.assert_close(c_card[key].cpu(), c_cpu[key], **tol)
+        if step < 2:
+            tok = lg_cpu.argmax(-1)
+            lg_card, c_card = card.decode_step(c_card, tok.to(cuda))
+            lg_cpu, c_cpu = cpu.decode_step(c_cpu, tok)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("r", [1, 2, 8])
 @pytest.mark.parametrize("window", [0, 100])
 def test_flash_kernel_pairs_query_heads_on_card(cuda, r, window):
