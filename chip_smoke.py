@@ -210,6 +210,14 @@ Phases (any failed check exits non-zero; nothing is caught and passed over):
    checkpoint, and a deterministic restart drill at 2 layers.  No kernel
    of the repo is on this path: the JAX training path reaches no Pallas
    kernel either.
+9. ``[mesh]`` (``mesh_phase``): the production-mesh tools.  A world of one
+   NCCL rank as a ``(1, 1)`` DTensor mesh: a tinyllama-1.1b AdamW step at
+   2 layers with parameters by ``param_specs`` under ``activation_rules``
+   against the plain step, and a full-depth prefill whose 22 flash
+   launches go through the kernel's custom op, against the plain
+   prefill's logits; then six dry-run cells on fake CUDA tensors over a
+   fake 256-rank process group (``launch/dryrun.py``).  The kernels line
+   lists the mesh prefill's flash launches as ``flash_attention.mesh``.
 
 Phase 2 also holds the hybrid kernels at the planner's RMAT20 split (|H|,
 Q=8): ``ell_spmv`` in its three semirings on the forward remainder with the
@@ -317,6 +325,11 @@ KERNELS = {
         "src/repro/kernels/flash_attention.py:87"),
     # the same kernel at zamba2's head dim (D = 80, MHA), listed apart
     "flash_attention.d80": (
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:87"),
+    # the same kernel through its custom op on DTensors ([mesh]'s prefill
+    # of tinyllama-1.1b; timed at that shape in [lm]), listed apart
+    "flash_attention.mesh": (
         "src/repro_torch/kernels/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention.py:87"),
 }
@@ -1354,8 +1367,8 @@ def moe_spy():
         calls.append((h, lp))
         return ffn(h, lp, cfg)
 
-    def spy_route(logits, cfg):
-        r = route(logits, cfg)
+    def spy_route(logits, cfg, *args, **kwargs):
+        r = route(logits, cfg, *args, **kwargs)
         routes.append((logits, r))
         return r
 
@@ -3758,6 +3771,75 @@ def direction_world_phase(check):
           f"({time.perf_counter() - t0:.1f} s)")
 
 
+MESH_TRAIN = dict(layers=2, batch=8, seq=2048)   # tinyllama-1.1b, one step
+MESH_CELLS = [("tinyllama-1.1b", "train_4k"), ("tinyllama-1.1b", "prefill_32k"),
+              ("tinyllama-1.1b", "decode_32k"), ("olmoe-1b-7b", "train_4k"),
+              ("zamba2-2.7b", "long_500k"),
+              ("totem-rmat", "pagerank_superstep")]
+
+
+def mesh_phase(check):
+    """``[mesh]``: the production-mesh tools on the card.  (a) A world of
+    one NCCL rank (``launch/world.py::run_world``) laid out as
+    ``make_local_mesh(1, 1)``: one AdamW step of tinyllama-1.1b at full
+    width and ``MESH_TRAIN``'s depth (f32 master, bf16 compute) with
+    DTensor parameters by ``param_specs`` under ``activation_rules``
+    against the plain step: the loss within 1e-6 relative and every
+    gradient (AdamW's first moment) and parameter within 1e-6 of its
+    leaf's largest gradient.  On one rank every DTensor op runs the plain
+    op on the whole tensor, but the mesh's cross entropy sums the token
+    losses and divides (``mean`` reduces in its own order), so the loss,
+    and through it every gradient, may differ in the last bits; the
+    leaves bit for bit are counted.  (b) A full-depth prefill (B=4,
+    S=2048, bf16) under the mesh: the flash kernel launched once a layer
+    through the custom op (the count zeroed just before it), the logits
+    bit for bit the plain prefill's.  (c) Dry-run cells on fake CUDA
+    tensors (``launch/dryrun.py::run_cell``, the 256-rank production
+    mesh of a fake process group): each ``ok`` with ``temp_bytes > 0``,
+    flops > 0 and a dominant roofline term.  Returns the mesh prefill's
+    flash launches."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh_selftest
+    from repro_torch.launch.world import run_world
+
+    t0 = time.perf_counter()
+    got = run_world(mesh_selftest.card_rank, 1, device="cuda", timeout=600,
+                    args=("tinyllama-1.1b", MESH_TRAIN["layers"],
+                          MESH_TRAIN["batch"], MESH_TRAIN["seq"], LM_BATCH,
+                          LM_PROMPT))[0]
+    diff, (loss_m, loss_p) = got["compare"], got["loss"]
+    check(diff["loss"] <= 1e-6 and diff["grads"] <= 1e-6
+          and diff["params"] <= 1e-6,
+          f"[mesh] tinyllama-1.1b at {MESH_TRAIN['layers']} layers (B="
+          f"{MESH_TRAIN['batch']}, S={MESH_TRAIN['seq']}), one AdamW step on "
+          f"a (1, 1) mesh of one NCCL rank against the plain step: loss "
+          f"{loss_m:.7f} / {loss_p:.7f} (rel {diff['loss']:.2e}), gradients "
+          f"{diff['grads']:.2e}, parameters {diff['params']:.2e} (<= 1e-6); "
+          f"{got['bit_equal']} of {got['leaves']} leaves bit for bit; step "
+          f"{got['step_s'][0] * 1e3:.1f} ms on the mesh, "
+          f"{got['step_s'][1] * 1e3:.1f} ms plain")
+    launches = got["flash_launches"]
+    check(launches == 22 and got["logits_bit_equal"],
+          f"[mesh] tinyllama-1.1b full-depth prefill (B={LM_BATCH}, "
+          f"S={LM_PROMPT}, bf16) on the mesh: {launches} flash launches "
+          f"through the custom op (22 layers), logits bit for bit the plain "
+          f"prefill's (max |diff| {got['logits_max_abs']:.3e}); "
+          f"{got['prefill_s'] * 1e3:.1f} ms on the mesh, "
+          f"{got['plain_prefill_s'] * 1e3:.1f} ms plain")
+    log(f"[mesh] the NCCL world of one: {time.perf_counter() - t0:.1f} s")
+    for arch, shape in MESH_CELLS:
+        t1 = time.perf_counter()
+        rec = dryrun.run_cell(arch, shape, "single", "cuda")
+        ok = (rec.get("ok") and rec["memory_analysis"]["temp_bytes"] > 0
+              and rec["cost_analysis_raw"]["flops"] > 0
+              and rec["roofline"]["dominant"] in ("compute", "memory",
+                                                  "collective"))
+        check(bool(ok), f"[mesh] dry run {dryrun.summary_line(rec)}; "
+              f"{time.perf_counter() - t1:.1f} s")
+    log(f"[mesh] the phase {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     # [train]'s restart drill runs cuBLAS under
     # torch.use_deterministic_algorithms, which torch allows only with a
@@ -4739,6 +4821,11 @@ def main() -> int:
     free_device_memory("train")
     train_phase(dev, check)
     clock("[train]")
+
+    # -- phase 9: [mesh] DTensor layouts, the flash custom op, the dry run --
+    free_device_memory("mesh")
+    mesh_launches = mesh_phase(check)
+    clock("[mesh]")
     log(f"[time] the script {time.perf_counter() - T_START:.1f} s")
 
     if check.failed:
@@ -4762,7 +4849,8 @@ def main() -> int:
             "flash_attention.d256": lm_rows["d256"][:2],
             "flash_attention.noncausal": encdec_rows["noncausal"][:2],
             "flash_attention.vlm": encdec_rows["vlm"][:2],
-            "flash_attention.d80": ssm_row[:2]}
+            "flash_attention.d80": ssm_row[:2],
+            "flash_attention.mesh": lm_rows["d64"][:2]}
     launches.update(
         (name, hyb_launches[name]) for name in ("ell_spmv", "dense_spmv",
                                                 "dense_spmv_minplus"))
@@ -4773,6 +4861,7 @@ def main() -> int:
     launches["flash_attention.noncausal"] = encdec_rows["noncausal"][2]
     launches["flash_attention.vlm"] = encdec_rows["vlm"][2]
     launches["flash_attention.d80"] = ssm_row[2]
+    launches["flash_attention.mesh"] = mesh_launches
     launches["fused_superstep.bfs_relax"] = dyn_launches["bfs_relax"]
     launches["fused_superstep"] += tdyn_launches
     record = {"kernels": [dict(

@@ -50,8 +50,8 @@ VARIANTS = {
     "no turns": ('asm volatile("bar.sync %0, 256;\\n" :: "r"(id) : "memory");',
                  "(void)id;"),
     "3 stages": ("constexpr int kStages = 2;", "constexpr int kStages = 3;"),
-    "one block per SM": ("__launch_bounds__(kThreads, D > 64 ? 1 : 2)",
-                         "__launch_bounds__(kThreads, 1)"),
+    "one block per SM": ("__launch_bounds__(Geo<D>::kThreads, D > 64 ? 1 : 2)",
+                         "__launch_bounds__(Geo<D>::kThreads, 1)"),
     # wrong on purpose
     "last key tile dropped": (
         "const int tiles = (k_hi - k_first + kKeys - 1) / kKeys;",

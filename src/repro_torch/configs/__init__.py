@@ -47,3 +47,8 @@ def get(arch_id: str):
 
 def get_smoke(arch_id: str):
     return _module(arch_id).SMOKE_CONFIG
+
+
+def all_ids():
+    """The architecture ids (``totem-rmat``, the graph workload, aside)."""
+    return [k for k in ARCH_IDS if k != "totem-rmat"]

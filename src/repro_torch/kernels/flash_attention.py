@@ -14,6 +14,16 @@ the bf16 kernel on 128 columns, the last 48 zeros loaded by the TMA unit
 and never stored.  At the prefill's shapes the work is bound by operations
 (see the note in the source).
 
+The launcher is the CUDA implementation of the custom op
+``repro_torch::flash_attention(q, k, v, causal, window)``, so a DTensor, a
+FakeTensor or a meta tensor reaches it too: its CPU implementation is
+``ref.flash_attention_ref``; its fake implementation returns
+``empty_like(q)`` and holds no ``[S, S]`` tensor; its flop formula
+(``torch.utils.flop_counter``) counts the live (query, key) pairs' two
+products, 4·D operations a pair a head (68.8 GFLOP at ``[4, 2048, 4, 8,
+64]`` causal); its DTensor sharding rule lets the batch and head dims be
+sharded and keeps S and D whole.
+
 This module builds nothing when imported.  The library is built at the
 first launch (or by ``_build.build_all``), and only CUDA tensors reach it:
 the CPU path is ``ref.flash_attention_ref``.
@@ -25,6 +35,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.ref import flash_attention_ref
 
 SOURCE = "flash_attention"
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)
@@ -46,13 +57,82 @@ def _library() -> ctypes.CDLL:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
-    """Launch the kernel; returns ``[B, S, G, R, D]`` in ``q``'s dtype.
+    """Launch the kernel (through the custom op); returns ``[B, S, G, R,
+    D]`` in ``q``'s dtype.
 
     ``q [B, S, G, R, D]``, ``k, v [B, S, G, D]``, one dtype (f32 or bf16),
-    contiguous, on one CUDA device.  Keys ``k <= q`` are live when
-    ``causal``, and ``q - k < window`` when ``window > 0``.  Raises on
-    anything the kernel does not take.
+    contiguous, on one CUDA device (DTensors of such shards too).  Keys
+    ``k <= q`` are live when ``causal``, and ``q - k < window`` when
+    ``window > 0``.  Raises on anything the kernel does not take.
     """
+    if q.device.type != "cuda":
+        raise ValueError(f"q must be a CUDA tensor, got {q.device}")
+    return torch.ops.repro_torch.flash_attention(q, k, v, bool(causal),
+                                                 int(window))
+
+
+def attention_flops(b: int, s: int, g: int, r: int, d: int,
+                    causal: bool = True, window: int = 0) -> int:
+    """Operations of one launch: the live (query, key) pairs (all ``s *
+    s`` when not causal; a positive window bounds each query's keys) times
+    4·D (S = Q·Kᵀ and P·V) times the heads."""
+    w = window if 0 < window < s else s
+    pairs = (w * (w + 1) // 2 + (s - w) * w) if causal else s * s
+    return 4 * d * pairs * b * g * r
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                         device_types="cuda")
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool, window: int) -> torch.Tensor:
+    return _launch(q, k, v, causal, window)
+
+
+@_flash_op.register_kernel("cpu")
+def _flash_op_cpu(q, k, v, causal, window):
+    return flash_attention_ref(q, k, v, causal=causal,
+                               window=window).contiguous()
+
+
+@_flash_op.register_fake
+def _flash_op_fake(q, k, v, causal, window):
+    return torch.empty_like(q)
+
+
+def _register_flops() -> None:
+    from torch.utils.flop_counter import register_flop_formula
+
+    @register_flop_formula(torch.ops.repro_torch.flash_attention)
+    def _flops(q_shape, k_shape, v_shape, causal, window, *args,
+               out_shape=None, **kwargs) -> int:
+        return attention_flops(*q_shape, causal=causal, window=window)
+
+
+def _register_sharding() -> None:
+    """Batch (dim 0 of all three), KV group (dim 2 of all three) or the
+    query heads of a group (dim 3 of q; k and v whole) may be sharded; S
+    and D are replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(torch.ops.repro_torch.flash_attention.default)
+    def _rule(q, k, v, causal, window):
+        rep = Replicate()
+        out = [([rep], [rep, rep, rep, None, None])]
+        for dim in (0, 2):
+            out.append(([Shard(dim)], [Shard(dim)] * 3 + [None, None]))
+        out.append(([Shard(3)], [Shard(3), rep, rep, None, None]))
+        return out
+
+
+_register_flops()
+if torch.distributed.is_available():
+    _register_sharding()
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool, window: int) -> torch.Tensor:
+    """The launcher: checks the operands, launches, counts."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"q must be a CUDA tensor, got {dev}")

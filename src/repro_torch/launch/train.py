@@ -18,10 +18,21 @@ Beyond the JAX flags: ``--layers`` cuts the depth, ``--fail-at`` injects
 one failure before each named step (the restart drill), and
 ``--deterministic`` runs under ``torch.use_deterministic_algorithms``, so
 a restarted run reproduces the run without failures bit for bit on a card
-too.  ``--production-mesh`` raises: the mesh and sharding rules
-(``launch/{mesh,sharding}.py``) are not ported yet (``ROADMAP.md`` Queue 1
-item 15b).  A hybrid config's ``--layers`` must be a multiple of its
+too.  A hybrid config's ``--layers`` must be a multiple of its
 ``attn_every``.
+
+``--production-mesh`` (JAX's ``build_everything(production=True)``) lays
+the run out on ``launch/mesh.py``'s ``(16, 16)`` mesh over the world that
+``torchrun`` started (NCCL on cards, gloo with ``--device cpu``; 256
+ranks, else the mesh's error naming the world size): parameters and AdamW
+state distributed by ``sharding.param_specs``, each batch by
+``batch_specs``, the step under ``activation_rules``.  Checkpoints are
+sharded (``CheckpointManager(sharded=True)``): one per step in
+``--ckpt-dir``, each rank writing the shards of which it holds the first
+replica and restoring its own.
+
+  torchrun --nproc-per-node 8 --nnodes 32 ... -m repro_torch.launch.train \
+      --production-mesh --arch tinyllama-1.1b --batch 256 --seq 4096
 """
 from __future__ import annotations
 
@@ -33,13 +44,16 @@ import time
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import configs
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.data.tokens import TokenStream
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch import mesh as M
+from repro_torch.launch import sharding as shd
 from repro_torch.models import api
-from repro_torch.optim.adamw import AdamW, tree_leaves
+from repro_torch.optim.adamw import AdamW, AdamWState, tree_leaves
 from repro_torch.runtime import (FaultInjector, StepWatchdog,
                                  run_with_restarts)
 
@@ -48,12 +62,10 @@ def build_everything(arch: str, smoke: bool, batch: int, seq: int,
                      microbatches: int, lr: float, production: bool,
                      device: DeviceLike = None,
                      layers: Optional[int] = None):
-    """``(cfg, model, optimizer, step function, token stream)``."""
-    if production:
-        raise NotImplementedError(
-            "--production-mesh is not ported yet: ROADMAP.md Queue 1 item "
-            "15b brings launch/{mesh,sharding}.py; the port trains on one "
-            "device")
+    """``(cfg, model, optimizer, step function, token stream)``.  With
+    ``production`` the step function carries the mesh (``step.mesh``):
+    it runs under ``activation_rules`` and takes the parameters and
+    optimizer state as ``step.distribute`` lays them out."""
     cfg = configs.get_smoke(arch) if smoke else configs.get(arch)
     if layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=int(layers))
@@ -61,7 +73,43 @@ def build_everything(arch: str, smoke: bool, batch: int, seq: int,
     opt = AdamW(learning_rate=lr)
     step_fn = api.make_train_step(model, opt, microbatches=microbatches or 1)
     stream = TokenStream(cfg, batch, seq)
+    if production:
+        step_fn = _mesh_step(step_fn, model, M.make_production_mesh(
+            device=model.device.type))
     return cfg, model, opt, step_fn, stream
+
+
+def _mesh_step(step_fn, model: api.Model, mesh):
+    """``step_fn`` on ``mesh``: the batch distributed by ``batch_specs``,
+    the call under ``activation_rules``; ``.distribute(params,
+    opt_state)`` lays the state out by ``param_specs``."""
+    pspecs = shd.param_specs(model.params_shape(), mesh)
+
+    def step(params, opt_state, batch):
+        batch = shd.named(batch, shd.batch_specs(batch, mesh), mesh)
+        with shd.activation_rules(mesh):
+            return step_fn(params, opt_state, batch)
+
+    def distribute(params, opt_state):
+        return (shd.named(params, pspecs, mesh),
+                AdamWState(step=opt_state.step,
+                           mu=shd.named(opt_state.mu, pspecs, mesh),
+                           nu=shd.named(opt_state.nu, pspecs, mesh)))
+
+    step.mesh, step.distribute = mesh, distribute
+    return step
+
+
+def init_world(device: torch.device) -> None:
+    """Join the process group ``torchrun`` describes (``RANK``,
+    ``WORLD_SIZE``, ``MASTER_ADDR``/``PORT`` in the environment), NCCL
+    on cards (rank ``LOCAL_RANK``'s card) or gloo on the CPU; nothing
+    when the environment names no world or a group exists."""
+    if dist.is_initialized() or "WORLD_SIZE" not in os.environ:
+        return
+    if device.type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -111,6 +159,10 @@ def _sync(dev: torch.device) -> None:
 
 
 def _train(args, dev: torch.device) -> Dict:
+    if args.production_mesh:
+        init_world(dev)
+        if dev.type == "cuda" and dist.is_initialized():
+            dev = torch.device("cuda", torch.cuda.current_device())
     cfg, model, opt, step_fn, stream = build_everything(
         args.arch, args.smoke, args.batch, args.seq, args.microbatches,
         args.lr, args.production_mesh, dev, args.layers)
@@ -120,7 +172,10 @@ def _train(args, dev: torch.device) -> Dict:
     print(f"arch={cfg.name} layers={cfg.n_layers} params={n_params:,} "
           f"device={dev}", flush=True)
     opt_state = opt.init(params)
-    manager = CheckpointManager(args.ckpt_dir)
+    sharded = hasattr(step_fn, "mesh")
+    if sharded:
+        params, opt_state = step_fn.distribute(params, opt_state)
+    manager = CheckpointManager(args.ckpt_dir, sharded=sharded)
     injector = FaultInjector(fail_at_steps=set(args.fail_at))
     watchdog = StepWatchdog(
         on_straggler=lambda s, d, m: print(

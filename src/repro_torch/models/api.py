@@ -15,11 +15,12 @@ encoder-decoder (audio), vision-language), ``models/xlstm.py`` (ssm) or
   make_train_step(model, optimizer, microbatches) → train_step
   accumulate_grads(model, params, batch, microbatches) → (grads, losses)
 
-``input_specs``/``synth_batch`` make the train and prefill batches (the
-front ends' ``patches`` and ``frames`` included) with the JAX package's
-numpy draws; decode specs, whose inputs hold a cache, are not ported
-(``ROADMAP.md`` Queue 1 item 15b).  Entry points run on ``cuda`` unless
-the caller names another device.
+``input_specs``/``synth_batch`` make the train, prefill and decode
+batches (the front ends' ``patches`` and ``frames``, a decode step's
+cache) with the JAX package's numpy draws; ``model.params_shape()`` is the
+master tree on the ``meta`` device.  Under a mesh (``launch/sharding.py``'s
+``activation_rules``) the same entry points take DTensors.  Entry points
+run on ``cuda`` unless the caller names another device.
 """
 from __future__ import annotations
 
@@ -35,7 +36,8 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.models import xlstm as X
 from repro_torch.models import zamba as Z
-from repro_torch.models.common import ArchConfig
+from repro_torch.models.dist import split_rows
+from repro_torch.models.common import ArchConfig, opt_enabled
 from repro_torch.optim.adamw import (AdamW, AdamWState, apply_updates,
                                      tree_leaves, tree_map)
 
@@ -102,6 +104,12 @@ class Model:
         return family(self.cfg).init_train_params(self.cfg, generator,
                                                   self.device)
 
+    def params_shape(self) -> Dict[str, object]:
+        """The master parameters' tree on the ``meta`` device (shapes and
+        dtypes, nothing allocated): JAX's ``params_shape``."""
+        return family(self.cfg).init_train_params(self.cfg, None,
+                                                  torch.device("meta"))
+
     def loss(self, params: Dict[str, object],
              batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         return family(self.cfg).loss_fn(params, batch, cfg=self.cfg)
@@ -115,18 +123,20 @@ def build(cfg: ArchConfig, device: DeviceLike = None,
     (default: one on the device seeded 0, as ``repro/launch/serve.py``'s
     ``key(0)``); ``serve=False`` makes none, for a trainer.  Raises
     ``ValueError`` for an unknown family, or a hybrid config whose depth
-    is not a multiple of ``attn_every``."""
+    is not a multiple of ``attn_every``.  On the ``meta`` device the
+    weights have shapes and no values."""
     dev = resolve_device(device)
     fam = family(cfg)
     if fam is Z:
         Z.n_groups(cfg)
     module = None
     if serve:
-        if generator is None:
+        if generator is None and dev.type != "meta":
             generator = torch.Generator(device=dev).manual_seed(0)
         if fam is T:
             module = T.Transformer(cfg, dev)
-            T.init_params(module, generator)
+            if dev.type != "meta":
+                T.init_params(module, generator)
         else:
             module = fam.build_module(cfg, dev, generator)
     return Model(cfg=cfg, module=module, device=dev)
@@ -143,12 +153,14 @@ class TensorSpec(NamedTuple):
     dtype: torch.dtype
 
 
-def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> Dict[str, TensorSpec]:
+def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> Dict[str, object]:
     """The inputs of a train (tokens ``[B, S + 1]``) or prefill (``[B,
     S]``) batch: a vision config adds ``patches [B, frontend_len, d]``, an
     encoder-decoder config ``frames`` (``[B, min(S, 4096), d]`` to train,
-    ``[B, 4096, d]`` to prefill), f32.  Decode shapes, whose inputs hold a
-    cache, come with ``launch/dryrun.py`` (item 15b)."""
+    ``[B, 4096, d]`` to prefill), f32.  A decode step's: ``tokens [B]``
+    and ``cache``, the model's ``init_cache(B, S)`` tree as specs (its
+    ``len`` an int32 scalar, as in JAX), built on the ``meta`` device, so
+    a 524,288-slot cache allocates nothing."""
     family(cfg)
     b, s, d = shape.batch, shape.seq, cfg.d_model
     if shape.kind in ("train", "prefill"):
@@ -162,29 +174,34 @@ def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> Dict[str, TensorSpec]:
             specs["frames"] = TensorSpec((b, min(s, 4096) if train else 4096,
                                           d), torch.float32)
         return specs
-    raise NotImplementedError(
-        f"{shape.kind} input specs are not ported yet: ROADMAP.md Queue 1 "
-        f"item 15b brings launch/dryrun.py")
+    cache = family(cfg).init_cache(cfg, b, s, torch.device("meta"))
+    return {"tokens": TensorSpec((b,), torch.int32),
+            "cache": {k: (TensorSpec(tuple(v.shape), v.dtype)
+                          if isinstance(v, torch.Tensor)
+                          else TensorSpec((), torch.int32))
+                      for k, v in cache.items()}}
 
 
 def synth_batch(cfg: ArchConfig, shape: ShapeSpec, seed: int = 0,
-                device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+                device: DeviceLike = None) -> Dict[str, object]:
     """A random batch matching ``input_specs``: the JAX package's draws
     from ``default_rng(seed)`` (integers in ``[0, vocab)``, floats
-    ``normal * 0.02``), in its order (sorted keys: ``frames``,
-    ``patches``, ``tokens``), on ``device``."""
+    ``normal * 0.02``), in its order (sorted keys at every level:
+    ``cache`` before ``tokens``, ``frames``, ``patches``, ``tokens``), on
+    ``device``."""
     rng = np.random.default_rng(seed)
     dev = resolve_device(device)
 
     def make(spec):
+        if isinstance(spec, dict):
+            return {k: make(spec[k]) for k in sorted(spec)}
         if spec.dtype.is_floating_point:
             a = (rng.normal(size=spec.shape) * 0.02).astype(np.float32)
         else:
             a = rng.integers(0, cfg.vocab, spec.shape)
         return torch.as_tensor(a, dtype=spec.dtype, device=dev)
 
-    return {k: make(spec)
-            for k, spec in sorted(input_specs(cfg, shape).items())}
+    return make(input_specs(cfg, shape))
 
 
 # ---------------------------------------------------------------------------
@@ -200,39 +217,53 @@ def make_train_step(model: Model, optimizer: Optional[AdamW] = None,
     the sum divided by their count, then AdamW updates the parameters.
     Metrics: ``loss`` (the mean over microbatches) and ``grad_norm_sq``,
     as 0-dim tensors.  The step returns new parameter tensors; ``params``
-    are read, not written.
+    are read, not written, but under ``REPRO_OPTS=donate`` (JAX's dry
+    run donates them): then AdamW writes the new values into ``params``
+    and the moments in place (``AdamW.update_``) and returns them.
     """
     optimizer = optimizer or AdamW()
     n_mb = microbatches or model.cfg.microbatches
 
     def train_step(params, opt_state: AdamWState, batch):
         grads, losses = accumulate_grads(model, params, batch, n_mb)
-        updates, opt_state = optimizer.update(grads, opt_state, params)
-        params = apply_updates(params, updates)
-        metrics = {"loss": losses.mean(),
-                   "grad_norm_sq": sum(g.square().sum()
-                                       for g in tree_leaves(grads))}
-        return params, opt_state, metrics
+        return optimizer_step(optimizer, params, opt_state, grads, losses)
 
     return train_step
+
+
+def optimizer_step(optimizer: AdamW, params, opt_state: AdamWState, grads,
+                   losses: torch.Tensor):
+    """The train step after its gradients: AdamW's update (in place under
+    ``REPRO_OPTS=donate``) and the metrics."""
+    if opt_enabled("donate"):
+        opt_state = optimizer.update_(grads, opt_state, params)
+    else:
+        updates, opt_state = optimizer.update(grads, opt_state, params)
+        params = apply_updates(params, updates)
+    metrics = {"loss": losses.mean(),
+               "grad_norm_sq": sum(g.square().sum()
+                                   for g in tree_leaves(grads))}
+    return params, opt_state, metrics
 
 
 def accumulate_grads(model: Model, params, batch: Dict[str, torch.Tensor],
                      microbatches: int):
     """The gradient of ``model.loss`` over ``batch`` cut into
-    ``microbatches`` along its first axis: each microbatch's gradients
-    summed in f32, then divided by their count.  Returns ``(grads,
-    losses [microbatches])``; ``params`` are read, not written."""
+    ``microbatches`` along its first axis (``dist.split_rows``: each
+    rank cuts its own rows of a sharded batch): each microbatch's
+    gradients summed in f32 (bf16 under ``REPRO_OPTS=grad_bf16``), then
+    divided by their count.  Returns ``(grads, losses [microbatches])``;
+    ``params`` are read, not written."""
     live = tree_map(lambda p: p.detach().requires_grad_(), params)
     leaves = tree_leaves(live)
-    mbs = {k: v.reshape(microbatches, v.shape[0] // microbatches,
-                        *v.shape[1:]) for k, v in batch.items()}
-    acc = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
+    mbs = {k: split_rows(v, microbatches) for k, v in batch.items()}
+    acc_dtype = torch.bfloat16 if opt_enabled("grad_bf16") else torch.float32
+    acc = [torch.zeros_like(p, dtype=acc_dtype) for p in leaves]
     losses = []
     for i in range(microbatches):
         loss = model.loss(live, {k: v[i] for k, v in mbs.items()})
         for a, g in zip(acc, torch.autograd.grad(loss, leaves)):
-            a += g.float()
+            a += g.to(acc_dtype)
         losses.append(loss.detach())
     it = iter(a / microbatches for a in acc)
     return tree_map(lambda _: next(it), params), torch.stack(losses)

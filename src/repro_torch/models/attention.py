@@ -19,16 +19,23 @@ PyTorch under autograd, P kept in f32.  ``chunked_attention`` refuses an
 input that requires a gradient rather than return a result with no graph.
 
 GQA keeps the grouped layout: q heads are ``[G, R]`` (KV groups × q heads
-per group) and no KV head is repeated.  ``cross_attention`` (the decoder's
+per group) and no KV head is repeated.
+
+Under a mesh (DTensor inputs) the prefill attention is the flash kernel's
+custom op (its sharding rule keeps batch or head shards; on a CPU mesh its
+CPU kernel is ``flash_attention_ref``), and the others run on each rank's
+batch or KV-group shards (``dist.local_heads``).  ``cross_attention`` (the decoder's
 attention to the encoder's output, serving and training) is plain
 PyTorch, as the JAX function is an einsum outside any Pallas kernel.
 """
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.models import dist
 
 
 def pick_chunk(s: int, target: int) -> int:
@@ -60,6 +67,12 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             "training_attention")
     window = int(window) if causal else 0
     if q.device.type == "cpu":
+        if isinstance(q, DTensor):
+            # the custom op's CPU kernel is flash_attention_ref; its
+            # sharding rule keeps S and D whole
+            return torch.ops.repro_torch.flash_attention(
+                q.contiguous(), k.contiguous(), v.contiguous(), causal,
+                window)
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    q_chunk=q_chunk, k_chunk=k_chunk)
     return _flash.flash_attention(q.contiguous(), k.contiguous(),
@@ -70,6 +83,15 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, *, cache_len: int,
                      window: int = 0) -> torch.Tensor:
+    """``_decode_attention``, on each rank's shards under a mesh
+    (``dist.local_heads``)."""
+    return dist.local_heads(_decode_attention, q, k_cache, v_cache,
+                           cache_len=cache_len, window=window)
+
+
+def _decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                      v_cache: torch.Tensor, *, cache_len: int,
+                      window: int = 0) -> torch.Tensor:
     """Single-token decode.  q: ``[B, 1, G, R, D]``; caches ``[B, Smax, G,
     D]``.  Attends to positions ``[lo, cache_len)``, ``lo = cache_len -
     window`` for a positive window (gemma3 local layers), else 0.
@@ -93,6 +115,12 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 def cross_attention(q: torch.Tensor, k: torch.Tensor,
                     v: torch.Tensor) -> torch.Tensor:
+    """``_cross_attention``, on each rank's shards under a mesh."""
+    return dist.local_heads(_cross_attention, q, k, v)
+
+
+def _cross_attention(q: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor) -> torch.Tensor:
     """Full (non-causal) cross attention, the JAX ``cross_attention``.
     q: ``[B, Sq, G, R, D]``; k, v: ``[B, Skv, G, D]``.  Scores and softmax
     in f32 (float64 for float64 input); returns ``[B, Sq, G, R, D]`` in
@@ -123,6 +151,15 @@ def training_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        *, window: int = 0, causal: bool = True,
                        q_chunk: int = 1024, k_chunk: int = 1024
                        ) -> torch.Tensor:
+    """``_training_attention``, on each rank's shards under a mesh."""
+    return dist.local_heads(_training_attention, q, k, v, window=window,
+                           causal=causal, q_chunk=q_chunk, k_chunk=k_chunk)
+
+
+def _training_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, window: int = 0, causal: bool = True,
+                        q_chunk: int = 1024, k_chunk: int = 1024
+                        ) -> torch.Tensor:
     """The JAX model's ``chunked_attention`` (``repro/models/attention.py``)
     under autograd.  q: ``[B, Sq, G, R, D]``; k, v: ``[B, Skv, G, D]``;
     returns ``[B, Sq, G, R, D]`` in q's dtype.

@@ -2,19 +2,61 @@
 RMS norm, RoPE, the cross-entropy loss, and the weights of a model kept
 as the JAX pytree (``TreeModule``, ``draw_tree``).
 
-Copied from ``repro/models/common.py`` (which imports JAX).  The JAX
-package's mesh knobs and optimization flags (``logical_constraint``,
-``opt_enabled``) have no counterpart: the port runs on one card, with the
-flags' defaults (an f32 gradient accumulator, the layers cast per layer).
+Copied from ``repro/models/common.py`` (which imports JAX), with its
+sharding hint ``logical_constraint`` (resolved by ``launch/sharding.py``
+under ``activation_rules``; the argument itself outside them) and its
+optimization flags ``opt_enabled`` (``REPRO_OPTS``).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
+import os
 from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
+
+from repro_torch.models import dist
+
+
+def serving(fn: Callable) -> Callable:
+    """Run ``fn`` under ``torch.inference_mode``, or ``torch.no_grad``
+    under ``activation_rules`` (views of DTensor parameters cannot be made
+    in inference mode)."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        from repro_torch.launch import sharding as shd   # on use: no cycle
+        with (torch.no_grad() if shd.active_mesh() is not None
+              else torch.inference_mode()):
+            return fn(*args, **kwargs)
+    return run
+
+
+def opt_enabled(flag: str) -> bool:
+    """Beyond-paper optimization flags, selected by the environment
+    (``REPRO_OPTS=bf16_stack,remat_dots,...``), as in the JAX package:
+    ``bf16_stack`` (cast the layer stacks to the compute dtype before the
+    layer loop, so FSDP gathers move bf16), ``remat_dots`` (the
+    checkpoint saves product outputs instead of recomputing them),
+    ``grad_bf16`` (a bf16 gradient accumulator), ``moe_local`` (MoE
+    capacity per data shard: dispatch stays shard-local), ``seq_shard``
+    (a sequence-sharded residual stream); the dry run's own
+    ``serve_bf16``, ``donate``, ``cache_seq_shard`` and
+    ``graph_bf16_msgs``."""
+    return flag in os.environ.get("REPRO_OPTS", "").split(",")
+
+
+def logical_constraint(x: torch.Tensor, *names: Optional[str]):
+    """Annotate an activation's layout with logical axis names, resolved
+    to mesh axes by ``launch/sharding.py``'s rules; ``x`` itself when no
+    rules are active or ``x`` is a plain tensor (one card)."""
+    from repro_torch.launch import sharding as shd   # on use: no cycle
+    return shd.constrain(x, names)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,7 +186,24 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Token-mean cross entropy: the logits in f32 (float64 stays float64),
     ``logsumexp`` minus the gold logit, averaged over the tokens (over
-    ``mask``'s weight when given, at least 1)."""
+    ``mask``'s weight when given, at least 1).
+
+    Vocab-sharded DTensor logits are gathered over the vocab (each rank
+    keeping its batch rows), the loss summed on each rank's rows and the
+    sums added over the data shards: DTensor has no working strategy for
+    the gold logit's gather on a sharded vocab."""
+    if isinstance(logits, DTensor):
+        mesh = logits.device_mesh
+        local, pl = dist.batch_local(logits)
+        lab = dist.batch_local(labels)[0]
+        if mask is None:
+            num = cross_entropy_sum(local, lab)
+            den = float(math.prod(logits.shape[:-1]))
+            return dist.partial_sum(num, pl, mesh) / den
+        m = dist.batch_local(mask)[0]
+        num = dist.partial_sum(cross_entropy_sum(local, lab, m), pl, mesh)
+        den = dist.partial_sum(m.to(num.dtype).sum(), pl, mesh)
+        return num / den.clamp_min(1.0)
     logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels[..., None].long()).squeeze(-1)
@@ -153,6 +212,44 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
         mask = mask.to(nll.dtype)
         return (nll * mask).sum() / mask.sum().clamp_min(1.0)
     return nll.mean()
+
+
+def cross_entropy_sum(logits: torch.Tensor, labels: torch.Tensor,
+                      mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The summed (masked) token losses of plain tensors."""
+    logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels[..., None].long()).squeeze(-1)
+    nll = logz - gold
+    if mask is not None:
+        nll = nll * mask.to(nll.dtype)
+    return nll.sum()
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Keep the outputs of products without batch dims (JAX's
+    ``dots_with_no_batch_dims_saveable``): ``x @ W`` lowers to ``mm``."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def layer_weight(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A layer's weight cast to ``dtype`` (a no-op when it is already)
+    and, under a mesh, gathered over the data axes
+    (``dist.fsdp_gather``)."""
+    return dist.fsdp_gather(w.to(dtype))
+
+
+def remat(fn: Callable, *args, save_dots: bool = False):
+    """``fn(*args)`` checkpointed (JAX's ``jax.checkpoint``): nothing
+    saved but the inputs (``nothing_saveable``), or with ``save_dots`` the
+    outputs of the products too (``remat_dots``)."""
+    if not save_dots:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=lambda: create_selective_checkpoint_contexts(
+                          _save_dots))
 
 
 # ---------------------------------------------------------------------------
@@ -172,10 +269,13 @@ def draw_tree(spec: Sequence[LeafSpec], generator: torch.Generator,
               ) -> Dict[str, object]:
     """The nested dict of ``spec``'s leaves, each drawn in f32 from
     ``generator`` (in ``spec``'s order) and cast to ``dtype(path)`` on
-    ``device``.  The numbers are the generator's, not JAX's."""
+    ``device``.  The numbers are the generator's, not JAX's; on the
+    ``meta`` device nothing is drawn (the shapes alone)."""
     tree: Dict[str, object] = {}
     for path, shape, (kind, value) in spec:
-        if kind == "normal":
+        if device.type == "meta":                  # shapes only
+            w = torch.empty(shape, dtype=dtype(path), device=device)
+        elif kind == "normal":
             w = torch.randn(shape, generator=generator, dtype=torch.float32,
                             device=generator.device)
             w = w.mul_(1.0 / math.sqrt(max(value, 1))).to(device,
@@ -193,9 +293,13 @@ def draw_tree(spec: Sequence[LeafSpec], generator: torch.Generator,
 def embed_tokens(params: Dict[str, object], tokens: torch.Tensor,
                  dtype: torch.dtype) -> torch.Tensor:
     """The rows of ``params["embed"]`` at ``tokens``, cast to ``dtype``
-    (JAX's ``take(...).astype``; these families do not scale them)."""
+    (JAX's ``take(...).astype``; these families do not scale them), hinted
+    ``(batch, seq, None)``: JAX gives no hint here, and DTensor would
+    carry the table's layout (its model dim sharded over data) into the
+    residual stream."""
     embed = params["embed"]
-    return embed[tokens.to(embed.device).long()].to(dtype)
+    x = dist.embed_lookup(embed, tokens.to(embed.device).long(), dtype)
+    return logical_constraint(x, "batch", "seq", None)
 
 
 def tied_logits(params: Dict[str, object], cfg: ArchConfig,
@@ -203,7 +307,8 @@ def tied_logits(params: Dict[str, object], cfg: ArchConfig,
     """The final norm (its scale in the parameter dtype), then the
     embedding's transpose as the head, in ``x``'s dtype."""
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return x @ params["embed"].t().to(x.dtype)
+    head = dist.fsdp_gather(params["embed"].to(x.dtype)).t()
+    return logical_constraint(x @ head, "batch", None, "vocab")
 
 
 class TreeModule(nn.Module):

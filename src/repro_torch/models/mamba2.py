@@ -33,7 +33,9 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import (ArchConfig, LeafSpec, einsum, rms_norm,
+from repro_torch.models import dist
+from repro_torch.models.common import (ArchConfig, LeafSpec, einsum,
+                                       logical_constraint, rms_norm,
                                        work_dtype)
 
 HEAD_DIM = 64  # mamba2 P (headdim)
@@ -187,13 +189,37 @@ def mamba_block(x: torch.Tensor, lp: Dict[str, torch.Tensor],
     ``return_state``, also returns the new ``(conv_tail, ssd)``.  In a
     step everything after ``ssd_step`` is promoted to its f32 output, as
     in JAX (the caller casts the block's output back)."""
-    bsz, s, d = x.shape
-    di = cfg.ssm_expand * d
-    n = cfg.ssm_state
-    h = di // HEAD_DIM
-
     hidden = rms_norm(x, lp["norm"], cfg.norm_eps)
     zxbcdt = hidden @ lp["in_proj"]
+    # under a mesh the mixer runs on each rank's batch rows, whole
+    # (DTensor folds the sharded head dims of the SSD's einsums into
+    # layouts its products cannot take): an explicit replication over the
+    # model axis, ROADMAP.md Queue 3
+    zl, pl = dist.batch_local(zxbcdt)
+    w = {k: dist.replicated_local(lp[k], pl)
+         for k in ("conv_w", "dt_bias", "a_log", "d_skip", "ssm_norm")}
+    st = None if state is None else tuple(dist.batch_local(t)[0]
+                                          for t in state)
+    y, new_state = _mixer(zl, w, cfg, chunk, st)
+    mesh = getattr(zxbcdt, "device_mesh", None)
+    y = dist.rebuild(y, pl, mesh)
+    out = logical_constraint(x + y @ lp["out_proj"].to(y.dtype), "batch",
+                             "seq", None)
+    if return_state or state is not None:
+        return out, tuple(dist.rebuild(t, pl, mesh) for t in new_state)
+    return out
+
+
+def _mixer(zxbcdt: torch.Tensor, lp: Dict[str, torch.Tensor],
+           cfg: ArchConfig, chunk: int,
+           state: Optional[Tuple[torch.Tensor, torch.Tensor]]):
+    """The block between its projections on plain tensors: the causal
+    conv, the SSD (chunked, or one step from ``state``), the skip and the
+    gated norm.  Returns ``(y [B, S, di], (conv_tail, ssd state))``."""
+    bsz, s = zxbcdt.shape[:2]
+    n = cfg.ssm_state
+    di = cfg.ssm_expand * cfg.d_model
+    h = di // HEAD_DIM
     z, xbc, dt = torch.split(zxbcdt, [di, di + 2 * n, h], dim=-1)
 
     if state is None:
@@ -209,7 +235,7 @@ def mamba_block(x: torch.Tensor, lp: Dict[str, torch.Tensor],
     # jax.nn.softplus is logaddexp(x, 0) (F.softplus switches to x past 20)
     dt = dt + lp["dt_bias"]
     dt = torch.logaddexp(dt, torch.zeros_like(dt))          # [B, S, H]
-    wd = work_dtype(x.dtype)
+    wd = work_dtype(zxbcdt.dtype)
     a = -torch.exp(lp["a_log"].to(wd))                     # [H]
     a_log = dt.to(wd) * a                                  # [B, S, H] ≤ 0
     x_scaled = xs * dt[..., None].to(xs.dtype)
@@ -223,8 +249,5 @@ def mamba_block(x: torch.Tensor, lp: Dict[str, torch.Tensor],
 
     y = y + xs * lp["d_skip"][None, None, :, None]
     y = y.reshape(bsz, -1, di)
-    y = rms_norm(y * silu(z), lp["ssm_norm"], cfg.norm_eps)
-    out = x + y @ lp["out_proj"].to(y.dtype)
-    if return_state or state is not None:
-        return out, (new_conv_tail, final)
-    return out
+    return (rms_norm(y * silu(z), lp["ssm_norm"], cfg.norm_eps),
+            (new_conv_tail, final))

@@ -43,6 +43,13 @@ slots and positions, and ``loss_fn`` drops their outputs before the head.
 The SSM and hybrid families are ``xlstm.py`` and ``zamba.py``; zamba's
 shared attention block is this module's ``decoder_layer`` and
 ``decode_layer``.
+
+Under a mesh (``launch/sharding.py``'s ``activation_rules``, DTensor
+parameters by ``param_specs``) the same functions run on DTensors: the
+JAX model's ``logical_constraint`` hints, weights gathered over the data
+axes where they are used (``fsdp_gather``), heads split and merged by
+``split_last``/``merge_last``, the embedding by ``embed_lookup``; on one
+device every hint returns its argument.
 """
 from __future__ import annotations
 
@@ -53,11 +60,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
+from repro_torch.models.dist import (cache_tensor, embed_lookup,
+                                     fsdp_gather, merge_last, split_last)
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (ArchConfig, cross_entropy_loss,
-                                       dtype_of, rms_norm, rope)
+                                       dtype_of, logical_constraint,
+                                       layer_weight, opt_enabled, remat,
+                                       rms_norm, rope, serving)
 from repro_torch.models.moe import moe_ffn, moe_layer_params
 
 Cache = Dict[str, object]
@@ -106,13 +116,16 @@ def layer_windows(cfg: ArchConfig) -> np.ndarray:
 
 
 def _qkv(cfg: ArchConfig, lp: Dict[str, torch.Tensor], h: torch.Tensor):
-    """``_qkv``: q ``[B, S, G, R, hd]``, k and v ``[B, S, G, hd]``."""
+    """``_qkv``: q ``[B, S, G, R, hd]``, k and v ``[B, S, G, hd]``, each
+    product hinted ``(batch, None, heads)``."""
     b, s, _ = h.shape
     g, hd = cfg.n_kv_heads, cfg.hd
     r = cfg.n_heads // g
-    return ((h @ lp["wq"]).reshape(b, s, g, r, hd),
-            (h @ lp["wk"]).reshape(b, s, g, hd),
-            (h @ lp["wv"]).reshape(b, s, g, hd))
+    q = logical_constraint(h @ lp["wq"], "batch", None, "heads")
+    k = logical_constraint(h @ lp["wk"], "batch", None, "heads")
+    v = logical_constraint(h @ lp["wv"], "batch", None, "heads")
+    return (split_last(q, (b, s, g, r, hd)), split_last(k, (b, s, g, hd)),
+            split_last(v, (b, s, g, hd)))
 
 
 def _ffn(cfg: ArchConfig, lp: Dict[str, torch.Tensor],
@@ -121,7 +134,8 @@ def _ffn(cfg: ArchConfig, lp: Dict[str, torch.Tensor],
     ``_ffn`` (SwiGLU)."""
     if cfg.is_moe:
         return moe_ffn(h, lp, cfg)
-    return (F.silu(h @ lp["w_gate"]) * (h @ lp["w_up"])) @ lp["w_down"]
+    inter = F.silu(h @ lp["w_gate"]) * (h @ lp["w_up"])
+    return logical_constraint(inter, "batch", None, "ffn") @ lp["w_down"]
 
 
 def cross_kv(cfg: ArchConfig, lp: Dict[str, torch.Tensor],
@@ -130,8 +144,8 @@ def cross_kv(cfg: ArchConfig, lp: Dict[str, torch.Tensor],
     encoder's output ``[B, Senc, d]``."""
     b, se, _ = enc_out.shape
     g, hd = cfg.n_kv_heads, cfg.hd
-    return ((enc_out @ lp["wk_x"]).reshape(b, se, g, hd),
-            (enc_out @ lp["wv_x"]).reshape(b, se, g, hd))
+    return (split_last(enc_out @ lp["wk_x"], (b, se, g, hd)),
+            split_last(enc_out @ lp["wv_x"], (b, se, g, hd)))
 
 
 def _cross(cfg: ArchConfig, lp: Dict[str, torch.Tensor], x: torch.Tensor,
@@ -141,9 +155,9 @@ def _cross(cfg: ArchConfig, lp: Dict[str, torch.Tensor], x: torch.Tensor,
     b, s, _ = x.shape
     g = cfg.n_kv_heads
     h = rms_norm(x, lp["norm_x"], cfg.norm_eps)
-    qx = (h @ lp["wq_x"]).reshape(b, s, g, cfg.n_heads // g, cfg.hd)
+    qx = split_last(h @ lp["wq_x"], (b, s, g, cfg.n_heads // g, cfg.hd))
     o = attn.cross_attention(qx, xk, xv)
-    return x + o.reshape(b, s, -1) @ lp["wo_x"]
+    return x + merge_last(o, (b, s, cfg.n_heads * cfg.hd)) @ lp["wo_x"]
 
 
 def decoder_layer(cfg: ArchConfig, lp: Dict[str, torch.Tensor],
@@ -165,11 +179,12 @@ def decoder_layer(cfg: ArchConfig, lp: Dict[str, torch.Tensor],
     o = attention(q, k, v, window=window, causal=causal,
                   q_chunk=attn.pick_chunk(s, 2048),
                   k_chunk=attn.pick_chunk(s, 1024))
-    x = x + o.reshape(b, s, cfg.n_heads * cfg.hd) @ lp["wo"]
+    x = x + merge_last(o, (b, s, cfg.n_heads * cfg.hd)) @ lp["wo"]
+    x = logical_constraint(x, "batch", "seq", None)
     if enc_kv is not None:
-        x = _cross(cfg, lp, x, *enc_kv)
+        x = _stream(_cross(cfg, lp, x, *enc_kv))
     x = x + _ffn(cfg, lp, rms_norm(x, lp["norm2"], cfg.norm_eps))
-    return x, k, v
+    return logical_constraint(x, "batch", "seq", None), k, v
 
 
 def decode_layer(cfg: ArchConfig, lp: Dict[str, torch.Tensor],
@@ -197,6 +212,14 @@ def decode_layer(cfg: ArchConfig, lp: Dict[str, torch.Tensor],
     return x + _ffn(cfg, lp, rms_norm(x, lp["norm2"], cfg.norm_eps))
 
 
+def _stream(x: torch.Tensor) -> torch.Tensor:
+    """The residual stream hinted ``(batch, seq, None)`` where JAX gives no
+    hint (the embeddings, a front end's projection, the cross block's
+    output): DTensor would carry a weight's layout into the stream, or
+    shard it over S."""
+    return logical_constraint(x, "batch", "seq", None)
+
+
 def _weight(shape, dtype, device) -> nn.Parameter:
     return nn.Parameter(torch.zeros(shape, dtype=dtype, device=device),
                         requires_grad=False)
@@ -219,8 +242,8 @@ class DecoderLayer(nn.Module):
 
     @property
     def weights(self) -> Dict[str, torch.Tensor]:
-        return {name: getattr(self, name) for name in layer_param_shapes(
-            self.cfg, self.cross)}
+        return {name: fsdp_gather(getattr(self, name))
+                for name in layer_param_shapes(self.cfg, self.cross)}
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 enc_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
@@ -284,7 +307,8 @@ class Transformer(nn.Module):
         tensor: no copy to the card per call."""
         scale = torch.tensor(math.sqrt(self.cfg.d_model),
                              dtype=self.compute_dtype)
-        return self.embed[tokens.to(self.device)] * scale
+        return _stream(embed_lookup(self.embed, tokens.to(self.device),
+                                    self.compute_dtype) * scale)
 
     def embed_inputs(self, batch: Dict[str, torch.Tensor]
                      ) -> Tuple[torch.Tensor, int]:
@@ -294,14 +318,15 @@ class Transformer(nn.Module):
         x = self.embed_tokens(batch["tokens"])
         if self.cfg.frontend != "vision" or "patches" not in batch:
             return x, 0
-        front = batch["patches"].to(self.device, self.compute_dtype) \
-            @ self.frontend_proj
-        return torch.cat([front, x], dim=1), front.shape[1]
+        front = _stream(batch["patches"].to(self.device, self.compute_dtype)
+                        @ fsdp_gather(self.frontend_proj))
+        return _stream(torch.cat([front, x], dim=1)), front.shape[1]
 
     def encode(self, frames: torch.Tensor) -> torch.Tensor:
         """``_encode``: ``frames [B, Senc, d] @ frontend_proj``, the
         encoder's non-causal layers, then ``enc_norm``."""
-        x = frames.to(self.device, self.compute_dtype) @ self.frontend_proj
+        x = _stream(frames.to(self.device, self.compute_dtype)
+                    @ fsdp_gather(self.frontend_proj))
         positions = torch.arange(x.shape[1], device=self.device)[None]
         for layer in self.encoder:
             x = layer(x, positions)[0]
@@ -311,7 +336,8 @@ class Transformer(nn.Module):
         """``_lm_logits``: final norm, then the head, in ``x``'s dtype."""
         x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
         head = self.embed.t() if self.cfg.tie_embeddings else self.lm_head
-        return x @ head
+        return logical_constraint(x @ fsdp_gather(head), "batch", None,
+                                  "vocab")
 
 
 def _is_norm(name: str) -> bool:
@@ -341,23 +367,24 @@ def init_params(model: Transformer, generator: torch.Generator) -> None:
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                device: torch.device, enc_len: int = 0) -> Cache:
-    """KV caches ``[L, B, max_len, G, hd]`` in the compute dtype, zeroed,
+    """KV caches ``[L, B, max_len, G, hd]`` in the compute dtype, zeroed
+    (DTensors by ``sharding.cache_specs`` under ``activation_rules``),
     and ``len`` (a Python int); an encoder-decoder config given
     ``enc_len`` adds the cross caches ``xk``, ``xv`` ``[L, B, enc_len, G,
     hd]``."""
     cdt = dtype_of(cfg.compute_dtype)
     g, hd = cfg.n_kv_heads, cfg.hd
     shape = (cfg.n_layers, batch, max_len, g, hd)
-    cache = {"k": torch.zeros(shape, dtype=cdt, device=device),
-             "v": torch.zeros(shape, dtype=cdt, device=device), "len": 0}
+    cache = {"k": cache_tensor(shape, cdt, device),
+             "v": cache_tensor(shape, cdt, device), "len": 0}
     if cfg.enc_dec and enc_len:
         shape = (cfg.n_layers, batch, enc_len, g, hd)
-        cache["xk"] = torch.zeros(shape, dtype=cdt, device=device)
-        cache["xv"] = torch.zeros(shape, dtype=cdt, device=device)
+        cache["xk"] = cache_tensor(shape, cdt, device)
+        cache["xv"] = cache_tensor(shape, cdt, device)
     return cache
 
 
-@torch.inference_mode()
+@serving
 def prefill(model: Transformer, batch: Dict[str, torch.Tensor],
             max_len: Optional[int] = None) -> Tuple[torch.Tensor, Cache]:
     """Process the full prompt ``batch["tokens"] [B, S]`` (after a vision
@@ -386,7 +413,7 @@ def prefill(model: Transformer, batch: Dict[str, torch.Tensor],
     return model.logits(x[:, -1:])[:, 0], cache
 
 
-@torch.inference_mode()
+@serving
 def decode_step(model: Transformer, cache: Cache,
                 tokens: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
     """One decode step for ``tokens [B]``: returns (logits ``[B, vocab]``,
@@ -422,12 +449,15 @@ def init_train_params(cfg: ArchConfig, generator: torch.Generator,
     ``encoder`` stacked as ``layers``, ``enc_norm``).  Drawn as
     :func:`init_params` draws a module (the same order and numbers, before
     its cast to the compute dtype), so ``convert.lm_params`` loads them
-    into a serving module."""
+    into a serving module.  On the ``meta`` device nothing is drawn (the
+    generator may be None): the shapes alone."""
     check_supported(cfg)
     pdt = dtype_of(cfg.param_dtype)
     d = cfg.d_model
 
     def draw(shape, fan_in):
+        if device.type == "meta":                  # shapes only
+            return torch.empty(shape, dtype=pdt, device=device)
         w = torch.randn(shape, generator=generator, dtype=torch.float32,
                         device=generator.device)
         return w.mul_(1.0 / math.sqrt(max(fan_in, 1))).to(device, pdt)
@@ -472,7 +502,7 @@ def _train_layer(cfg: ArchConfig, window: int, causal: bool,
     the recompute's included."""
     cross = enc_out is not None
     lp = dict(zip(layer_param_shapes(cfg, cross),
-                  (w.to(x.dtype) for w in weights)))
+                  (layer_weight(w, x.dtype) for w in weights)))
     positions = torch.arange(x.shape[1], device=x.device)[None]
     enc_kv = cross_kv(cfg, lp, enc_out) if cross else None
     return decoder_layer(cfg, lp, x, positions, window,
@@ -485,10 +515,15 @@ def _train_stack(cfg: ArchConfig, stack: Params, x: torch.Tensor,
     """``_run_stack``: the layers of ``stack`` (weights stacked ``[L,
     ...]``) over ``x``, each checkpointed when ``cfg.remat``."""
     names = list(layer_param_shapes(cfg, enc_out is not None))
+    if opt_enabled("bf16_stack"):
+        # cast before the loop: an FSDP gather then moves bf16
+        cdt = dtype_of(cfg.compute_dtype)
+        stack = {k: stack[k].to(cdt) for k in names}
+    dots = opt_enabled("remat_dots")
     for i, window in enumerate(windows):
         args = (cfg, int(window), causal, x, enc_out,
                 *(stack[k][i] for k in names))
-        x = (checkpoint(_train_layer, *args, use_reentrant=False)
+        x = (remat(_train_layer, *args, save_dots=dots)
              if cfg.remat else _train_layer(*args))
     return x
 
@@ -509,17 +544,19 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor], *,
     tokens = batch["tokens"].to(dev).long()
     inputs, labels = tokens[:, :-1], tokens[:, 1:]
     # the scale rounded to the compute dtype, as JAX rounds a Python scalar
-    x = embed[inputs].to(cdt) * torch.tensor(math.sqrt(cfg.d_model),
-                                             dtype=cdt)
+    x = embed_lookup(embed, inputs, cdt) * torch.tensor(
+        math.sqrt(cfg.d_model), dtype=cdt)
+    x = _stream(x)
     n_front = 0
     if cfg.frontend == "vision" and "patches" in batch:
-        front = batch["patches"].to(dev, cdt) \
-            @ params["frontend_proj"].to(cdt)
-        x = torch.cat([front, x], dim=1)
+        front = _stream(batch["patches"].to(dev, cdt)
+                        @ layer_weight(params["frontend_proj"], cdt))
+        x = _stream(torch.cat([front, x], dim=1))
         n_front = front.shape[1]
     enc_out = None
     if cfg.enc_dec:
-        enc = batch["frames"].to(dev, cdt) @ params["frontend_proj"].to(cdt)
+        enc = _stream(batch["frames"].to(dev, cdt)
+                      @ layer_weight(params["frontend_proj"], cdt))
         enc = _train_stack(cfg, params["encoder"], enc,
                            np.zeros(cfg.n_layers, np.int32), causal=False)
         enc_out = rms_norm(enc, params["enc_norm"], cfg.norm_eps)
@@ -527,4 +564,6 @@ def loss_fn(params: Params, batch: Dict[str, torch.Tensor], *,
                      causal=True, enc_out=enc_out)
     x = rms_norm(x[:, n_front:], params["final_norm"], cfg.norm_eps)
     head = embed.t() if cfg.tie_embeddings else params["lm_head"]
-    return cross_entropy_loss(x @ head.to(x.dtype), labels)
+    logits = logical_constraint(x @ layer_weight(head, x.dtype), "batch",
+                                None, "vocab")
+    return cross_entropy_loss(logits, labels)

@@ -42,10 +42,13 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.models import dist
 from repro_torch.models.common import (ArchConfig, LeafSpec, TreeModule,
                                        cross_entropy_loss, draw_tree,
-                                       dtype_of, embed_tokens, rms_norm,
-                                       tied_logits, work_dtype)
+                                       dtype_of, embed_tokens, layer_weight,
+                                       logical_constraint,
+                                       rms_norm, serving, tied_logits,
+                                       work_dtype)
 from repro_torch.models.mamba2 import ssd
 
 Params = Dict[str, object]
@@ -235,13 +238,31 @@ def _gates_and_streams(x, lp, cfg: ArchConfig):
     return val.reshape(b, s, h, dh), q, k, ig, fg
 
 
+# the weights the cell reads (the rest act on the DTensor stream)
+_CELL = ("up_proj", "wq", "wk", "w_igate", "w_fgate", "b_igate", "b_fgate",
+         "r_igate", "r_fgate", "r_zgate")
+
+
 def xlstm_block(x, lp, cfg: ArchConfig, is_slstm: bool, state=None):
     """One xLSTM block; state-carrying when ``state`` is given (a step:
     the sLSTM carry, or the mLSTM ``{"C", "n"}``)."""
     b, s, _ = x.shape
     di = _proj_dim(cfg)
     hidden = rms_norm(x, lp["norm"], cfg.norm_eps)
-    v, q, k, ig, fg = _gates_and_streams(hidden, lp, cfg)
+    # under a mesh the cell runs on each rank's batch rows with its weights
+    # whole (an explicit replication over the model axis, ROADMAP.md
+    # Queue 3: DTensor cannot keep 4 heads apart over 16 ranks, nor fold
+    # them into the batch)
+    hl, pl = dist.batch_local(hidden)
+    mesh = getattr(hidden, "device_mesh", None)
+    if pl is not None:
+        lp = dict(lp, **{k: dist.replicated_local(lp[k], pl) for k in _CELL})
+        if state is not None:
+            state = (tuple(dist.batch_local(t)[0] for t in state)
+                     if is_slstm else {k: dist.batch_local(t)[0]
+                                       for k, t in state.items()})
+    b = hl.shape[0]
+    v, q, k, ig, fg = _gates_and_streams(hl, lp, cfg)
     if is_slstm:
         hval, new_state = _slstm_scan(v.reshape(b, s, di), ig, fg, lp,
                                       init=state)
@@ -251,16 +272,23 @@ def xlstm_block(x, lp, cfg: ArchConfig, is_slstm: bool, state=None):
         hval, new_state = _mlstm_step(v[:, 0], q[:, 0], k[:, 0], ig[:, 0],
                                       fg[:, 0], state)
         hval = hval[:, None]
-    hval = hval.reshape(b, s, di).to(x.dtype)
+    hval = dist.rebuild(hval.reshape(b, s, di).to(x.dtype), pl, mesh)
+    if pl is not None:
+        new_state = (tuple(dist.rebuild(t, pl, mesh) for t in new_state)
+                     if is_slstm else {k: dist.rebuild(t, pl, mesh)
+                                       for k, t in new_state.items()})
     o = torch.sigmoid(hidden @ lp["w_ogate"])
-    y = rms_norm(hval * o, lp["mix_norm"], cfg.norm_eps)
-    return x + y @ lp["down_proj"], new_state
+    # rows whole before the norm: DTensor would shard the norm over S
+    y = rms_norm(logical_constraint(hval * o, "batch", "seq", None),
+                 lp["mix_norm"], cfg.norm_eps)
+    return (logical_constraint(x + y @ lp["down_proj"], "batch", "seq", None),
+            new_state)
 
 
 def _layer(params: Params, i: int, dtype: torch.dtype):
     """Layer ``i``'s weights, cast to ``dtype`` (a no-op for the serving
     module's, stored in it)."""
-    return {k: w[i].to(dtype) for k, w in params["layers"].items()}
+    return {k: layer_weight(w[i], dtype) for k, w in params["layers"].items()}
 
 
 def _layers(params: Params, cfg: ArchConfig):
@@ -304,19 +332,19 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     h = cfg.n_heads
     dh = di // h
     L = cfg.n_layers
-    kw = dict(dtype=work_dtype(dtype_of(cfg.compute_dtype)), device=device)
+    wd = work_dtype(dtype_of(cfg.compute_dtype))
     return {
-        "mC": torch.zeros((L, batch, h, dh, dh), **kw),
-        "mn": torch.zeros((L, batch, h, dh), **kw),
-        "sc": torch.zeros((L, batch, h, dh), **kw),
-        "sn": torch.zeros((L, batch, h, dh), **kw),
-        "sm": torch.full((L, batch, h), -1e30, **kw),
-        "sh": torch.zeros((L, batch, h, dh), **kw),
+        "mC": dist.cache_tensor((L, batch, h, dh, dh), wd, device),
+        "mn": dist.cache_tensor((L, batch, h, dh), wd, device),
+        "sc": dist.cache_tensor((L, batch, h, dh), wd, device),
+        "sn": dist.cache_tensor((L, batch, h, dh), wd, device),
+        "sm": dist.cache_tensor((L, batch, h), wd, device, -1e30),
+        "sh": dist.cache_tensor((L, batch, h, dh), wd, device),
         "len": 0,
     }
 
 
-@torch.inference_mode()
+@serving
 def prefill(model: TreeModule, batch: Dict[str, torch.Tensor],
             max_len: Optional[int] = None) -> Tuple[torch.Tensor, Cache]:
     """The prompt ``batch["tokens"] [B, S]`` replayed token by token
@@ -332,7 +360,7 @@ def prefill(model: TreeModule, batch: Dict[str, torch.Tensor],
     return tied_logits(params, cfg, x)[:, 0], cache
 
 
-@torch.inference_mode()
+@serving
 def decode_step(model: TreeModule, cache: Cache,
                 tokens: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
     """One decode step for ``tokens [B]``: (logits ``[B, vocab]``, the
@@ -347,7 +375,8 @@ def _train_layer(cfg: ArchConfig, is_slstm: bool, x: torch.Tensor,
     """One block in the parallel form on one layer's weights (in
     ``layer_param_shapes`` order), each cast to ``x``'s dtype inside the
     checkpointed region."""
-    lp = dict(zip(layer_param_shapes(cfg), (w.to(x.dtype) for w in weights)))
+    lp = dict(zip(layer_param_shapes(cfg),
+                  (layer_weight(w, x.dtype) for w in weights)))
     return xlstm_block(x, lp, cfg, is_slstm)[0].to(x.dtype)
 
 

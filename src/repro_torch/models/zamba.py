@@ -34,11 +34,14 @@ from typing import Dict, List, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.models import dist
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2 as mb
 from repro_torch.models.common import (ArchConfig, LeafSpec, TreeModule,
                                        cross_entropy_loss, draw_tree,
-                                       dtype_of, embed_tokens, tied_logits,
+                                       dtype_of, embed_tokens, layer_weight,
+                                       serving,
+                                       logical_constraint, tied_logits,
                                        work_dtype)
 from repro_torch.models.transformer import decode_layer, decoder_layer
 
@@ -104,11 +107,12 @@ def param_count(cfg: ArchConfig) -> int:
 def _mamba(params: Params, i: int, dtype: torch.dtype):
     """Mamba layer ``i``'s weights cast to ``dtype`` (a no-op for the
     serving module's)."""
-    return {k: w[i].to(dtype) for k, w in params["mamba"].items()}
+    return {k: layer_weight(w[i], dtype) for k, w in params["mamba"].items()}
 
 
 def _shared(params: Params, dtype: torch.dtype):
-    return {k: w.to(dtype) for k, w in params["shared_attn"].items()}
+    return {k: layer_weight(w, dtype)
+            for k, w in params["shared_attn"].items()}
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
@@ -117,21 +121,21 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
     block's ``k``, ``v [n_groups, B, max_len, G, hd]``, zeroed in the
     compute dtype, and ``len`` (a Python int)."""
     del enc_len
-    kw = dict(dtype=dtype_of(cfg.compute_dtype), device=device)
+    cdt = dtype_of(cfg.compute_dtype)
     di = cfg.ssm_expand * cfg.d_model
     n = cfg.ssm_state
     kv = (n_groups(cfg), batch, max_len, cfg.n_kv_heads, cfg.hd)
     return {
-        "conv": torch.zeros((cfg.n_layers, batch, cfg.ssm_conv - 1,
-                             di + 2 * n), **kw),
-        "ssd": torch.zeros((cfg.n_layers, batch, di // mb.HEAD_DIM,
-                            mb.HEAD_DIM, n), **kw),
-        "k": torch.zeros(kv, **kw), "v": torch.zeros(kv, **kw),
+        "conv": dist.cache_tensor((cfg.n_layers, batch, cfg.ssm_conv - 1,
+                              di + 2 * n), cdt, device),
+        "ssd": dist.cache_tensor((cfg.n_layers, batch, di // mb.HEAD_DIM,
+                             mb.HEAD_DIM, n), cdt, device),
+        "k": dist.cache_tensor(kv, cdt, device), "v": dist.cache_tensor(kv, cdt, device),
         "len": 0,
     }
 
 
-@torch.inference_mode()
+@serving
 def prefill(model: TreeModule, batch: Dict[str, torch.Tensor],
             max_len: Optional[int] = None) -> Tuple[torch.Tensor, Cache]:
     """The prompt ``batch["tokens"] [B, S]`` in parallel: each mamba
@@ -156,12 +160,13 @@ def prefill(model: TreeModule, batch: Dict[str, torch.Tensor],
             cache["conv"][i], cache["ssd"][i] = conv_t, ssd_st
         x, k, v = decoder_layer(cfg, shared, x, positions, 0,
                                 attn.chunked_attention)
+        x = logical_constraint(x, "batch", "seq", None)
         cache["k"][gi, :, :s], cache["v"][gi, :, :s] = k, v
     cache["len"] = s
     return tied_logits(params, cfg, x[:, -1:])[:, 0], cache
 
 
-@torch.inference_mode()
+@serving
 def decode_step(model: TreeModule, cache: Cache,
                 tokens: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
     """One decode step for ``tokens [B]``: (logits ``[B, vocab]``, the
@@ -196,13 +201,14 @@ def decode_step(model: TreeModule, cache: Cache,
 def _train_mamba(cfg: ArchConfig, chunk: int, x: torch.Tensor,
                  *weights: torch.Tensor) -> torch.Tensor:
     lp = dict(zip(mb.mamba_param_shapes(cfg),
-                  (w.to(x.dtype) for w in weights)))
+                  (layer_weight(w, x.dtype) for w in weights)))
     return mb.mamba_block(x, lp, cfg, chunk=chunk).to(x.dtype)
 
 
 def _train_shared(cfg: ArchConfig, attention, x: torch.Tensor,
                   *weights: torch.Tensor) -> torch.Tensor:
-    lp = dict(zip(shared_param_shapes(cfg), (w.to(x.dtype) for w in weights)))
+    lp = dict(zip(shared_param_shapes(cfg),
+                  (layer_weight(w, x.dtype) for w in weights)))
     positions = torch.arange(x.shape[1], device=x.device)[None]
     return decoder_layer(cfg, lp, x, positions, 0, attention)[0]
 
@@ -232,6 +238,7 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
                     *(params["mamba"][k][i] for k in mnames))
         x = run(_train_shared, cfg, attention, x,
                 *(params["shared_attn"][k] for k in snames))
+        x = logical_constraint(x, "batch", "seq", None)
     return tied_logits(params, cfg, x)
 
 

@@ -64,33 +64,64 @@ class AdamW:
         warm = torch.clamp_max((step + 1) / max(self.warmup_steps, 1), 1.0)
         return self.learning_rate * warm
 
+    def _terms(self, grads: Tree, state: AdamWState) -> "_Terms":
+        """The step's terms shared by every leaf."""
+        scale = None
+        if self.clip_norm is not None:
+            scale = torch.clamp_max(
+                self.clip_norm / torch.clamp_min(global_norm(grads), 1e-9),
+                1.0)
+        step = state.step + 1
+        stepf = step.float()
+        bc1 = 1 - torch.tensor(self.b1, device=stepf.device) ** stepf
+        bc2 = 1 - torch.tensor(self.b2, device=stepf.device) ** stepf
+        return _Terms(scale, step, bc1, bc2, self._lr(step))
+
+    def _leaf(self, t: "_Terms", g: torch.Tensor, m: torch.Tensor,
+              n: torch.Tensor, p: torch.Tensor):
+        """One leaf's new moments and its update ``(m, n, u)``."""
+        if t.scale is not None:
+            g = g * t.scale
+        m = self.b1 * m + (1 - self.b1) * g
+        n = self.b2 * n + (1 - self.b2) * g.square()
+        u = -t.lr * ((m / t.bc1) / (torch.sqrt(n / t.bc2) + self.eps)
+                     + self.weight_decay * p)
+        return m, n, u
+
     @torch.no_grad()
     def update(self, grads: Tree, state: AdamWState,
                params: Tree) -> Tuple[Tree, AdamWState]:
         """``(updates, new state)`` for gradients ``grads``."""
-        if self.clip_norm is not None:
-            g_norm = global_norm(grads)
-            scale = torch.clamp_max(
-                self.clip_norm / torch.clamp_min(g_norm, 1e-9), 1.0)
-            grads = tree_map(lambda g: g * scale, grads)
-        step = state.step + 1
-        b1, b2 = self.b1, self.b2
-        mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g, state.mu, grads)
-        nu = tree_map(lambda n, g: b2 * n + (1 - b2) * g.square(),
-                      state.nu, grads)
-        stepf = step.float()
-        bc1 = 1 - torch.tensor(b1, device=stepf.device) ** stepf
-        bc2 = 1 - torch.tensor(b2, device=stepf.device) ** stepf
-        lr = self._lr(step)
+        t = self._terms(grads, state)
+        out = tree_map(lambda g, m, n, p: self._leaf(t, g, m, n, p),
+                       grads, state.mu, state.nu, params)
+        mu, nu, updates = (tree_map(lambda o: o[i], out) for i in range(3))
+        return updates, AdamWState(step=t.step, mu=mu, nu=nu)
 
-        def upd(m, n, p):
-            mhat = m / bc1
-            nhat = n / bc2
-            return -lr * (mhat / (torch.sqrt(nhat) + self.eps)
-                          + self.weight_decay * p)
+    @torch.no_grad()
+    def update_(self, grads: Tree, state: AdamWState,
+                params: Tree) -> AdamWState:
+        """``update`` then ``apply_updates``, written into ``params`` and
+        the state's moments leaf by leaf (the arrays donated, as JAX's
+        ``donate_argnums``): the same operations, so the same bits, with
+        one leaf's temporaries alive at a time.  Returns the new state
+        (its moments the same tensors)."""
+        t = self._terms(grads, state)
+        for g, m, n, p in zip(tree_leaves(grads), tree_leaves(state.mu),
+                              tree_leaves(state.nu), tree_leaves(params)):
+            m_new, n_new, u = self._leaf(t, g, m, n, p)
+            m.copy_(m_new)
+            n.copy_(n_new)
+            p.copy_((p + u).to(p.dtype))
+        return AdamWState(step=t.step, mu=state.mu, nu=state.nu)
 
-        updates = tree_map(upd, mu, nu, params)
-        return updates, AdamWState(step=step, mu=mu, nu=nu)
+
+class _Terms(NamedTuple):
+    scale: Optional[torch.Tensor]   # the clip's factor (None: no clip)
+    step: torch.Tensor              # the new step count
+    bc1: torch.Tensor               # the moments' bias corrections
+    bc2: torch.Tensor
+    lr: torch.Tensor                # the warmed-up learning rate
 
 
 @torch.no_grad()

@@ -149,8 +149,10 @@ def test_synth_batch_front_end_inputs_match_jax(name, kind):
     if jcfg.enc_dec:
         assert got["frames"].shape[1] == (TRAIN["seq"] if kind == "train"
                                           else 4096)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tapi.input_specs(port_cfg(jcfg), tapi.ShapeSpec("t", "decode", 8, 1))
+    # decode specs (item 15b): the cache JAX's init_cache(B, S) makes, no
+    # cross caches (an encoder's length is not a decode input)
+    dec = tapi.input_specs(port_cfg(jcfg), tapi.ShapeSpec("t", "decode", 8, 1))
+    assert sorted(dec["cache"]) == ["k", "len", "v"]
 
 
 # -- parameters ----------------------------------------------------------

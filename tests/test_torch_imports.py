@@ -55,7 +55,10 @@ def test_every_module_imports_without_jax_or_repro():
                  "configs.command_r_plus_104b",
                  "configs.seamless_m4t_large_v2", "configs.internvl2_26b",
                  "models.mamba2", "models.xlstm", "models.zamba",
-                 "configs.xlstm_125m", "configs.zamba2_2_7b"):
+                 "configs.xlstm_125m", "configs.zamba2_2_7b",
+                 "launch.mesh", "launch.sharding", "launch.dryrun",
+                 "launch.calculator", "launch.collectives",
+                 "launch.mesh_selftest"):
         assert f"repro_torch.{name}" in names
 
 

@@ -243,11 +243,13 @@ def test_unported_families_raise_naming_the_roadmap_item(monkeypatch):
     for kw in (dict(family="hybrid", ssm_state=16, attn_every=2),
                dict(family="ssm", slstm_every=2)):
         assert tapi.build(dataclasses.replace(base, **kw), "cpu").module
-    # what is still unported raises naming item 15 (now 15b): decode
-    # input specs and the production mesh
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tapi.input_specs(base, tapi.ShapeSpec("t", "decode", 8, 1))
-    with pytest.raises(NotImplementedError, match="item 15"):
+    # item 15b is ported: decode input specs hold the cache's specs, and
+    # the production mesh raises naming the world's size without 256 ranks
+    specs = tapi.input_specs(base, tapi.ShapeSpec("t", "decode", 8, 1))
+    assert specs["tokens"].shape == (1,)
+    assert specs["cache"]["k"].shape == (base.n_layers, 1, 8,
+                                         base.n_kv_heads, base.hd)
+    with pytest.raises(ValueError, match="needs 256 ranks; the world has 1"):
         ltrain.build_everything("tinyllama-1.1b", True, 2, 8, 1, 1e-3, True,
                                 "cpu")
     for kw in (dict(family="audio", enc_dec=True, frontend="audio"),
