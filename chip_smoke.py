@@ -34,7 +34,8 @@ Phases (any failed check exits non-zero; nothing is caught and passed over):
    run of the reference backend, within a fixed relative error (2e-6 and
    1e-6) with equal steps; the reference backend's own error is printed.
    The fused kernel must launch in every fused run and the scan kernel on
-   the path.  Then the fused backend with and without the direction vote,
+   the path; the BFS batch's TEPS (``bfs.teps``) beside its wall.  Then
+   the fused backend with and without the direction vote,
    timed in turns, and BFS and SSSP forced to pull, against plain push;
    Then the hybrid backend (``backend="hybrid"``, the split the planner
    picks) through the same entry points: BFS, SSSP and CC bit for bit with
@@ -81,6 +82,8 @@ Phases (any failed check exits non-zero; nothing is caught and passed over):
    ``BSPEngine``.  One card is enough: NCCL refuses two ranks on one
    card, so the wire between ranks is tested by the gloo tests on the CPU
    and by ``launch/hybrid_selftest.py --device cuda`` on several cards;
+   the sharded engine's ``superstep()`` hook (fused and hybrid; BFS and
+   PageRank stepped to the finish bit for bit ``execute``'s, ms a step);
    then ``[serve]`` (``serve_phase``): ``execute(chunk=2)`` on the fused
    and hybrid engines bit for bit against phase 3's resident BFS and SSSP
    runs with equal steps; one boundary's host costs; the continuous
@@ -128,14 +131,21 @@ Phases (any failed check exits non-zero; nothing is caught and passed over):
    then ``[tiered-dynamic]`` (``tiered_dynamic_phase``): the weighted
    RMAT20 and 5 batches of ``[dynamic]``'s stream with the payload in
    pinned host memory, a tiered
-   engine (one partition streamed) beside a resident one on the fused and
+   engine (one partition hot, one streamed) beside a resident one on the fused and
    reference backends: BFS bit for bit after every batch, SSSP, PageRank
    within ``pagerank_f32_bound``, warm BFS, a forced compaction that
    re-plans, ``hbm_bytes`` against the arena bytes, peak device memory
    below resident's, the hybrid refusing, the fused kernel launched on
    the hot partition and every window;
 5. the numpy oracles at RMAT12 on the card, all five algorithms, on the
-   fused and the hybrid backends;
+   fused and the hybrid backends; then ``[bc-exact]``
+   (``bc_exact_phase``): all-sources exact BC on the fused and hybrid
+   backends: RMAT9 bit for bit the per-source loop, RMAT15 over its 32,768
+   sources in chunks of 252 (wall, sources/s, supersteps, launches; the
+   first and the padded last chunk's rows bit for bit single-source runs
+   and within 1e-6 of float64; the two backends' totals against each
+   other), RMAT14 at JAX's default chunk 32, and the fused kernel's BC
+   kinds at Q=252;
 6. ``[segment_reduce]``: the sorted segment reduce through its entry point
    (``ops.segment_reduce_op``) on partition 0's sorted forward ``dst_ext``
    at RMAT20 / P=2 / HIGH with messages made from the seed, one row and
@@ -191,7 +201,7 @@ Phases (any failed check exits non-zero; nothing is caught and passed over):
    freed and printed (as before every LM phase): zamba2-2.7b (54 mamba2
    layers, the shared MHA block of 32 heads of 80 every 6) and
    xlstm-125m (12 layers, sLSTM every 4th) at full width and depth on the
-   same prompt: the flash kernel at D = 80, ``[4, 2048, 32, 1, 80]``
+   same prompt (xLSTM's first ``XLSTM_PROMPT`` tokens): the flash kernel at D = 80, ``[4, 2048, 32, 1, 80]``
    causal, against its plain version and timed (listed apart in the
    kernels' line), the parameter counts, zamba2's 9 flash launches a
    prefill, prefill and decode tok/s beside their bounds (xLSTM's prefill
@@ -199,7 +209,8 @@ Phases (any failed check exits non-zero; nothing is caught and passed over):
    zamba2 at bf16 and f32), zamba2 at B=1 in a 524,288-slot cache against
    a 2,080-slot one (every logit equal), f32 prefill logits against a
    float64 parallel forward (zamba2 at 6 layers), and training at a cut
-   (xlstm-125m at 4 layers, B=8, S=512; zamba2-2.7b at 6, B=8, S=2048:
+   (xlstm-125m at 4 layers, B=8, S=``XLSTM_TRAIN_SEQ``; zamba2-2.7b at
+   6, B=8, S=2048:
    the loss at init, bf16 against f32 gradients per leaf and layer, 2
    AdamW steps);
 8. ``[train]`` (``train_phase``): tinyllama-1.1b training at full width
@@ -215,7 +226,10 @@ Phases (any failed check exits non-zero; nothing is caught and passed over):
    2 layers with parameters by ``param_specs`` under ``activation_rules``
    against the plain step, and a full-depth prefill whose 22 flash
    launches go through the kernel's custom op, against the plain
-   prefill's logits; then six dry-run cells on fake CUDA tensors over a
+   prefill's logits; the mesh's sharded checkpoint restored onto the card
+   alone and the card's whole one onto the mesh
+   (``checkpoint.restore_resharded``), the leaves and each next step's
+   loss bit for bit; then six dry-run cells on fake CUDA tensors over a
    fake 256-rank process group (``launch/dryrun.py``).  The kernels line
    lists the mesh prefill's flash launches as ``flash_attention.mesh``.
 
@@ -343,6 +357,12 @@ KERNELS = {
 # [robust]'s two drills (their host work, the DynamicGraph builds and a
 # recovery's rebuild from base, grows with the graph: 183 s for the chaos
 # drill at RMAT20 on a slow host)
+BC_SCALE = 15             # [bc-exact]: RMAT15, 32,768 sources (RMAT16
+                          # took 185 s for the phase: PERF.md §4)
+BC_CHUNK = 252            # 131 chunks, the last 8 sources + 244 pads
+BC_SMALL = (9, 96)        # 512 sources against the sequential loop
+BC_SMALL_K = 128          # its hybrid split: the planner's would be all dense
+BC_DEFAULT = (14, 32)     # JAX's default chunk
 DYN_BATCHES = 5
 DYN_SCALE = 18
 ROBUST_ROUNDS = 2
@@ -378,6 +398,13 @@ F64_REL = 1e-3
 # shape's cache slots (src/repro/models/api.py)
 SSM_F64_LAYERS = 6
 SSM_LONG_SLOTS = 524288
+# [ssm]: xLSTM's served prompt and its training sequence, cut (from [lm]'s
+# 2048 and from 512) to keep the script within its time limit: its prefill
+# is the decode step replayed token by token (2048 steps took 41.1 s on a
+# slow host, and the decode-vs-prefill check replays 2079 more) and its
+# recurrent state is the same size at any length
+XLSTM_PROMPT = 512
+XLSTM_TRAIN_SEQ = 256
 # [ssm] training at f32 against float64 (B=1, S=256): max |diff| / max |g|
 # of any gradient leaf.  Measured on the CPU at the same cuts: 3.8e-3 for
 # xLSTM (its recurrences amplify f32 rounding), 1.1e-4 for zamba2.
@@ -535,14 +562,15 @@ def ptxas_report(build_log: str, cufilt=None):
     return [tuple(r) for r in rows]
 
 
-def kernel_inputs(kind, pg, blk, rng, device):
-    """Inputs of one kind at the main path's shapes: state made from the
-    seed with every branch of the message taken (frontier and not, +inf,
-    inactive, zero sigma); PageRank's inverse degrees from the graph."""
+def kernel_inputs(kind, pg, blk, rng, device, q=Q):
+    """Inputs of one kind at the main path's shapes (``q`` queries): state
+    made from the seed with every branch of the message taken (frontier
+    and not, +inf, inactive, zero sigma); PageRank's inverse degrees from
+    the graph."""
     import numpy as np
     import torch
 
-    shape = (Q, pg.num_parts, pg.v_max)
+    shape = (q, pg.num_parts, pg.v_max)
     levels = rng.choice(np.array([0, 1, 2, 3, np.inf], np.float32), shape)
     active = (rng.random(shape) < 0.3).astype(np.float32)
     consts = []
@@ -603,18 +631,19 @@ def sum_depth(blk) -> int:
     return blk.block_e // 128 + 5 + 4 + 1 + 2 * max_blocks_per_segment(blk) + 2
 
 
-def bound_ms(kind, pg, blk) -> float:
-    """Least time for one launch: bytes moved (topology once, each gathered
-    state array once, the accumulator once) over the memory rate, or the
-    message and reduce operations over the f32 rate, whichever is larger."""
+def bound_ms(kind, pg, blk, q=Q) -> float:
+    """Least time for one launch of ``q`` queries: bytes moved (topology
+    once, each gathered state array once, the accumulator once) over the
+    memory rate, or the message and reduce operations over the f32 rate,
+    whichever is larger."""
     from repro_torch.kernels.fused_superstep import KINDS
 
     spec = KINDS[kind]
     pl, e_pad = blk.src.shape
     topo = pl * e_pad * (12 + (4 if spec.use_weight else 0))
-    state = spec.num_gather * Q * pl * pg.v_max * 4
-    out = Q * pl * pg.seg_count * 4
-    ops = Q * pl * int(blk.mask.sum()) * 4
+    state = spec.num_gather * q * pl * pg.v_max * 4
+    out = q * pl * pg.seg_count * 4
+    ops = q * pl * int(blk.mask.sum()) * 4
     return 1e3 * max((topo + state + out) / HBM_BYTES_PER_S,
                      ops / F32_OPS_PER_S)
 
@@ -773,6 +802,339 @@ def within_f32_bound(got, exact, mag, depth) -> bool:
     """|got - exact| <= depth * 2^-24 * sum|terms| everywhere."""
     slack = (got.double() - exact).abs() - 1.01 * depth * UNIT_ROUNDOFF * mag
     return bool((slack <= 0).all())
+
+
+def fused_kind_check(kind, pg, blks, rng, dev, check, q=Q,
+                     tag="[kernel]"):
+    """One fused kernel kind against its plain version at ``q`` queries on
+    ``pg``'s block layout (``blks``: forward and reverse): min kinds bit
+    for bit, sum kinds within the kernel's f32 bound of float64; two
+    launches bit-equal, through the op and on the query-minor state; the
+    op, its copy, the kernel and the plain version timed.  Returns the
+    kernel's row (``ms``, ``plain_ms``, ``bound_ms``) and its max |err|
+    against the plain version."""
+    import torch
+
+    from repro_torch.kernels import fused_superstep as kfs
+    from repro_torch.kernels.ops import fused_superstep_op
+    from repro_torch.kernels.ref import fused_superstep_ref
+
+    spec = kfs.KINDS[kind]
+    d = "rev" if kind == "bc_bwd" else "fwd"
+    blk = blks[d]
+    x = kernel_inputs(kind, pg, blk, rng, dev, q)
+    dst_ext = torch.as_tensor(getattr(pg, d).dst_ext, dtype=torch.int64,
+                              device=dev)
+    msg = _edge_message(kind, pg.num_vertices)
+    weight = x["weight"] if spec.use_weight else None
+
+    def kernel():     # the op: the query-minor copy, then the kernel
+        return fused_superstep_op(
+            msg, x["vstate"], weight, x["scal"], x["src"], x["local"],
+            x["mask"], x["base"], dst_ext, num_segments=pg.seg_count,
+            combine=spec.combine, block_e=BLOCK_E)
+
+    def copy():
+        return kfs.query_minor_state(x["vstate"])
+
+    def kern(vt=copy()):
+        return kfs.fused_superstep(
+            kind, vt, x["scal"], x["src"], x["local"], x["mask"], weight,
+            x["base"], num_segments=pg.seg_count, block_e=BLOCK_E)
+
+    def plain(m=msg, dtype=torch.float32):
+        return fused_superstep_ref(
+            m, x["vstate"].to(dtype), None if weight is None
+            else weight.to(dtype), x["scal"].to(dtype), x["src"],
+            x["mask"], dst_ext, num_segments=pg.seg_count,
+            combine=spec.combine)
+
+    got, again, want = kernel(), kernel(), plain()
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    if spec.combine == "min":
+        check(torch.equal(got, want), f"{tag} {kind}: bit-equal to the "
+              f"plain version at Q={q} (max |err| {err})")
+    else:
+        exact = plain(dtype=torch.float64)
+        mag = plain(dataclasses.replace(
+            msg, fn=lambda *a, f=msg.fn: f(*a).abs()), torch.float64)
+        depth = sum_depth(blk)
+        slack = (got.double() - exact).abs() - (
+            1.01 * depth * UNIT_ROUNDOFF * mag)
+        plain_rel = max_rel_err(want.cpu(), exact.cpu())
+        kern_rel = max_rel_err(got.cpu(), exact.cpu())
+        check(bool((slack <= 0).all()),
+              f"{tag} {kind}: within its f32 bound ({depth} roundings x "
+              f"2^-24 x sum|msg|) of float64 at Q={q}; max rel err kernel "
+              f"{kern_rel:.3e}, plain f32 {plain_rel:.3e}; kernel vs plain "
+              f"max |err| {err}")
+        del exact, mag, slack
+    check(torch.equal(got, again) and torch.equal(got, kern()),
+          f"{tag} {kind}: two launches bit-equal, through the op and on the "
+          f"query-minor state")
+    ms = cuda_ms(kernel, 20)
+    plain_ms = cuda_ms(plain, 5)
+    copy_ms, kern_ms = cuda_ms(copy, 20), cuda_ms(kern, 20)
+    bms = bound_ms(kind, pg, blk, q)
+    log(f"{tag} {kind}: Q={q} op {ms:.4f} ms (query-minor copy "
+        f"{copy_ms:.4f} ms, kernel {kern_ms:.4f} ms), plain "
+        f"{plain_ms:.4f} ms, bound {bms:.4f} ms (bytes), "
+        f"{bms / ms:.1%} of bound")
+    del x, got, again, want
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms), err
+
+
+def superstep_hook_checks(pg, hybrid, source, pr_program, dev, check):
+    """``[shard]``'s superstep hook (``DistributedBSPEngine.superstep``, a
+    world of one) on the fused backend and on ``hybrid`` (the sharded
+    hybrid engine): BFS from ``source`` and PageRank stepped from the
+    initial state to the finish, each state and the step count bit for
+    bit ``execute``'s, and PageRank's ``PR_ITERS`` steps bit for bit
+    ``execute(num_steps=)``'s; the ms a step from CUDA events around the
+    host loop (each step reads its vote)."""
+    import torch
+
+    from repro_torch.core.bsp import DistributedBSPEngine
+
+    bfs_mod = importlib.import_module("repro_torch.algorithms.bfs")
+    pr_mod = importlib.import_module("repro_torch.algorithms.pagerank")
+    fused = DistributedBSPEngine(pg, backend="fused", block_e=BLOCK_E)
+    for backend, eng in (("fused", fused), ("hybrid", hybrid)):
+        for alg, prog, init in (
+                ("bfs", bfs_mod.BFS_PROGRAM, {"level": bfs_mod.
+                                              multi_source_state(
+                                                  pg, [source])[0]}),
+                ("pagerank", pr_program, pr_mod.initial_state(pg))):
+            init = {k: torch.as_tensor(v, device=dev)
+                    for k, v in init.items()}
+            fn = eng.superstep(prog)
+            fn(init, 0)                                  # warm
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            state, steps, limit = init, 0, (
+                PR_ITERS if alg == "pagerank" else prog.max_steps)
+            first_fin = None
+            start.record()
+            while steps < limit:
+                state, fin = fn(state, steps)
+                steps += 1
+                if first_fin is None and bool(fin):
+                    first_fin = steps
+                    if alg == "bfs":
+                        break
+            end.record()
+            end.synchronize()
+            ms = start.elapsed_time(end) / steps
+            batched = {k: v[None] for k, v in init.items()}
+            want, want_steps = eng.execute(prog, batched)
+            if alg == "bfs":
+                same = all(torch.equal(state[k], want[k][0]) for k in state)
+            else:
+                one, _ = fn(init, 0)
+                same = all(torch.equal(one[k], want[k][0]) for k in one)
+                nsteps = eng.execute(prog, batched, num_steps=PR_ITERS)
+                same = same and all(torch.equal(state[k], nsteps[k][0])
+                                    for k in state)
+            check(same and first_fin == int(want_steps[0]),
+                  f"[shard] superstep({alg}) hook on the {backend} backend "
+                  f"(world of one): stepped to the finish in {first_fin} "
+                  f"steps, bit for bit execute's state and step count "
+                  f"({int(want_steps[0])})"
+                  + (f", {PR_ITERS} steps bit for bit execute(num_steps="
+                     f"{PR_ITERS})" if alg == "pagerank" else "")
+                  + f"; {ms:.4f} ms a step (CUDA events, {steps} steps)")
+    del fused
+
+
+def _counting_supersteps(eng):
+    """Wrap ``eng.execute`` to add each run-to-convergence call's
+    supersteps (the loop runs until its slowest query finishes: the most
+    of ``steps_q``) to ``eng.supersteps``."""
+    run = eng.execute
+    eng.supersteps = 0
+
+    def execute(program, state, **kw):
+        out = run(program, state, **kw)
+        eng.supersteps += int(out[1].max())
+        return out
+
+    eng.execute = execute
+    return eng
+
+
+def bc_exact_phase(dev, check):
+    """``[bc-exact]``: all-sources exact BC (``algorithms/bc.py::bc_exact``)
+    on the fused and hybrid backends, P=2, HIGH, reverse edges.
+
+    (a) RMAT9 (``BC_SMALL``: 512 sources, chunks of 96, the last padded
+    with source 0; the hybrid split at ``BC_SMALL_K``, so both its kernels
+    run): ``bc_exact`` bit for bit ``bc_exact_sequential``.
+    (b) RMAT15 (``BC_SCALE``, the seed of ``totem_rmat``) at ``BC_CHUNK``:
+    the wall, chunks, sources/s, supersteps and the kernels' launches;
+    the rows of the first and the padded last chunk bit for bit each
+    source's ``betweenness_centrality`` and within
+    ``SUM_LIMITS["betweenness_centrality"]`` (elementwise) of a float64
+    run of the reference backend; the fused total against the hybrid
+    total within ``2 * SUM_LIMITS + 2^-23`` elementwise (each row within
+    the limit of float64, rows nonnegative, two f32 casts).  (c) RMAT14
+    at JAX's default chunk 32, both backends, totals within the same
+    bound.  Every ``bc_exact`` call of (a), (b) and (c) is counted on its
+    own, the counts read just before and just after it: on the fused
+    engine the fused kernel must launch in both BC kinds, on the hybrid
+    engine ``ell_spmv`` and ``dense_spmv`` must.  Then the fused kernel's ``bc_fwd`` and ``bc_bwd`` kinds at Q =
+    ``BC_CHUNK`` on RMAT15's blocks against their plain version, timed."""
+    import numpy as np
+    import torch
+
+    from repro_torch.algorithms import (bc_exact, bc_exact_sequential,
+                                        betweenness_centrality,
+                                        betweenness_centrality_batched)
+    from repro_torch.core import graph as G
+    from repro_torch.core import partition as PT
+    from repro_torch.core.bsp import BSPEngine
+    from repro_torch.kernels import dense_spmv as kds
+    from repro_torch.kernels import ell_spmv as kell
+    from repro_torch.kernels import fused_superstep as kfs
+
+    t_phase = time.perf_counter()
+    limit = SUM_LIMITS["betweenness_centrality"]
+    pair_bound = 2 * limit + 2.0 ** -23
+
+    def engines(pg, k_dense=None):
+        return {"fused": BSPEngine(pg, backend="fused", block_e=BLOCK_E),
+                "hybrid": BSPEngine(pg, backend="hybrid",
+                                    hybrid_k_dense=k_dense)}
+
+    def partition(scale):
+        t0 = time.perf_counter()
+        g = G.rmat(scale, 16, seed=SEED)
+        pg = PT.partition(g, 2, PT.HIGH, include_reverse=True)
+        log(f"[bc-exact] rmat{scale}: V={g.num_vertices} E={g.num_edges} "
+            f"P=2 HIGH with reverse edges, {time.perf_counter() - t0:.2f} s")
+        return g, pg
+
+    counters = (kfs.fused_superstep, kell.ell_spmv, kds.dense_spmv)
+    needed = {"fused": ("bc_fwd", "bc_bwd"),
+              "hybrid": ("ell_spmv", "dense_spmv")}
+
+    def timed_bc(tag, name, eng, chunk):
+        """``(bc_exact(eng, chunk=chunk), wall, launches)``: the launches
+        of this call alone, and a check that the engine's kernels made
+        some."""
+        before = [fn.launches for fn in counters]
+        kinds0 = dict(kfs.fused_superstep.kind_launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = bc_exact(eng, chunk=chunk)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        used = {fn.__name__: fn.launches - b
+                for fn, b in zip(counters, before)}
+        used.update({k: kfs.fused_superstep.kind_launches.get(k, 0)
+                     - kinds0.get(k, 0) for k in ("bc_fwd", "bc_bwd")})
+        check(all(used[k] > 0 for k in needed[name]),
+              f"[bc-exact] {tag} {name}: bc_exact at chunk {chunk} "
+              f"launched {' and '.join(needed[name])} (launches of this "
+              f"call: {used})")
+        return out, wall, used
+
+    # (a) bit for bit against the sequential loop, padded last chunk
+    scale, chunk = BC_SMALL
+    _, pg = partition(scale)
+    for name, eng in engines(pg, BC_SMALL_K).items():
+        got, wall, _ = timed_bc(f"rmat{scale}", name, eng, chunk)
+        t1 = time.perf_counter()
+        want = bc_exact_sequential(eng)
+        t2 = time.perf_counter()
+        n = pg.num_vertices
+        check(np.array_equal(got, want), f"[bc-exact] rmat{scale} {name}: "
+              f"bc_exact (chunk {chunk}: {-(-n // chunk)} chunks, the last "
+              f"{n % chunk or chunk} sources + {-n % chunk} pads) bit for "
+              f"bit bc_exact_sequential ({n} single-source calls): "
+              f"{wall:.3f} s against {t2 - t1:.3f} s")
+
+    # (b) RMAT15 over all sources
+    g, pg = partition(BC_SCALE)
+    n = g.num_vertices
+    chunks = -(-n // BC_CHUNK)
+    last_lo = (chunks - 1) * BC_CHUNK
+    first = np.arange(BC_CHUNK)
+    last = np.concatenate([np.arange(last_lo, n),
+                           np.zeros(chunks * BC_CHUNK - n, np.int64)])
+    real_last = n - last_lo
+    exact = {}
+    ref = BSPEngine(pg, backend="reference")
+    for tag, srcs in (("first", first), ("last", last)):
+        exact[tag] = betweenness_centrality_batched(
+            ref, srcs, dtype=torch.float64)[0]
+    del ref
+    totals = {}
+    for name, eng in engines(pg).items():
+        _counting_supersteps(eng)
+        if name == "hybrid":
+            bc_mod = importlib.import_module("repro_torch.algorithms.bc")
+            for prog in (bc_mod.FORWARD_PROGRAM, bc_mod.BACKWARD_PROGRAM):
+                eng.hybrid_for(prog)           # set-up, outside the wall
+        totals[name], wall, used = timed_bc(f"rmat{BC_SCALE}", name, eng,
+                                            BC_CHUNK)
+        log(f"[bc-exact] rmat{BC_SCALE} {name}: bc_exact over {n} sources "
+            f"in {chunks} chunks of {BC_CHUNK} (the last {real_last} + "
+            f"{chunks * BC_CHUNK - n} pads): {wall:.3f} s wall, "
+            f"{n / wall:.1f} sources/s, {eng.supersteps} supersteps "
+            f"({wall / eng.supersteps * 1e3:.3f} ms each), launches "
+            f"{used}")
+        bad, worst = [], 0.0
+        for tag, srcs, real in (("first", first, BC_CHUNK),
+                                ("last", last, real_last)):
+            rows = betweenness_centrality_batched(eng, srcs)[0]
+            for i in range(real):
+                single = betweenness_centrality(eng, int(srcs[i]))[0]
+                if not np.array_equal(rows[i], single):
+                    bad.append(int(srcs[i]))
+                worst = max(worst, max_rel_err(rows[i], exact[tag][i]))
+        check(not bad, f"[bc-exact] rmat{BC_SCALE} {name}: the first and the "
+              f"padded last chunk's rows ({BC_CHUNK} + {real_last}) bit for "
+              f"bit each source's betweenness_centrality (mismatched "
+              f"sources {bad[:8]})")
+        check(worst <= limit, f"[bc-exact] rmat{BC_SCALE} {name}: those rows "
+              f"within {limit:.0e} of a float64 reference-backend run "
+              f"(max rel err {worst:.3e})")
+        check(bool(np.isfinite(totals[name]).all())
+              and totals[name].shape == (n,) and totals[name].max() > 0,
+              f"[bc-exact] rmat{BC_SCALE} {name}: total finite, shape "
+              f"{totals[name].shape}, max {totals[name].max():.6e}")
+    rel = max_rel_err(totals["fused"], totals["hybrid"])
+    check(rel <= pair_bound, f"[bc-exact] rmat{BC_SCALE}: fused total "
+          f"against hybrid total, max rel err {rel:.3e} <= {pair_bound:.3e}")
+
+    pg_big = pg
+
+    # (c) JAX's default chunk on RMAT14
+    scale, chunk = BC_DEFAULT
+    g, pg = partition(scale)
+    got = {}
+    for name, eng in engines(pg).items():
+        _counting_supersteps(eng)
+        got[name], wall, used = timed_bc(f"rmat{scale}", name, eng, chunk)
+        log(f"[bc-exact] rmat{scale} {name}: bc_exact at chunk {chunk} "
+            f"({-(-g.num_vertices // chunk)} chunks): {wall:.3f} s wall, "
+            f"{g.num_vertices / wall:.1f} sources/s, {eng.supersteps} "
+            f"supersteps, launches {used}")
+    rel = max_rel_err(got["fused"], got["hybrid"])
+    check(rel <= pair_bound, f"[bc-exact] rmat{scale}: fused total against "
+          f"hybrid total, max rel err {rel:.3e} <= {pair_bound:.3e}")
+
+    # the fused kernel's BC kinds at Q = BC_CHUNK on the large graph's
+    # blocks (outside every counted call: these launches are comparisons)
+    blks = {"fwd": PT.build_block_metadata(pg_big.fwd, block_e=BLOCK_E),
+            "rev": PT.build_block_metadata(pg_big.rev, block_e=BLOCK_E)}
+    rng = np.random.default_rng(SEED)
+    for kind in ("bc_fwd", "bc_bwd"):
+        fused_kind_check(kind, pg_big, blks, rng, dev, check, q=BC_CHUNK,
+                         tag="[bc-exact] kernel")
+    log(f"[bc-exact] the phase {time.perf_counter() - t_phase:.1f} s")
 
 
 def segment_reduce_phase(pg, rng, dev, check):
@@ -1897,8 +2259,8 @@ def ssm_bounds(cfg, b, s, n_gen):
             f"{step / 1e6:.1f} MB of weights, head and f32 states")
 
 
-def serve_ssm(model, tokens, check):
-    """The serve launcher's ``generate`` on ``tokens[:, :2048]`` (B=4),
+def serve_ssm(model, tokens, check, s=LM_PROMPT):
+    """The serve launcher's ``generate`` on ``tokens[:, :s]`` (B=4),
     ``LM_GEN`` greedy tokens, warmed once on 16 tokens; checks the
     tokens and the flash launches of the prefill (one a shared-block call
     for zamba2, none for xLSTM), with every count set to 0 just before;
@@ -1912,7 +2274,7 @@ def serve_ssm(model, tokens, check):
     from repro_torch.models import zamba as Z
 
     cfg = model.cfg
-    b, s = LM_BATCH, LM_PROMPT
+    b = LM_BATCH
     generate(model, {"tokens": tokens[:, :16]}, 2)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1979,14 +2341,14 @@ def ssm_decode_vs_prefill(model, tokens, name, check, reference):
           f"next precision); greedy tokens equal: {same}")
 
 
-def xlstm_decode_vs_prefill(model, tokens, served, check):
+def xlstm_decode_vs_prefill(model, tokens, served, check, s):
     """xLSTM's prefill is its decode step, replayed: the logits of the
-    served run's last decode step (after ``prefill(2048)`` and 30 more
+    served run's last decode step (after ``prefill(s)`` and 30 more
     steps) against ``prefill`` of the prompt and the first 31 served
     tokens, bit for bit."""
     import torch
 
-    s, gen = LM_PROMPT, served["tokens"].shape[1]
+    gen = served["tokens"].shape[1]
     longer = torch.cat([tokens[:, :s], served["tokens"][:, :-1]], 1)
     lg_full, _ = model.prefill({"tokens": longer})
     gap = float((served["logits"].double() - lg_full.double()).abs().max())
@@ -2239,10 +2601,11 @@ def ssm_phase(dev, check):
     with 9 flash launches a prefill, decode vs prefill at bf16; (c) B=1
     into a 524,288-slot cache against a 2,080-slot one; (d) at f32 compute
     decode vs prefill, and a 6-layer cut's f32 prefill against float64.
-    xlstm-125m (12 layers, sLSTM every 4th): serving (its token-by-token
-    prefill's wall), decode vs prefill bit for bit, f32 vs float64.
-    Training: xlstm-125m at 4 layers (B=8, S=512), zamba2-2.7b at 6
-    (B=8, S=2048).  Returns (row, max |err| of bf16, launches) of the
+    xlstm-125m (12 layers, sLSTM every 4th): serving on the prompt's
+    first ``XLSTM_PROMPT`` tokens (its token-by-token prefill's wall),
+    decode vs prefill bit for bit, f32 vs float64.  Training: xlstm-125m
+    at 4 layers (B=8, S=``XLSTM_TRAIN_SEQ``), zamba2-2.7b at 6 (B=8,
+    S=2048).  Returns (row, max |err| of bf16, launches) of the
     flash kernel at D = 80."""
     import torch
 
@@ -2269,7 +2632,8 @@ def ssm_phase(dev, check):
               f"[ssm] {cfg.name} at full width, {cfg.n_layers} layers: "
               f"{n_params:,} parameters ({want:,} from the JAX shapes), "
               f"built in {time.perf_counter() - t0:.2f} s")
-        launches, served = serve_ssm(model, tokens, check)
+        prompt = LM_PROMPT if cfg.family == "hybrid" else XLSTM_PROMPT
+        launches, served = serve_ssm(model, tokens, check, prompt)
         cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
         if cfg.family == "hybrid":
             flash = (row, worst, launches)
@@ -2287,7 +2651,7 @@ def ssm_phase(dev, check):
             del model32, ref
             cfg32 = dataclasses.replace(cfg32, n_layers=SSM_F64_LAYERS)
         else:
-            xlstm_decode_vs_prefill(model, tokens, served, check)
+            xlstm_decode_vs_prefill(model, tokens, served, check, prompt)
         del model, served
         torch.cuda.empty_cache()
         model32 = api.build(cfg32, dev,
@@ -2295,7 +2659,7 @@ def ssm_phase(dev, check):
         ssm_f64(model32, tokens, check)
         del model32
         torch.cuda.empty_cache()
-    ssm_train(dev, check, "xlstm-125m", 4, 8, 512)
+    ssm_train(dev, check, "xlstm-125m", 4, 8, XLSTM_TRAIN_SEQ)
     ssm_train(dev, check, "zamba2-2.7b", SSM_F64_LAYERS, 8, 2048)
     log(f"[ssm] phase {time.perf_counter() - t_phase:.1f} s")
     return flash
@@ -3048,12 +3412,15 @@ def tiered_dynamic_phase(gw, sources, dev, check):
     """``[tiered-dynamic]``: ``tiered=`` on a dynamic graph: the weighted
     RMAT20, P=2, HIGH, ``mutation_capacity=256``, ``edge_stream``
     ``DYN_BATCHES`` x 256 at churn 0.7, seed 20 (``[dynamic]``'s stream on
-    the main path's graph).
+    the main path's graph; at ``[dynamic]``'s RMAT18 the fused plan
+    streams both partitions, and the fused engine's hot partition on a
+    dynamic graph would go unrun).
 
     One ``DynamicGraph`` with its payload in pinned host memory feeds, on
     the fused and on the reference backend, a tiered engine (budget
-    ``build_tier_plan(..., dynamic=)``'s ``table[1]``: one partition
-    streamed, ``win_blocks`` the least that plans) and a resident one.
+    ``build_tier_plan(..., dynamic=)``'s ``table[1]``: one partition hot
+    and one streamed, checked on both backends, ``win_blocks`` the least
+    that plans) and a resident one.
     After every batch: BFS at Q=8 on both, bit for bit with equal steps,
     and the tiered engines' ``cache_entries()`` held but at a compaction.
     After the stream: SSSP bit for bit; PageRank within
@@ -3134,10 +3501,12 @@ def tiered_dynamic_phase(gw, sources, dev, check):
             log(f"[tiered-dynamic] {b} {side} engine and its first BFS "
                 f"{time.perf_counter() - t0:.2f} s")
         eng = tiered[b]
-        check(len(eng.tier_plan.cold) >= 1 and eng.tiered_stats()[
-            "device_arena_bytes"] == eng.tier_plan.hbm_bytes,
-              f"[tiered-dynamic] {b}: {len(eng.tier_plan.cold)} partition "
-              f"streamed; TierPlan.hbm_bytes {eng.tier_plan.hbm_bytes} == "
+        check(row == 1 and len(eng.tier_plan.hot) >= 1
+              and len(eng.tier_plan.cold) >= 1 and eng.tiered_stats()[
+                  "device_arena_bytes"] == eng.tier_plan.hbm_bytes,
+              f"[tiered-dynamic] {b}: table[{row}], "
+              f"{len(eng.tier_plan.hot)} partition hot and "
+              f"{len(eng.tier_plan.cold)} streamed; TierPlan.hbm_bytes {eng.tier_plan.hbm_bytes} == "
               f"the engine's device arena bytes "
               f"{eng.tiered_stats()['device_arena_bytes']}")
         check(peak[b, "tiered"] < peak[b, "resident"],
@@ -3818,6 +4187,23 @@ def mesh_phase(check):
           f"{got['bit_equal']} of {got['leaves']} leaves bit for bit; step "
           f"{got['step_s'][0] * 1e3:.1f} ms on the mesh, "
           f"{got['step_s'][1] * 1e3:.1f} ms plain")
+    for key, what in (("resume_to_plain", "the (1, 1) mesh's sharded "
+                       "checkpoint onto the card alone"),
+                      ("resume_to_mesh", "the card's whole checkpoint onto "
+                       "the (1, 1) mesh")):
+        for name, r in got[key].items():
+            check(mesh_selftest.resume_ok(got[key]),
+                  f"[mesh] restore_resharded, {what}: {r['equal']} of "
+                  f"{r['leaves']} leaves bit for bit; the next step's loss "
+                  f"bit for bit the unrestarted step's on {name}: "
+                  f"{r['same_loss']}; against the next step on the layout "
+                  f"that saved: loss {r['loss'][0]:.7f} / {r['loss'][1]:.7f}"
+                  f", max diff {r['compare']} (bounds "
+                  f"{mesh_selftest.RESUME_TOL}); step {r['step_s'][0] * 1e3:.1f}"
+                  f" / {r['step_s'][1] * 1e3:.1f} ms")
+    log(f"[mesh] both resumes (two checkpoints of tinyllama-1.1b at "
+        f"{MESH_TRAIN['layers']} layers with AdamW's state, written and "
+        f"read): {got['resume_s']:.1f} s")
     launches = got["flash_launches"]
     check(launches == 22 and got["logits_bit_equal"],
           f"[mesh] tinyllama-1.1b full-depth prefill (B={LM_BATCH}, "
@@ -3877,12 +4263,10 @@ def main() -> int:
         from repro_torch.kernels.ops import (bottomup_scan_op,
                                              dense_spmv_minplus_op,
                                              dense_spmv_op, ell_spmv_op,
-                                             fused_superstep_op,
                                              outbox_reduce_op)
         from repro_torch.kernels.ref import (SEMIRINGS, bottomup_scan_ref,
                                              dense_spmv_minplus_ref,
                                              dense_spmv_ref, ell_spmv_ref,
-                                             fused_superstep_ref,
                                              outbox_reduce_ref)
         # the package re-exports functions named like these modules
         bfs_mod, sssp_mod, pr_mod = (importlib.import_module(
@@ -4017,73 +4401,12 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     kernel_rows = {}
     worst_err = 0.0
-    for kind, spec in kfs.KINDS.items():
-        d = "rev" if kind == "bc_bwd" else "fwd"
-        blk = blks[d]
-        x = kernel_inputs(kind, pg, blk, rng, dev)
-        dst_ext = torch.as_tensor(getattr(pg, d).dst_ext, dtype=torch.int64,
-                                  device=dev)
-        msg = _edge_message(kind, pg.num_vertices)
-        weight = x["weight"] if spec.use_weight else None
-
-        def kernel():     # the op: the query-minor copy, then the kernel
-            return fused_superstep_op(
-                msg, x["vstate"], weight, x["scal"], x["src"], x["local"],
-                x["mask"], x["base"], dst_ext, num_segments=pg.seg_count,
-                combine=spec.combine, block_e=BLOCK_E)
-
-        def copy():
-            return kfs.query_minor_state(x["vstate"])
-
-        def kern(vt=copy()):
-            return kfs.fused_superstep(
-                kind, vt, x["scal"], x["src"], x["local"], x["mask"], weight,
-                x["base"], num_segments=pg.seg_count, block_e=BLOCK_E)
-
-        def plain(m=msg, dtype=torch.float32):
-            return fused_superstep_ref(
-                m, x["vstate"].to(dtype), None if weight is None
-                else weight.to(dtype), x["scal"].to(dtype), x["src"],
-                x["mask"], dst_ext, num_segments=pg.seg_count,
-                combine=spec.combine)
-
-        got, again, want = kernel(), kernel(), plain()
-        torch.cuda.synchronize()
-        err = max_abs_err(got, want)
+    for kind in kfs.KINDS:
+        kernel_rows[kind], err = fused_kind_check(kind, pg, blks, rng, dev,
+                                                  check)
         worst_err = max(worst_err, err)
         if kind == "bfs_relax":
             relax_err = err
-        if spec.combine == "min":
-            check(torch.equal(got, want), f"[kernel] {kind}: bit-equal to "
-                  f"the plain version (max |err| {err})")
-        else:
-            exact = plain(dtype=torch.float64)
-            mag = plain(dataclasses.replace(
-                msg, fn=lambda *a, f=msg.fn: f(*a).abs()), torch.float64)
-            depth = sum_depth(blk)
-            slack = (got.double() - exact).abs() - (
-                1.01 * depth * UNIT_ROUNDOFF * mag)
-            plain_rel = max_rel_err(want.cpu(), exact.cpu())
-            kern_rel = max_rel_err(got.cpu(), exact.cpu())
-            check(bool((slack <= 0).all()),
-                  f"[kernel] {kind}: within its f32 bound ({depth} "
-                  f"roundings x 2^-24 x sum|msg|) of float64; max rel err "
-                  f"kernel {kern_rel:.3e}, plain f32 {plain_rel:.3e}; "
-                  f"kernel vs plain max |err| {err}")
-            del exact, mag, slack
-        check(torch.equal(got, again) and torch.equal(got, kern()),
-              f"[kernel] {kind}: two launches bit-equal, through the op and "
-              f"on the query-minor state")
-        ms = cuda_ms(kernel, 20)
-        plain_ms = cuda_ms(plain, 5)
-        copy_ms, kern_ms = cuda_ms(copy, 20), cuda_ms(kern, 20)
-        bms = bound_ms(kind, pg, blk)
-        kernel_rows[kind] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bms)
-        log(f"[kernel] {kind}: Q={Q} op {ms:.4f} ms (query-minor copy "
-            f"{copy_ms:.4f} ms, kernel {kern_ms:.4f} ms), plain "
-            f"{plain_ms:.4f} ms, bound {bms:.4f} ms (bytes), "
-            f"{bms / ms:.1%} of bound")
-        del x, got, again, want
     torch.cuda.empty_cache()
 
     scan_rows = {}
@@ -4328,6 +4651,11 @@ def main() -> int:
                 + ("" if stats is None else
                    f", edges examined {stats['edges_examined'].tolist()}, "
                    f"switches {stats['switches'].tolist()}"))
+            if name == "bfs_batched":
+                rate = sum(bfs_mod.teps(g, lv, wall) for lv in res)
+                log(f"[main] bfs_batched {backend}: {rate:.6e} TEPS "
+                    f"(teps(): the {Q} queries' traversed edges over the "
+                    f"batch's {wall:.3f} s wall)")
             if backend == "fused":
                 check(used[0] > 0, f"[main] {name}: fused run launched the "
                       f"fused kernel ({used[0]} times)")
@@ -4684,6 +5012,8 @@ def main() -> int:
                          shard_out["vote", "pagerank"]),
           "[shard] pagerank_distributed (the converge loop with a vote that "
           "never finishes) bit-equal to pagerank (num_steps)")
+    superstep_hook_checks(pg, shards["vote"][0], int(sources[0]),
+                          programs["pagerank"], dev, check)
     del shards
     torch.cuda.empty_cache()
 
@@ -4785,6 +5115,10 @@ def main() -> int:
           f"{eng.hybrid_plan()['k_dense']}, {eng.hybrid_plan()['mode']}): "
           f"bfs, cc exact; sssp, pagerank, bc within the tolerances above "
           f"(no include_reverse: the backend splits the reverse graph)")
+
+    # -- phase 5b: [bc-exact] all-sources BC ---------------------------------
+    bc_exact_phase(dev, check)
+    clock("[bc-exact]")
 
     # -- phase 6: the sorted segment reduce at RMAT20 ------------------------
     seg_rows, seg_err, seg_launches = segment_reduce_phase(pg, rng, dev,

@@ -9,7 +9,8 @@ from repro_torch.algorithms.sssp import (sssp, sssp_batched,
                                          sssp_incremental, sssp_reference)
 from repro_torch.algorithms.cc import (cc_incremental, cc_reference,
                                        connected_components, symmetrize)
-from repro_torch.algorithms.bc import (bc_reference, betweenness_centrality,
+from repro_torch.algorithms.bc import (bc_exact, bc_exact_sequential,
+                                       bc_reference, betweenness_centrality,
                                        betweenness_centrality_batched)
 from repro_torch.algorithms.continuous import (CONTINUOUS_FORMS,
                                                ContinuousForm,
@@ -23,6 +24,7 @@ __all__ = [
     "personalized_pagerank", "personalized_pagerank_reference", "sssp",
     "sssp_batched", "sssp_incremental", "sssp_reference",
     "connected_components", "cc_incremental", "cc_reference", "symmetrize", "betweenness_centrality",
-    "betweenness_centrality_batched", "bc_reference", "CONTINUOUS_FORMS",
+    "betweenness_centrality_batched", "bc_exact", "bc_exact_sequential",
+    "bc_reference", "CONTINUOUS_FORMS",
     "ContinuousForm", "continuous_form",
 ]

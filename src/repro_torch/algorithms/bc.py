@@ -11,11 +11,12 @@ Two BSP cycles:
   levels ``max_level-1 .. 1``.  Each query's ``max_level`` rides the state
   as a per-query per-partition scalar.
 
-Port of ``repro.algorithms.bc`` (single-source and batched forms).
+``bc_exact`` runs all sources in chunks of batched queries.  Port of
+``repro.algorithms.bc``.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -145,6 +146,39 @@ def betweenness_centrality(engine: BSPEngine, source: int, *,
     """Single-source BC contribution; returns (bc [n], total supersteps)."""
     bc, steps = betweenness_centrality_batched(engine, [source], dtype=dtype)
     return bc[0], int(steps[0])
+
+
+def bc_exact(engine: BSPEngine, chunk: Optional[int] = 32) -> np.ndarray:
+    """All-sources exact BC in ``ceil(|V| / chunk)`` batched calls of
+    ``chunk`` sources (``None``: one batch of all).
+
+    The tail chunk is padded with repeats of source 0, whose rows are
+    dropped, so every call has the same Q.  Rows add up on the host in
+    float64 in source order, so the result is bit for bit
+    :func:`bc_exact_sequential`'s wherever each row of a batch is bit for
+    bit its source's single-source run.
+    """
+    n = engine.pg.num_vertices
+    chunk = n if chunk is None else min(chunk, n)
+    total = np.zeros(n, dtype=np.float64)
+    for lo in range(0, n, chunk):
+        srcs = np.arange(lo, min(lo + chunk, n), dtype=np.int64)
+        pad = chunk - len(srcs)
+        contrib, _ = betweenness_centrality_batched(
+            engine, np.concatenate([srcs, np.zeros(pad, np.int64)]))
+        for row in contrib[: len(srcs)]:
+            total += row          # source-order accumulation (bitwise)
+    return total.astype(np.float32)
+
+
+def bc_exact_sequential(engine: BSPEngine) -> np.ndarray:
+    """All-sources BC as one single-source call per source: the parity
+    oracle of :func:`bc_exact`."""
+    total = np.zeros(engine.pg.num_vertices, dtype=np.float64)
+    for s in range(engine.pg.num_vertices):
+        contrib, _ = betweenness_centrality(engine, s)
+        total += contrib
+    return total.astype(np.float32)
 
 
 def bc_reference(g: CSRGraph, source: int) -> np.ndarray:

@@ -199,3 +199,11 @@ def bfs_reference(g: CSRGraph, source: int) -> np.ndarray:
         frontier = newly
         d += 1
     return level
+
+
+def teps(g: CSRGraph, levels: np.ndarray, seconds: float) -> float:
+    """Graph500-style TEPS: the summed out-degrees of the visited vertices
+    over ``seconds``."""
+    visited = np.isfinite(levels)
+    traversed = int(g.out_degrees()[visited].sum())
+    return traversed / max(seconds, 1e-12)

@@ -2587,6 +2587,25 @@ class DistributedBSPEngine(BSPEngine):
         ``_dist_finished``)."""
         return self.group.all_true(fin)
 
+    def superstep(self, program: VertexProgram) -> Callable:
+        """One superstep ``f(state, step) -> (state, finished)`` of
+        ``program``: the benchmarking hook.  ``state`` is a global
+        unbatched ``[P, v_max]`` state dict, moved to the engine's device
+        and run as a Q=1 batch by the step function ``execute`` runs
+        (push: no direction leaves ride the state); ``finished`` is the
+        global vote, a bool tensor.  Syncs a dynamic graph first."""
+        if self.dg is not None:
+            self._sync_dynamic()
+        step_fn = self._step_fn(program)
+
+        def fn(state, step):
+            state = batch_state({k: torch.as_tensor(v, device=self.device)
+                                 for k, v in state.items()})
+            out, fin = step_fn(self._local(state), int(step))
+            return unbatch_state(self._global(out)), fin[0]
+
+        return fn
+
     # ------------------------ sharded hybrid -------------------------------
 
     def provides_reverse(self, program: VertexProgram) -> bool:

@@ -425,3 +425,13 @@ def apply_mutation_batches(g: CSRGraph,
     for batch in batches:
         ledger.apply(batch)
     return ledger.to_csr(g.num_vertices)
+
+
+def to_dense(g: CSRGraph) -> np.ndarray:
+    """Dense adjacency ``[n, n]`` f32 (tests only: small graphs); multi-edges
+    add up."""
+    a = np.zeros((g.num_vertices, g.num_vertices), dtype=np.float32)
+    vals = g.weights if g.weights is not None else np.ones(g.num_edges,
+                                                           dtype=np.float32)
+    np.add.at(a, (g.edge_sources(), g.col), vals)
+    return a

@@ -85,10 +85,24 @@ class HybridGraph:
     model_table: Optional[List[dict]] = None  # perf-model ranking (auto split)
 
     @property
+    def dense_density(self) -> float:
+        return self.dense_edges / max(self.k_dense ** 2, 1)
+
+    @property
+    def dense_fraction(self) -> float:
+        return self.dense_edges / max(self.num_edges, 1)
+
+    @property
     def mode(self) -> str:
         """Which engine(s) this split runs: dense, sparse, or hybrid."""
         return perf_model.split_mode(self.k_dense, self.num_vertices,
                                      self.sparse_edges)
+
+    def predicted_makespan(self, num_chips: int = 1) -> dict:
+        """The planner's makespan terms of this split (Eq. 2 recast)."""
+        return perf_model.hybrid_makespan_tpu(
+            self.dense_edges, self.dense_density, self.sparse_edges,
+            boundary_slots=0, num_chips=num_chips)
 
 
 def degree_ranking(g: CSRGraph) -> Tuple[np.ndarray, np.ndarray]:
@@ -205,9 +219,10 @@ def degree_split(g: CSRGraph, k_dense: int, semiring: str = PLUS_TIMES,
 
 def plan_degree_split(g: CSRGraph, k_dense: Optional[int] = None, *,
                       candidates=None, skewed: bool = True,
-                      ranking=None) -> dict:
+                      ranking=None, num_chips: int = 1) -> dict:
     """The split decision (the role Eq. 4 plays in the paper): |H| is the
-    candidate of least predicted makespan, or ``k_dense`` when given.
+    candidate of least predicted makespan over ``num_chips`` shards, or
+    ``k_dense`` when given.
 
     ``candidates`` default to ``perf_model.k_dense_candidates`` (``skewed=
     False`` when the block-span histograms show no high-degree
@@ -220,11 +235,12 @@ def plan_degree_split(g: CSRGraph, k_dense: Optional[int] = None, *,
                                                    skewed=skewed)
     ranks = edge_max_ranks(g, ranking)
     if k_dense is None:
-        k_dense, table = perf_model.choose_k_dense(ranks, g.num_edges,
-                                                   candidates)
+        k_dense, table = perf_model.choose_k_dense(
+            ranks, g.num_edges, candidates, num_chips=num_chips)
     else:
         table = perf_model.rank_k_dense(ranks, g.num_edges,
-                                        sorted(set(candidates) | {k_dense}))
+                                        sorted(set(candidates) | {k_dense}),
+                                        num_chips=num_chips)
     chosen = next(r for r in table if r["k_dense"] == k_dense)
     return dict(k_dense=k_dense, candidates=list(candidates),
                 mode=perf_model.split_mode(k_dense, g.num_vertices,
@@ -233,12 +249,13 @@ def plan_degree_split(g: CSRGraph, k_dense: Optional[int] = None, *,
 
 
 def auto_degree_split(g: CSRGraph, semiring: str = PLUS_TIMES,
-                      candidates=None, skewed: bool = True) -> HybridGraph:
-    """Degree split at the |H| of ``plan_degree_split``; the planner's
-    ranked table rides on the result."""
+                      candidates=None, skewed: bool = True,
+                      num_chips: int = 1) -> HybridGraph:
+    """Degree split at the |H| of ``plan_degree_split`` over ``num_chips``
+    shards; the planner's ranked table rides on the result."""
     ranking = degree_ranking(g)
     plan = plan_degree_split(g, candidates=candidates, skewed=skewed,
-                             ranking=ranking)
+                             ranking=ranking, num_chips=num_chips)
     k = plan["k_dense"]
     hg = degree_split(g, k, semiring=semiring,
                       layout=split_layout(g, k, ranking))
@@ -320,6 +337,18 @@ class ShardHybridData:
     n_intra: Optional[np.ndarray]    # [S] real push edges (row prefix)
     # --- the sparse kernel's row plan of each shard's ell_row_ptr ---
     ell_plan: List[EllPlan]
+
+    @property
+    def scatter_segments(self) -> int:
+        """Local scatter segment space: pl*(v_max+1) reals + 1 pad sink."""
+        return self.parts_per_shard * (self.v_max + 1)
+
+    def wire_values_per_superstep(self) -> int:
+        """Padded f32 values one shard puts on the wire each superstep: the
+        ``all_to_all`` ships a ``wire_width`` block to every other shard."""
+        if not self.has_remote:
+            return 0
+        return (self.num_shards - 1) * self.wire_width
 
     def boundary(self, s: int):
         """Shard ``s``'s real boundary edges as the outbox kernel takes

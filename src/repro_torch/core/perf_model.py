@@ -153,10 +153,11 @@ def fit_shard_pull_thresholds(shard_avg_degrees, shard_kmaxes=None, *,
 # Degree-split selection (the paper's Eq. 4 role: the model picks the split)
 # ---------------------------------------------------------------------------
 
-def dense_block_rate(density: float) -> float:
+def dense_block_rate(density: float, peak_flops: float = TPU_PEAK_FLOPS
+                     ) -> float:
     """Useful edges per second of the dense path on a block of ``density``:
     a K x K block product costs ``2 K^2`` operations whatever its fill."""
-    return TPU_PEAK_FLOPS / 2.0 * density
+    return peak_flops / 2.0 * density
 
 
 def hybrid_makespan_tpu(e_dense: float, dense_density: float,

@@ -1,9 +1,10 @@
-"""Edge-mutation streams (the dynamic part of ``repro.data.graphs``).
+"""Graph workloads and edge-mutation streams (``repro.data.graphs``).
 
 Determinism contract: every stochastic choice is keyed off the caller's
-explicit ``seed`` through a stream derived from it, so the same graph and
-seed give the same mutation stream in both packages, across processes and
-machines.
+explicit ``seed`` through streams derived from it (the topology, the
+weights and the mutations each their own), so the same workload, graph and
+seed give the same graphs and streams in both packages, across processes
+and machines.
 """
 from __future__ import annotations
 
@@ -11,10 +12,15 @@ from typing import List
 
 import numpy as np
 
-from repro_torch.core.graph import CSRGraph, EdgeLedger, MutationBatch
+from repro_torch.configs.totem_rmat import GraphWorkload
+from repro_torch.core.graph import (CSRGraph, EdgeLedger, MutationBatch,
+                                    rmat, uniform)
 
-# The JAX package's label of the mutation stream, mixed into its seed so
-# it shares no generator stream with the topology or the weights.
+# The JAX package's stream labels, mixed into the derived seeds so the
+# topology, the weights and the mutations never share a generator stream
+# (adding weights must not perturb the topology).
+_TOPOLOGY_STREAM = 0x70
+_WEIGHT_STREAM = 0x7E
 _MUTATION_STREAM = 0x4D
 
 
@@ -22,6 +28,22 @@ def derive_seed(seed: int, stream: int) -> int:
     """Deterministically derive an independent integer seed for a stream."""
     ss = np.random.SeedSequence([int(seed), int(stream)])
     return int(ss.generate_state(1, dtype=np.uint32)[0])
+
+
+def load_workload(w: GraphWorkload, seed: int = 1,
+                  weighted: bool = False) -> CSRGraph:
+    """Materialize a workload: the same graph for the same ``(w, seed)``,
+    array-equal to the JAX package's."""
+    topo_seed = derive_seed(seed, _TOPOLOGY_STREAM)
+    if w.kind == "rmat":
+        g = rmat(w.scale, w.edge_factor, seed=topo_seed)
+    elif w.kind == "uniform":
+        g = uniform(w.scale, w.edge_factor, seed=topo_seed)
+    else:
+        raise ValueError(w.kind)
+    if weighted:
+        g = g.with_uniform_weights(seed=derive_seed(seed, _WEIGHT_STREAM))
+    return g
 
 
 def edge_stream(g: CSRGraph, num_batches: int, batch_size: int,

@@ -1729,3 +1729,30 @@ def test_train_step_on_card_matches_the_cpu(cuda):
         p, state, met = step(p, state, cb)
         losses.append(float(met["loss"]))
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [32, 48, None], ids=["q32", "q48", "all"])
+@pytest.mark.parametrize("backend", ["fused", "hybrid"])
+def test_bc_exact_is_bitwise_the_sequential_loop_on_card(cuda, backend,
+                                                         chunk):
+    """All-sources BC on the card (scale 8, 256 sources, 2 partitions
+    under HIGH; the hybrid split at |H| = 64, so both of its kernels run):
+    ``bc_exact`` at Q = 32 (8 full chunks), 48 (5 full and one of 16
+    sources padded with source 0) and 256 (one batch) bit for bit
+    ``bc_exact_sequential``, the backend's kernels launched.  Each row of
+    a batch is its source's single-source run: the kernels' sums take a
+    fixed order whatever the query count."""
+    from repro_torch.algorithms import bc_exact, bc_exact_sequential
+    from repro_torch.core.bsp import BSPEngine
+
+    g = TG.rmat(8, 8, seed=5)
+    pg = TPT.partition(g, 2, TPT.HIGH, include_reverse=True)
+    eng = BSPEngine(pg, backend=backend, block_e=256, hybrid_k_dense=64)
+    counters = ((kfs.fused_superstep,) if backend == "fused"
+                else (kell.ell_spmv, kds.dense_spmv))
+    for fn in counters:
+        fn.launches = 0
+    got = bc_exact(eng, chunk=chunk)
+    assert all(fn.launches > 0 for fn in counters)
+    np.testing.assert_array_equal(got, bc_exact_sequential(eng))
