@@ -16,6 +16,7 @@ from repro_torch.core.bsp import (MIN, BSPEngine, EdgeMessage,
                                   IncrementalForm, VertexProgram, gather_src)
 from repro_torch.core.graph import CSRGraph
 from repro_torch.core.partition import PartitionedGraph
+from repro_torch.runtime import tracing
 
 
 def multi_source_state(pg: PartitionedGraph, sources: Sequence[int],
@@ -49,8 +50,9 @@ def gather_batch(pg: PartitionedGraph, per_part) -> np.ndarray:
     tensor is gathered where it lies (``PartitionedGraph.flat_index``) and
     only the [Q, n] result is copied to the host."""
     if isinstance(per_part, torch.Tensor):
-        flat = per_part.reshape(per_part.shape[0], -1)
-        return flat[:, pg.flat_index(per_part.device)].cpu().numpy()
+        with tracing.span("entry.result_copy"):
+            flat = per_part.reshape(per_part.shape[0], -1)
+            return flat[:, pg.flat_index(per_part.device)].cpu().numpy()
     return np.stack([pg.gather_global(row) for row in np.asarray(per_part)])
 
 
@@ -137,10 +139,14 @@ def bfs_batched(engine: BSPEngine,
 
     Returns (levels [Q, n], per-query supersteps [Q]).
     """
-    pg = engine.pg
-    level0 = multi_source_state(pg, sources, device=engine.device)
-    state, steps = engine.execute(BFS_PROGRAM, {"level": level0})
-    return gather_batch(pg, state["level"]), steps.cpu().numpy()
+    with tracing.span("entry.bfs_batched"):
+        pg = engine.pg
+        with tracing.span("entry.upload"):
+            level0 = multi_source_state(pg, sources, device=engine.device)
+        state, steps = engine.execute(BFS_PROGRAM, {"level": level0})
+        levels = gather_batch(pg, state["level"])
+        with tracing.span("entry.steps_copy"):
+            return levels, steps.cpu().numpy()
 
 
 def bfs(engine: BSPEngine, source: int) -> Tuple[np.ndarray, int]:

@@ -15,6 +15,7 @@ import torch
 from repro_torch.algorithms.bfs import gather_batch
 from repro_torch.core.bsp import (SUM, BSPEngine, EdgeMessage, VertexProgram,
                                   batch_state, gather_src, unbatch_state)
+from repro_torch.runtime import tracing
 
 DAMPING = 0.85
 
@@ -69,12 +70,16 @@ def pagerank(engine: BSPEngine, num_iterations: int = 20,
     """Global PageRank after ``num_iterations`` rounds.  ``dtype`` is the
     state's precision: float64 on the reference backend gives a yardstick
     for the float32 runs (the fused backend takes float32 only)."""
-    pg = engine.pg
-    program = make_pagerank_program(pg.num_vertices, damping)
-    state = unbatch_state(engine.execute(
-        program, batch_state(initial_state(pg, damping, dtype)),
-        num_steps=num_iterations))
-    return pg.gather_global(state["rank"].cpu().numpy())
+    with tracing.span("entry.pagerank"):
+        pg = engine.pg
+        program = make_pagerank_program(pg.num_vertices, damping)
+        with tracing.span("entry.upload"):
+            state0 = {k: v.to(engine.device) for k, v in batch_state(
+                initial_state(pg, damping, dtype)).items()}
+        state = unbatch_state(engine.execute(program, state0,
+                                             num_steps=num_iterations))
+        with tracing.span("entry.result_copy"):
+            return pg.gather_global(state["rank"].cpu().numpy())
 
 
 def pagerank_distributed(engine, num_iterations: int = 20,

@@ -17,6 +17,7 @@ from repro_torch.algorithms.bfs import (gather_batch, multi_source_state,
 from repro_torch.core.bsp import (MIN, BSPEngine, EdgeMessage,
                                   IncrementalForm, VertexProgram, gather_src)
 from repro_torch.core.graph import CSRGraph
+from repro_torch.runtime import tracing
 
 
 def _edge_fn(state, src, weight, step):
@@ -76,10 +77,14 @@ def sssp_batched(engine: BSPEngine,
     if pg.fwd.weight is None:
         raise ValueError("SSSP needs edge weights "
                          "(graph.with_uniform_weights)")
-    dist0 = multi_source_state(pg, sources, device=engine.device)
-    state, steps = engine.execute(SSSP_PROGRAM, {
-        "dist": dist0, "active": torch.isfinite(dist0)})
-    return gather_batch(pg, state["dist"]), steps.cpu().numpy()
+    with tracing.span("entry.sssp_batched"):
+        with tracing.span("entry.upload"):
+            dist0 = multi_source_state(pg, sources, device=engine.device)
+            state0 = {"dist": dist0, "active": torch.isfinite(dist0)}
+        state, steps = engine.execute(SSSP_PROGRAM, state0)
+        dists = gather_batch(pg, state["dist"])
+        with tracing.span("entry.steps_copy"):
+            return dists, steps.cpu().numpy()
 
 
 def sssp(engine: BSPEngine, source: int) -> Tuple[np.ndarray, int]:

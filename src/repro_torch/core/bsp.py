@@ -80,7 +80,7 @@ from repro_torch.kernels.ops import (bottomup_scan_op, ell_spmv_op,
                                      fused_superstep_op, outbox_reduce_op)
 from repro_torch.kernels.ref import (MIN, SEMIRINGS, SUM, identity,
                                      segment_reduce_ref)
-from repro_torch.runtime import chaos
+from repro_torch.runtime import chaos, tracing
 from repro_torch.runtime.failures import ExchangeCorruption
 
 State = Dict[str, torch.Tensor]  # batched: leaves [Q, Pl, ...]
@@ -387,32 +387,49 @@ def _compute_directed(dims: _Dims, program: VertexProgram, cfg: _DoptCfg,
     """Vote per query, run push, pull or both (a mixed batch selects per
     query), and fold the decisions into the direction leaves."""
     spec = program.edge_msg
-    vvals = {k: state[k].float() for k in spec.gather}
-    vconsts = {c: state[c][:, :, None].float() for c in spec.consts}
-    w_ident = 0.0 if spec.use_weight else None   # weight_op "add"
-    # per-vertex messages: the push direction's per-edge messages are
-    # gathers of these values
-    xv = spec.fn(vvals, w_ident, float(step), vconsts).float()
-    act = (xv != math.inf) & pull.vmask
-    density = act.sum((1, 2)).float() / pull.nreal
-    first = vvals[spec.gather[0]]
-    unvisited = ((first == math.inf) & pull.vmask).sum((1, 2)).float() / (
-        pull.nreal)
-    want = _dopt_want(cfg.forced, density, unvisited, pull.threshold)
-    cnt_push = (act * pull.deg).sum((1, 2))
-    cnt_bnd = (act * pull.bnd).sum((1, 2))
-    picked = set(want.tolist())
+    with tracing.span("bsp.messages"):
+        vvals = {k: state[k].float() for k in spec.gather}
+        vconsts = {c: state[c][:, :, None].float() for c in spec.consts}
+        w_ident = 0.0 if spec.use_weight else None   # weight_op "add"
+        # per-vertex messages: the push direction's per-edge messages are
+        # gathers of these values
+        xv = spec.fn(vvals, w_ident, float(step), vconsts).float()
+    with tracing.span("bsp.vote"):
+        act = (xv != math.inf) & pull.vmask
+        density = act.sum((1, 2)).float() / pull.nreal
+        first = vvals[spec.gather[0]]
+        unvisited = ((first == math.inf) & pull.vmask).sum((1, 2)).float() / (
+            pull.nreal)
+        want = _dopt_want(cfg.forced, density, unvisited, pull.threshold)
+        cnt_push = (act * pull.deg).sum((1, 2))
+        cnt_bnd = (act * pull.bnd).sum((1, 2))
+    picked = _vote_read(want)
     if picked == {_DIR_PUSH}:
-        acc, cnt = compute_push(state), cnt_push
+        with tracing.span("bsp.push"):
+            acc, cnt = compute_push(state), cnt_push
     else:
-        acc, scanned = _compute_pull(dims, cfg, pull, compute_push, state, xv,
-                                     first)
-        cnt = scanned + cnt_bnd
+        with tracing.span("bsp.pull"):
+            acc, scanned = _compute_pull(dims, cfg, pull, compute_push, state,
+                                         xv, first)
+            cnt = scanned + cnt_bnd
         if picked != {_DIR_PULL}:
             sel = want == _DIR_PULL
-            acc = torch.where(sel[:, None, None], acc, compute_push(state))
+            with tracing.span("bsp.push"):
+                push = compute_push(state)
+            acc = torch.where(sel[:, None, None], acc, push)
             cnt = torch.where(sel, cnt, cnt_push)
     return acc, _dopt_fold(dopt, want, cnt)
+
+
+def _vote_read(want: torch.Tensor) -> set:
+    """The directions a superstep's queries voted, read to the host (the
+    vote's one read), counted as a push, pull or mixed superstep."""
+    with tracing.span("bsp.vote_read"):
+        picked = set(want.tolist())
+    tracing.count("bsp.supersteps.push" if picked == {_DIR_PUSH} else
+                  "bsp.supersteps.pull" if picked == {_DIR_PULL} else
+                  "bsp.supersteps.mixed")
+    return picked
 
 
 def _superstep(dims: _Dims, program: VertexProgram, edges: dict,
@@ -444,12 +461,14 @@ def _superstep(dims: _Dims, program: VertexProgram, edges: dict,
         acc, dopt = _compute_directed(dims, program, dopt_cfg, pull,
                                       compute_push, state, step, dopt)
     else:
-        acc = compute_push(state)
+        with tracing.span("bsp.push"):
+            acc = compute_push(state)
     if delta is not None:
         acc = _combine(program.combine, acc,
                        _compute_reference(dims, program, delta, state, step))
-    return _finish_superstep(dims, program, edges["inbox_dst"], exchange,
-                             all_finished, acc, state, step, dopt)
+    with tracing.span("bsp.finish"):
+        return _finish_superstep(dims, program, edges["inbox_dst"], exchange,
+                                 all_finished, acc, state, step, dopt)
 
 
 def _finish_superstep(dims: _Dims, program: VertexProgram,
@@ -468,23 +487,26 @@ def _finish_superstep(dims: _Dims, program: VertexProgram,
     outbox = acc[:, :, v_max + 1:].reshape(q, pl, dims.num_parts, dims.o_max)
 
     # -- communicate: outbox -> symmetric inbox (paper Fig. 6) --------------
-    inbox = exchange(outbox)                  # [Q, pl, P, o_max]
+    with tracing.span("bsp.exchange"):
+        inbox = exchange(outbox)                  # [Q, pl, P, o_max]
 
     # -- scatter: one pass per peer; each local vertex has at most one slot
     # per peer, so no segment receives two values in a pass and the sum
     # order is fixed (the peer order) on every device.
-    racc = None
-    for r in range(dims.num_parts):
-        part = segment_reduce_ref(inbox[:, :, r], inbox_dst[:, r],
-                                  v_max + 1, combine)
-        racc = part if racc is None else _combine(combine, racc, part)
-    total = _combine(combine, local_acc, racc[:, :, :v_max])
+    with tracing.span("bsp.scatter"):
+        racc = None
+        for r in range(dims.num_parts):
+            part = segment_reduce_ref(inbox[:, :, r], inbox_dst[:, r],
+                                      v_max + 1, combine)
+            racc = part if racc is None else _combine(combine, racc, part)
+        total = _combine(combine, local_acc, racc[:, :, :v_max])
 
     # -- apply + vote (per query) -------------------------------------------
-    new_state, finished = program.apply_fn(state, total, float(step))
-    if dopt is not None:
-        new_state = dict(new_state, **dopt)
-    return new_state, all_finished(finished)
+    with tracing.span("bsp.apply"):
+        new_state, finished = program.apply_fn(state, total, float(step))
+        if dopt is not None:
+            new_state = dict(new_state, **dopt)
+        return new_state, all_finished(finished)
 
 
 # ---------------------------------------------------------------------------
@@ -553,39 +575,45 @@ def _hybrid_directed(cfg: _HybridCfg, arrs: dict, x: torch.Tensor,
     """
     ident = add_identity(cfg.semiring)
     if dopt is None:
-        if xq is None:
-            xq = query_minor_view(x, ident)
-        return hybrid_spmv(arrs["dense"], arrs["row_ptr"], arrs["col"],
-                           arrs["val"], xq, semiring=cfg.semiring,
-                           k_dense=cfg.k_dense, plan=arrs["plan"]), None, None
-    nf = float(max(cfg.num_vertices, 1))
-    density = (x != ident).sum(1, dtype=torch.float32) / nf
-    unvisited = first == ident
-    if vmask is not None:
-        unvisited = unvisited & vmask
-    unvisited = unvisited.sum(1, dtype=torch.float32) / nf
-    want = _dopt_want(cfg.forced, density, unvisited, cfg.pull_threshold)
-    picked = set(want.tolist())
+        with tracing.span("bsp.pull"):
+            if xq is None:
+                xq = query_minor_view(x, ident)
+            return hybrid_spmv(arrs["dense"], arrs["row_ptr"], arrs["col"],
+                               arrs["val"], xq, semiring=cfg.semiring,
+                               k_dense=cfg.k_dense,
+                               plan=arrs["plan"]), None, None
+    with tracing.span("bsp.vote"):
+        nf = float(max(cfg.num_vertices, 1))
+        density = (x != ident).sum(1, dtype=torch.float32) / nf
+        unvisited = first == ident
+        if vmask is not None:
+            unvisited = unvisited & vmask
+        unvisited = unvisited.sum(1, dtype=torch.float32) / nf
+        want = _dopt_want(cfg.forced, density, unvisited, cfg.pull_threshold)
+    picked = _vote_read(want)
     if picked != {_DIR_PULL}:
-        msgs = x[:, arrs["push_src"]]                  # [Q, E]
-        if "push_w" in arrs:
-            msgs = msgs + arrs["push_w"]
-        y_push = segment_reduce_ref(msgs, arrs["push_dst"], x.shape[1], MIN)
-        if cfg.spare:                       # the sentinel's own segment
-            y_push = y_push[:, :-1]
-        cnt_push = (msgs != ident).sum(1)
-        del msgs
+        with tracing.span("bsp.push"):
+            msgs = x[:, arrs["push_src"]]                  # [Q, E]
+            if "push_w" in arrs:
+                msgs = msgs + arrs["push_w"]
+            y_push = segment_reduce_ref(msgs, arrs["push_dst"], x.shape[1],
+                                        MIN)
+            if cfg.spare:                       # the sentinel's own segment
+                y_push = y_push[:, :-1]
+            cnt_push = (msgs != ident).sum(1)
+            del msgs
     if picked != {_DIR_PUSH}:
-        # Under the uniform licence a row already holding a value is
-        # final: a sequential bottom-up pass skips it.
-        skip = (first != ident) if cfg.uniform else None
-        if xq is None:
-            xq = query_minor_view(x, ident)
-        y_pull, scanned = hybrid_spmv_scan(
-            arrs["dense"], arrs["row_ptr"], arrs["col"], arrs["val"], xq,
-            semiring=cfg.semiring, k_dense=cfg.k_dense, plan=arrs["plan"],
-            early_exit=cfg.uniform, skip=skip)
-        cnt_pull = scanned + cfg.e_dense
+        with tracing.span("bsp.pull"):
+            # Under the uniform licence a row already holding a value is
+            # final: a sequential bottom-up pass skips it.
+            skip = (first != ident) if cfg.uniform else None
+            if xq is None:
+                xq = query_minor_view(x, ident)
+            y_pull, scanned = hybrid_spmv_scan(
+                arrs["dense"], arrs["row_ptr"], arrs["col"], arrs["val"], xq,
+                semiring=cfg.semiring, k_dense=cfg.k_dense, plan=arrs["plan"],
+                early_exit=cfg.uniform, skip=skip)
+            cnt_pull = scanned + cfg.e_dense
     if picked == {_DIR_PUSH}:
         return y_push, want, cnt_push
     if picked == {_DIR_PULL}:
@@ -608,14 +636,16 @@ def _superstep_hybrid(program: VertexProgram, cfg: _HybridCfg, arrs: dict,
     chaos.visit("kernel.hybrid", distributed=False)
     _require_f32(program.edge_msg, state, HYBRID)
     state, dopt = _dopt_strip(state)
-    vals, x = _hybrid_messages(program, arrs, state, step)     # [Q, n]
-    if cfg.spare:    # the sentinel column n that spare slots read
-        x = torch.cat([x, torch.full((x.shape[0], 1), add_identity(
-            cfg.semiring), dtype=x.dtype, device=x.device)], dim=1)
+    with tracing.span("bsp.messages"):
+        vals, x = _hybrid_messages(program, arrs, state, step)     # [Q, n]
+        if cfg.spare:    # the sentinel column n that spare slots read
+            x = torch.cat([x, torch.full((x.shape[0], 1), add_identity(
+                cfg.semiring), dtype=x.dtype, device=x.device)], dim=1)
     y, want, cnt = _hybrid_directed(cfg, arrs, x,
                                     vals[program.edge_msg.gather[0]], dopt)
-    return _hybrid_finish(program, cfg, arrs["hid"], state, y, step, dopt,
-                          want, cnt)
+    with tracing.span("bsp.finish"):
+        return _hybrid_finish(program, cfg, arrs["hid"], state, y, step,
+                              dopt, want, cnt)
 
 
 def _hybrid_finish(program: VertexProgram, cfg: _HybridCfg,
@@ -781,12 +811,17 @@ def _run_chunked_loop(step_fn: Callable, chunk: int, max_steps: int,
     """
     step, fin, steps_q = int(step0), fin0, steps_q0
     stop = min(max_steps, step + chunk)
-    while step < stop and not bool(fin.all()):
-        new, vote = step_fn(state, step)
-        state = {k: torch.where(fin.view((-1,) + (1,) * (v.dim() - 1)),
-                                state[k], v) for k, v in new.items()}
-        steps_q = steps_q + (~fin).to(torch.int32)
-        fin = fin | vote
+    while step < stop:
+        with tracing.span("bsp.loop_read"):
+            done = bool(fin.all())
+        if done:
+            break
+        with tracing.span("bsp.superstep", step=step):
+            new, vote = step_fn(state, step)
+            state = {k: torch.where(fin.view((-1,) + (1,) * (v.dim() - 1)),
+                                    state[k], v) for k, v in new.items()}
+            steps_q = steps_q + (~fin).to(torch.int32)
+            fin = fin | vote
         step += 1
     return state, step, fin, steps_q
 
@@ -1095,7 +1130,8 @@ class BSPEngine:
         self.tier_plan: Optional[TierPlan] = None
         self.tiered_buffers_made = 0
         self._tiered_req, self._win_blocks = tiered, win_blocks
-        self._bind(pg, tiered=tiered is not None)
+        with tracing.span("engine.bind"):
+            self._bind(pg, tiered=tiered is not None)
         if tiered is not None:
             self._bind_tiered(tiered, win_blocks)
 
@@ -1139,8 +1175,9 @@ class BSPEngine:
                     "the hybrid backend needs PartitionedGraph.source; "
                     "partition with core.partition.partition()")
             self._splits = splits_of(pg)
-            self._hybrid_plan = self._plan_hybrid(self._hybrid_k_dense,
-                                                  self._block_e)
+            with tracing.span("engine.plan"):
+                self._hybrid_plan = self._plan_hybrid(self._hybrid_k_dense,
+                                                      self._block_e)
         elif self._direction_switch and not tiered and self.dg is None:
             # the transposed rows do not track mutations: dynamic graphs
             # push only on these backends, as in the JAX package
@@ -1302,13 +1339,16 @@ class BSPEngine:
         if hit is not None:
             return hit
         g = self._splits.graph(reverse)
-        layout = self._splits.layout(self._hybrid_plan["k_dense"], reverse)
-        slot, hid = self._slot_hid(layout, g.num_vertices)
-        shared = dict(row_ptr=self._put(layout.row_ptr, torch.int32),
-                      plan=layout.plan.to(self.device),
-                      col=self._put(layout.src[layout.rest], torch.int32),
-                      slot=self._put(slot, torch.int64),
-                      hid=self._put(hid, torch.int64))
+        with tracing.span("hybrid.split_layout"):
+            layout = self._splits.layout(self._hybrid_plan["k_dense"],
+                                         reverse)
+            slot, hid = self._slot_hid(layout, g.num_vertices)
+        with tracing.span("hybrid.upload"):
+            shared = dict(row_ptr=self._put(layout.row_ptr, torch.int32),
+                          plan=layout.plan.to(self.device),
+                          col=self._put(layout.src[layout.rest], torch.int32),
+                          slot=self._put(slot, torch.int64),
+                          hid=self._put(hid, torch.int64))
         self._hybrid_layouts[reverse] = (g, layout, shared)
         return g, layout, shared
 
@@ -1342,15 +1382,17 @@ class BSPEngine:
         the tensors ``_superstep_hybrid`` reads."""
         semiring = self._hybrid_semiring(program)
         g, layout, shared = self._hybrid_layout(program.use_reverse)
-        hg = self._splits.split(layout.k_dense, program.use_reverse, semiring,
-                                program.edge_msg.use_weight)
-        arrs = dict(shared, dense=self._put(hg.dense_block, torch.float32),
-                    val=self._put(hg.ell_val, torch.float32))
-        if program.combine == MIN and self._direction_switch:
-            arrs["push_src"] = self._put(layout.src, torch.int64)
-            arrs["push_dst"] = self._put(layout.dst, torch.int64)
-            if semiring == MIN_PLUS and g.weights is not None:
-                arrs["push_w"] = self._put(g.weights, torch.float32)
+        with tracing.span("hybrid.degree_split"):
+            hg = self._splits.split(layout.k_dense, program.use_reverse,
+                                    semiring, program.edge_msg.use_weight)
+        with tracing.span("hybrid.upload"):
+            arrs = dict(shared, dense=self._put(hg.dense_block, torch.float32),
+                        val=self._put(hg.ell_val, torch.float32))
+            if program.combine == MIN and self._direction_switch:
+                arrs["push_src"] = self._put(layout.src, torch.int64)
+                arrs["push_dst"] = self._put(layout.dst, torch.int64)
+                if semiring == MIN_PLUS and g.weights is not None:
+                    arrs["push_w"] = self._put(g.weights, torch.float32)
         return self._hybrid_cfg(program, g, hg), arrs
 
     def hybrid_for(self, program: VertexProgram) -> Tuple[_HybridCfg, dict]:
@@ -1364,7 +1406,8 @@ class BSPEngine:
             return self._hybrid_dyn_for(program)
         key = self._hybrid_key(program)
         if key not in self._hybrid_cache:
-            self._hybrid_cache[key] = self._build_hybrid(program)
+            with tracing.span("hybrid.split"):
+                self._hybrid_cache[key] = self._build_hybrid(program)
         return self._hybrid_cache[key]
 
     def _direction_enabled(self, program: VertexProgram,
@@ -2204,11 +2247,19 @@ class BSPEngine:
                     f"chunk= — boundary hooks and resume carries only "
                     f"exist in chunked mode; pass chunk=<supersteps per "
                     f"window> (e.g. chunk=2).")
-        if modes["chunk"]:
-            return self._run_batched_chunked(
-                program, state, checkpoint_every=chunk, on_chunk=on_chunk,
-                start_step=start_step, fin=fin, steps_q=steps_q,
-                max_chunks=max_chunks, chaos_ctx=chaos_ctx, monitor=monitor)
+        with tracing.span("engine.execute"):
+            if modes["chunk"]:
+                return self._run_batched_chunked(
+                    program, state, checkpoint_every=chunk,
+                    on_chunk=on_chunk, start_step=start_step, fin=fin,
+                    steps_q=steps_q, max_chunks=max_chunks,
+                    chaos_ctx=chaos_ctx, monitor=monitor)
+            return self._execute(program, state, num_steps, incremental)
+
+    def _execute(self, program: VertexProgram, state: State,
+                 num_steps: Optional[int], incremental):
+        """``execute`` to convergence, for ``num_steps`` or from a warm
+        start, its arguments checked."""
         if self.dg is not None:
             self._sync_dynamic()
         self.last_direction_stats = None
@@ -2238,7 +2289,8 @@ class BSPEngine:
         if num_steps is not None:
             step_fn = self._step_fn(program, dopt_cfg)
             for i in range(num_steps):
-                state, _ = step_fn(state, i)
+                with tracing.span("bsp.superstep", step=i):
+                    state, _ = step_fn(state, i)
             return self._dopt_finish(self._global(state))
         step_fn = self._step_fn(program, dopt_cfg)
         state, steps_q = _run_batched_loop(step_fn, program.max_steps, state,
@@ -2249,10 +2301,11 @@ class BSPEngine:
         """Strip the direction leaves and record per-query aggregates."""
         state, dopt = _dopt_strip(state)
         if dopt is not None:
-            self.last_direction_stats = dict(
-                direction=dopt["_dopt_dir"].cpu().numpy(),
-                edges_examined=dopt["_dopt_edges"].sum(1).cpu().numpy(),
-                switches=dopt["_dopt_switch"].sum(1).cpu().numpy())
+            with tracing.span("engine.direction_stats"):
+                self.last_direction_stats = dict(
+                    direction=dopt["_dopt_dir"].cpu().numpy(),
+                    edges_examined=dopt["_dopt_edges"].sum(1).cpu().numpy(),
+                    switches=dopt["_dopt_switch"].sum(1).cpu().numpy())
         return state
 
     # ---------------------- chunked (continuous) mode ----------------------

@@ -22,6 +22,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.runtime import tracing
+
 # The paper's RMAT parameters (Table 2).
 RMAT_A, RMAT_B, RMAT_C = 0.57, 0.19, 0.19
 DEFAULT_EDGE_FACTOR = 16
@@ -113,23 +115,24 @@ def from_edge_list(src: np.ndarray, dst: np.ndarray, num_vertices: int,
                    weights: Optional[np.ndarray] = None,
                    dedup: bool = False) -> CSRGraph:
     """Build CSR from a (src, dst) edge list.  Sorts by (src, dst)."""
-    src, dst = np.asarray(src), np.asarray(dst)
-    _validate_edge_list(src, dst, num_vertices, weights, "from_edge_list")
-    order = np.lexsort((dst, src))
-    src, dst = src[order], dst[order]
-    if weights is not None:
-        weights = weights[order]
-    if dedup:
-        keep = np.ones(len(src), dtype=bool)
-        keep[1:] = (src[1:] != src[:-1]) | (dst[1:] != dst[:-1])
-        src, dst = src[keep], dst[keep]
+    with tracing.span("graph.from_edge_list"):
+        src, dst = np.asarray(src), np.asarray(dst)
+        _validate_edge_list(src, dst, num_vertices, weights, "from_edge_list")
+        order = np.lexsort((dst, src))
+        src, dst = src[order], dst[order]
         if weights is not None:
-            weights = weights[keep]
-    row_ptr = np.zeros(num_vertices + 1, dtype=np.int64)
-    np.add.at(row_ptr, src + 1, 1)
-    row_ptr = np.cumsum(row_ptr)
-    dtype = np.int32 if num_vertices < 2**31 else np.int64
-    return CSRGraph(row_ptr, dst.astype(dtype), weights)
+            weights = weights[order]
+        if dedup:
+            keep = np.ones(len(src), dtype=bool)
+            keep[1:] = (src[1:] != src[:-1]) | (dst[1:] != dst[:-1])
+            src, dst = src[keep], dst[keep]
+            if weights is not None:
+                weights = weights[keep]
+        row_ptr = np.zeros(num_vertices + 1, dtype=np.int64)
+        np.add.at(row_ptr, src + 1, 1)
+        row_ptr = np.cumsum(row_ptr)
+        dtype = np.int32 if num_vertices < 2**31 else np.int64
+        return CSRGraph(row_ptr, dst.astype(dtype), weights)
 
 
 def rmat(scale: int, edge_factor: int = DEFAULT_EDGE_FACTOR,

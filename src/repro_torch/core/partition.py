@@ -32,6 +32,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 
 from repro_torch.core.graph import CSRGraph
+from repro_torch.runtime import tracing
 
 RAND = "rand"
 HIGH = "high"
@@ -333,34 +334,43 @@ def partition(g: CSRGraph, num_parts: int, strategy: str = RAND,
     """Partition ``g`` into ``num_parts`` fixed-shape partitions.
 
     ``spare_outbox`` reserves unassigned outbox slots per peer pair for the
-    dynamic layer's in-place edge inserts (``core/dynamic.py``)."""
-    asg = assign_vertices(g, num_parts, strategy, cpu_edge_fraction, seed)
-    v_max = max(_round_up(int(asg.part_sizes.max()), align), align)
+    dynamic layer's in-place edge inserts (``core/dynamic.py``).
+    ``partition.blocks`` spans the per-partition degree and mask blocks
+    and the boundary counts."""
+    with tracing.span("partition.partition"):
+        with tracing.span("partition.assign"):
+            asg = assign_vertices(g, num_parts, strategy, cpu_edge_fraction,
+                                  seed)
+        v_max = max(_round_up(int(asg.part_sizes.max()), align), align)
 
-    fwd = _build_edge_arrays(g, asg, v_max, align, spare_outbox)
-    rev = (_build_edge_arrays(g.reverse(), asg, v_max, align, spare_outbox)
-           if include_reverse else None)
+        with tracing.span("partition.edge_arrays"):
+            fwd = _build_edge_arrays(g, asg, v_max, align, spare_outbox)
+            rev = (_build_edge_arrays(g.reverse(), asg, v_max, align,
+                                      spare_outbox)
+                   if include_reverse else None)
 
-    deg = g.out_degrees().astype(np.float32)
-    out_deg = np.zeros((num_parts, v_max), dtype=np.float32)
-    vertex_mask = np.zeros((num_parts, v_max), dtype=bool)
-    for p, l2g in enumerate(asg.l2g):
-        out_deg[p, : len(l2g)] = deg[l2g]
-        vertex_mask[p, : len(l2g)] = True
+        with tracing.span("partition.blocks"):
+            deg = g.out_degrees().astype(np.float32)
+            out_deg = np.zeros((num_parts, v_max), dtype=np.float32)
+            vertex_mask = np.zeros((num_parts, v_max), dtype=bool)
+            for p, l2g in enumerate(asg.l2g):
+                out_deg[p, : len(l2g)] = deg[l2g]
+                vertex_mask[p, : len(l2g)] = True
 
-    total_e = max(g.num_edges, 1)
-    boundary = int((asg.part_of[g.edge_sources()] !=
-                    asg.part_of[g.col]).sum())
-    slots = int(fwd.outbox_mask.sum())
-    return PartitionedGraph(
-        num_parts=num_parts, num_vertices=g.num_vertices,
-        num_edges=g.num_edges, v_max=v_max, assignment=asg, fwd=fwd, rev=rev,
-        out_deg=out_deg, vertex_mask=vertex_mask,
-        alpha=fwd.num_edges / total_e,
-        beta_no_reduction=boundary / total_e,
-        beta_with_reduction=slots / total_e,
-        source=g,
-    )
+            total_e = max(g.num_edges, 1)
+            boundary = int((asg.part_of[g.edge_sources()] !=
+                            asg.part_of[g.col]).sum())
+            slots = int(fwd.outbox_mask.sum())
+        return PartitionedGraph(
+            num_parts=num_parts, num_vertices=g.num_vertices,
+            num_edges=g.num_edges, v_max=v_max, assignment=asg, fwd=fwd,
+            rev=rev,
+            out_deg=out_deg, vertex_mask=vertex_mask,
+            alpha=fwd.num_edges / total_e,
+            beta_no_reduction=boundary / total_e,
+            beta_with_reduction=slots / total_e,
+            source=g,
+        )
 
 
 # ---------------------------------------------------------------------------

@@ -20,6 +20,8 @@ from typing import Dict, Iterable, Tuple
 
 import torch
 
+from repro_torch.runtime import tracing
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 
@@ -97,8 +99,11 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, building it if needed."""
     lib = _loaded.get(name)
     if lib is None:
-        path, _ = build_all([name])[name]
-        lib = ctypes.CDLL(str(path))
+        built = not library_path(name).exists()
+        with tracing.span("kernels.load", built=int(built)):
+            path, _ = build_all([name])[name]
+            lib = ctypes.CDLL(str(path))
+        tracing.count("kernels.built", int(built))
         _loaded[name] = lib
     return lib
 

@@ -58,7 +58,7 @@ def test_every_module_imports_without_jax_or_repro():
                  "configs.xlstm_125m", "configs.zamba2_2_7b",
                  "launch.mesh", "launch.sharding", "launch.dryrun",
                  "launch.calculator", "launch.collectives",
-                 "launch.mesh_selftest"):
+                 "launch.mesh_selftest", "runtime.tracing"):
         assert f"repro_torch.{name}" in names
 
 
